@@ -1,0 +1,414 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
+repository checkout around this file; imports nothing of JAX or of the
+JAX package.  Phases, in order — any failure exits non-zero:
+
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
+2. set up the main path's data: ``random_geometric_topology(n=1M, k=8)``,
+   p = 32 solitary models and confidences from a seed, and a ``lossy-10``
+   event stream (batch n/10, 200 rounds) drawn by the port's scheduler on
+   the card;
+3. hold each kernel against its plain PyTorch version on the card at the
+   shapes its path gives it, and time the kernel, the plain version and,
+   where one exists, one library call of the same function;
+4. drive the paths through the user entry points, each with the launch
+   counts set to 0 just before and read just after:
+   a. ``run_scenario(ScenarioSpec(algo="mp", ...))`` fused (``round_step``
+      kernel, one launch per round) and per-op on the same stream: equal
+      counters, theta_hist within 1e-5, the accounting invariant;
+   b. ``sparse_sync_mp`` on the same topology, 50 sweeps through
+      ``sparse_gather_mix``, against the plain path;
+   c. ``synchronous`` on ``random_geometric_graph(2048, k=8)``, D = 4096,
+      100 steps through ``graph_mix``, against the plain path.
+
+Prints one JSON line per kernel, then ``{"kernels": [...]}``, the card's
+name and power limit as nvidia-smi reports them, and last
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# H100 SXM data-sheet peaks (dense, no sparsity) used for the bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12            # float32 outside the tensor cores
+
+N_AGENTS, K_NN, P = 1_000_000, 8, 32
+BATCH, ROUNDS, RECORD = N_AGENTS // 10, 200, 50
+SWEEPS = 50
+WARM = 10          # rounds replayed before round_step is held and timed
+N_DENSE, K_DENSE, D_DENSE, STEPS = 2048, 8, 4096, 100
+ALPHA, SEED = 0.9, 0
+DEVICE = "cuda"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, from
+    CUDA events after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_graph_mix(torch, gm, graph_inputs):
+    """graph_mix at the synchronous path's shapes and inputs."""
+    theta, sol, A, b = graph_inputs
+    n, D = theta.shape
+    got = gm.graph_mix(theta, sol, A, b)
+    want = gm.graph_mix_plain(theta, sol, A, b)
+    err = (got - want).abs().max().item()
+    bsol = b[:, None] * sol
+    n_bytes = 4 * (n * n + 3 * n * D + n)
+    n_ops = 2 * n * n * D + 2 * n * D
+    bms, by = bound_ms(n_bytes, n_ops)
+    return dict(
+        name="graph_mix", route="cuda",
+        source="src/repro_torch/kernels/csrc/graph_mix.cu",
+        replaces="src/repro/kernels/graph_mix.py:28",
+        shape=f"n={n} D={D}", max_abs_err=err, tol=1e-5,
+        ms=time_ms(torch, lambda: gm.graph_mix(theta, sol, A, b), 20),
+        plain_ms=time_ms(torch, lambda: gm.graph_mix_plain(theta, sol, A, b),
+                         20),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.addmm(bsol, A, theta), 20),
+        library_call="torch.addmm(b*sol, A, theta)")
+
+
+def check_sparse_mix(torch, sm, table, idx, w, b, sol):
+    """sparse_gather_mix at the sparse_sync_mp path's shapes and inputs:
+    a steady-state sweep, whose table (the previous sweep's output) is a
+    tensor apart from ``sol``, so each is counted once in the bound."""
+    n, k = idx.shape
+    p = table.shape[1]
+    if table.data_ptr() == sol.data_ptr():
+        raise ValueError("check_sparse_mix: give a table apart from sol")
+    got = sm.sparse_gather_mix(table, idx, w, b, sol)
+    want = sm.sparse_gather_mix_plain(table, idx, w, b, sol)
+    err = (got - want).abs().max().item()
+    rows_read = torch.unique(idx).numel()
+    n_bytes = 4 * (rows_read * p + 2 * n * k + n + 2 * n * p)
+    n_ops = 2 * n * k * p + 2 * n * p
+    bms, by = bound_ms(n_bytes, n_ops)
+    # one library call of the same function: a CSR sparse product
+    crow = torch.arange(0, n * k + 1, k, device=idx.device)
+    S = torch.sparse_csr_tensor(crow, idx.reshape(-1).long(), w.reshape(-1),
+                                size=(n, table.shape[0]),
+                                check_invariants=False)
+    bsol = b[:, None] * sol
+    lib_err = (torch.addmm(bsol, S, table) - want).abs().max().item()
+    return dict(
+        name="sparse_gather_mix", route="cuda",
+        source="src/repro_torch/kernels/csrc/sparse_mix.cu",
+        replaces="src/repro/kernels/sparse_mix.py:32",
+        shape=f"N={table.shape[0]} n={n} k={k} p={p}", max_abs_err=err,
+        tol=1e-5,
+        ms=time_ms(torch, lambda: sm.sparse_gather_mix(table, idx, w, b,
+                                                       sol), 20),
+        plain_ms=time_ms(torch, lambda: sm.sparse_gather_mix_plain(
+            table, idx, w, b, sol), 20),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.addmm(bsol, S, table), 20),
+        library_call="torch.addmm(b*sol, csr(w, idx), table)",
+        library_max_abs_err=lib_err)
+
+
+def check_round_step(torch, rf, state, ops):
+    """round_step at the scenario path's shapes: the main path's state
+    after ``WARM`` rounds and the next round's prefetched events, so that
+    rows on their first receipt (start from theta_base) and rows past it
+    (start from theta) are both held against the plain version."""
+    theta, Ke, got_ever, theta_base, a_w = state
+    msg, tgt_row, enc, k_old = ops
+
+    def fresh():
+        return theta.clone(), Ke.clone(), got_ever.clone()
+
+    got = rf.round_step(*fresh(), msg, tgt_row, enc, k_old, theta_base, a_w)
+    want = rf.round_step_plain(*fresh(), msg, tgt_row, enc, k_old,
+                               theta_base, a_w)
+    if not (torch.equal(got[3], want[3]) and torch.equal(got[2], want[2])):
+        raise AssertionError("round_step: keep/got_ever differ from the "
+                             "plain version")
+    err = max((got[0] - want[0]).abs().max().item(),
+              (got[1] - want[1]).abs().max().item())
+    keep = want[3]
+    del got, want
+    n, p = theta.shape
+    m = msg.shape[0]
+    win_rows = tgt_row[keep].long()
+    W = int(keep.sum())
+    rows = torch.unique(win_rows)
+    R = rows.numel()
+    F = int((~got_ever[rows]).sum())
+    if not 0 < F < R:
+        raise AssertionError(f"round_step: {F} of {R} touched rows are "
+                             f"first receipts; both branches must be held")
+    # enc + tgt_row + keep per event; winners' msg, k_old, a_w and Ke row;
+    # touched rows' theta (read unless first receipt) + write, theta_base
+    # on first receipts, got_ever read + write
+    n_bytes = (9 * m + W * (4 * 2 * p + 4 + 4 * (p + 1))
+               + 4 * p * ((R - F) + R + F) + 2 * R)
+    n_ops = 3 * W * p
+    bms, by = bound_ms(n_bytes, n_ops)
+    th, ke, ge = fresh()
+    return dict(
+        name="round_step", route="cuda",
+        source="src/repro_torch/kernels/csrc/round_step.cu",
+        replaces="src/repro/kernels/round_fuse.py:256",
+        shape=f"n={n} k={Ke.shape[0] // n} p={p} m={m} winners={W} "
+              f"rows={R} first={F}",
+        max_abs_err=err, tol=1e-6,
+        ms=time_ms(torch, lambda: rf.round_step(th, ke, ge, msg, tgt_row,
+                                                enc, k_old, theta_base,
+                                                a_w), 50),
+        plain_ms=time_ms(torch, lambda: rf.round_step_plain(
+            th, ke, ge, msg, tgt_row, enc, k_old, theta_base, a_w), 10),
+        bound_ms=bms, bound_by=by, library_ms=None, library_call=None)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is False: this smoke run "
+                    "needs a CUDA card")
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        return fail(f"{src / 'repro_torch'} not found: run chip_smoke.py "
+                    f"from a checkout of the repository")
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import numpy as np
+
+    from repro_torch.core.graph import random_geometric_graph
+    from repro_torch.core.model_propagation import (mp_mix_operator,
+                                                    synchronous)
+    from repro_torch.core.sparse import batched_model_update
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import graph_mix as gm
+    from repro_torch.kernels import round_fuse as rf
+    from repro_torch.kernels import sparse_mix as sm
+    from repro_torch.simulate import (ScenarioSpec, get_scenario,
+                                      precompute_event_stream,
+                                      random_geometric_topology,
+                                      run_scenario, sparse_sync_mp)
+
+    dev = torch.device(DEVICE)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {kind} ({smi}); torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    # 1. build -------------------------------------------------------------
+    _build.library()
+    log(f"[1] kernels built and loaded in {_build.build_seconds:.1f} s")
+
+    # 2. main-path data ----------------------------------------------------
+    t0 = time.perf_counter()
+    topo = random_geometric_topology(N_AGENTS, k=K_NN, seed=SEED)
+    topo_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    sol_np = rng.standard_normal((N_AGENTS, P)).astype(np.float32)
+    c_np = rng.uniform(0.05, 1.0, N_AGENTS).astype(np.float32)
+    tabs = topo.device_tables(dev)
+    sol = torch.as_tensor(sol_np, device=dev)
+    c = torch.as_tensor(c_np, device=dev)
+    cond = get_scenario("lossy-10").make_conditions(ROUNDS)
+    t0 = time.perf_counter()
+    stream = precompute_event_stream(
+        tabs, torch.as_tensor(topo.partition_halves()), cond, BATCH, SEED,
+        ROUNDS, device=dev)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    log(f"[2] topology n={topo.n} k_max={topo.k_max} edges={topo.n_edges} "
+        f"built on the host in {topo_s:.2f} s; lossy-10 stream "
+        f"({ROUNDS} x {BATCH}) drawn on the card in {stream_s:.2f} s")
+
+    # 3. each kernel against its plain version ------------------------------
+    w, b = mp_mix_operator(tabs.nbr_p, c, ALPHA)
+    w, b = w.contiguous(), b.contiguous()
+    K0 = sol[tabs.nbr_idx]
+    theta, Ke = sol.clone(), rf.encode_slots(K0)
+    got_ever = torch.zeros(N_AGENTS, dtype=torch.bool, device=dev)
+    theta_base = batched_model_update(tabs.nbr_p, K0, c, sol,
+                                      ALPHA).contiguous()
+    a_w = rf.round_scales(tabs.nbr_p, c, alpha=ALPHA).contiguous()
+    del K0
+    # the fused body's first WARM rounds (stale messages read the model at
+    # the start of the previous round), then round WARM's operands
+    prev = theta.clone()
+    for t in range(WARM + 1):
+        ev = stream.batch_at(t)
+        ops = rf.round_prefetch(theta, prev, Ke, ev.i, ev.j, ev.s, ev.r,
+                                ev.deliver_ij, ev.deliver_ji, ev.stale_ij,
+                                ev.stale_ji)
+        if t == WARM:
+            break
+        prev.copy_(theta)
+        theta, Ke, got_ever, _ = rf.round_step(theta, Ke, got_ever, *ops,
+                                               theta_base, a_w)
+    del prev
+    state = (theta, Ke, got_ever, theta_base, a_w)
+    del theta, Ke, got_ever
+    # sweep 2 of sparse_sync_mp: its table is sweep 1's output
+    table = sm.sparse_gather_mix_plain(sol, tabs.nbr_idx, w, b, sol)
+    g = random_geometric_graph(N_DENSE, k=K_DENSE, seed=SEED)
+    P_dense = torch.as_tensor(g.P, dtype=torch.float32, device=dev)
+    c_dense = torch.as_tensor(rng.uniform(0.05, 1.0, N_DENSE),
+                              dtype=torch.float32, device=dev)
+    sol_dense = torch.as_tensor(
+        rng.standard_normal((N_DENSE, D_DENSE)), dtype=torch.float32,
+        device=dev)
+    A_mix, b_dense = mp_mix_operator(P_dense, c_dense, ALPHA)
+    graph_inputs = (sol_dense, sol_dense, A_mix.contiguous(),
+                    b_dense.contiguous())
+
+    kernels = [check_round_step(torch, rf, state, ops),
+               check_sparse_mix(torch, sm, table, tabs.nbr_idx, w, b, sol),
+               check_graph_mix(torch, gm, graph_inputs)]
+    del state, ops, table
+    for kr in kernels:
+        log(json.dumps(kr))
+        if not kr["max_abs_err"] <= kr["tol"]:
+            return fail(f"{kr['name']}: max_abs_err {kr['max_abs_err']} "
+                        f"> {kr['tol']}")
+    log("[3] every kernel agrees with its plain version")
+
+    # 4a. the scenario path: fused (round_step kernel) and per-op ----------
+    spec = dict(algo="mp", topology=topo, conditions=cond, rounds=ROUNDS,
+                batch=BATCH, seed=SEED, record_every=RECORD, theta_sol=sol,
+                c=c, alpha=ALPHA, stream=stream, device=dev)
+    runs, counts = {}, {}
+    for name, backend in (("fused", dispatch.ReproBackend()),
+                          ("per-op", None)):
+        dispatch.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = run_scenario(ScenarioSpec(**spec, backend=backend))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[name] = dispatch.launch_counts()
+        runs[name] = tr
+        log(f"[4a] {name}: {tr.rounds} rounds, {tr.events} events in "
+            f"{secs:.3f} s = {tr.events / secs:.4g} events/s; "
+            f"delivered={tr.delivered} dropped={tr.dropped} "
+            f"invalid={tr.invalid}; launches {counts[name]}")
+    fu, po = runs["fused"], runs["per-op"]
+    if counts["fused"]["round_step"] != fu.rounds:
+        return fail(f"fused run launched round_step "
+                    f"{counts['fused']['round_step']} times for "
+                    f"{fu.rounds} rounds")
+    if any(counts["per-op"].values()):
+        return fail(f"per-op run launched kernels: {counts['per-op']}")
+    if (fu.delivered, fu.dropped, fu.invalid, fu.events) != \
+            (po.delivered, po.dropped, po.invalid, po.events):
+        return fail("fused and per-op counters differ")
+    if fu.delivered + fu.dropped != 2 * (fu.events - fu.invalid):
+        return fail("accounting invariant broken")
+    if fu.theta_hist.shape != (ROUNDS // RECORD, N_AGENTS, P) \
+            or not torch.isfinite(fu.theta_hist).all():
+        return fail(f"theta_hist {tuple(fu.theta_hist.shape)} not finite "
+                    f"or of the wrong shape")
+    hist_err = (fu.theta_hist - po.theta_hist).abs().max().item()
+    moved = (fu.theta_hist[-1] - sol).abs().max().item()
+    log(f"[4a] theta_hist fused vs per-op max |diff| = {hist_err:.3g} "
+        f"(tol 1e-5); max |theta - theta_sol| = {moved:.3g}")
+    if not hist_err <= 1e-5 or not moved > 0:
+        return fail("fused trajectory disagrees with the per-op one")
+    del runs, fu, po
+
+    # 4b. sparse_sync_mp through sparse_gather_mix -------------------------
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = sparse_sync_mp(topo, sol, c, ALPHA, SWEEPS, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts["sparse_sync_mp"] = dispatch.launch_counts()
+    want = sparse_sync_mp(topo, sol, c, ALPHA, SWEEPS, device=dev,
+                          backend=dispatch.ReproBackend(default="reference"))
+    err = (got - want).abs().max().item()
+    log(f"[4b] sparse_sync_mp: {SWEEPS} sweeps in {secs:.3f} s, "
+        f"launches {counts['sparse_sync_mp']}, max |kernel - plain| = "
+        f"{err:.3g} (tol 1e-5)")
+    if counts["sparse_sync_mp"]["sparse_gather_mix"] != SWEEPS \
+            or not err <= 1e-5 or not torch.isfinite(got).all():
+        return fail("sparse_sync_mp path")
+
+    # 4c. synchronous through graph_mix ------------------------------------
+    sol_d = sol_dense.cpu().numpy()
+    c_d = c_dense.cpu().numpy()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = synchronous(g, sol_d, c_d, ALPHA, STEPS, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts["synchronous"] = dispatch.launch_counts()
+    want = synchronous(g, sol_d, c_d, ALPHA, STEPS, device=dev,
+                       backend=dispatch.ReproBackend(default="reference"))
+    err = (got - want).abs().max().item()
+    log(f"[4c] synchronous: {STEPS} steps in {secs:.3f} s, launches "
+        f"{counts['synchronous']}, max |kernel - plain| = {err:.3g} "
+        f"(tol 1e-5)")
+    if counts["synchronous"]["graph_mix"] != STEPS or not err <= 1e-5 \
+            or not torch.isfinite(got).all():
+        return fail("synchronous path")
+
+    path_of = {"round_step": "fused", "sparse_gather_mix": "sparse_sync_mp",
+               "graph_mix": "synchronous"}
+    summary = []
+    for kr in kernels:
+        kr["launches"] = counts[path_of[kr["name"]]][kr["name"]]
+        summary.append({k: kr[k] for k in (
+            "name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+    log(json.dumps({"kernels": summary}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,94 @@
+"""Padded per-agent datasets, solitary models and confidences (paper
+Eq. 1, §3.1) — the subset of ``repro.core.losses`` the model-propagation
+problems need.
+
+Datasets are padded to a common max size with a mask, so the whole agent
+population is processed as one batch (agents have widely varying m_i by
+design — that unbalancedness is central to the paper).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class AgentData:
+    """Padded per-agent datasets (float32 tensors on one device).
+
+    x: (n, m_max, p)   features (for mean estimation: the samples)
+    y: (n, m_max)      labels (+-1 for classification; unused for means)
+    mask: (n, m_max)   1.0 for real examples, 0.0 for padding
+    """
+
+    x: torch.Tensor
+    y: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        """Number of agents."""
+        return self.x.shape[0]
+
+    @property
+    def counts(self) -> torch.Tensor:
+        """(n,) live-sample counts m_i (drives confidences, §2.2)."""
+        return self.mask.sum(dim=1)
+
+
+def pad_datasets(xs, ys=None, device=None) -> AgentData:
+    """Stack variable-length per-agent datasets into an AgentData on
+    ``device`` (CUDA when None)."""
+    device = resolve_device(device)
+    n = len(xs)
+    m_max = max(1, max(len(x) for x in xs))
+    p = 1
+    for xi in xs:
+        a = np.asarray(xi)
+        if a.size:
+            p = a.shape[1] if a.ndim > 1 else 1
+            break
+    x = np.zeros((n, m_max, p))
+    y = np.zeros((n, m_max))
+    mask = np.zeros((n, m_max))
+    for i, xi in enumerate(xs):
+        m = len(xi)
+        if m:
+            x[i, :m] = np.asarray(xi, dtype=np.float64).reshape(m, -1)
+            mask[i, :m] = 1.0
+            if ys is not None:
+                y[i, :m] = np.asarray(ys[i], dtype=np.float64)
+    f = dict(dtype=torch.float32, device=device)
+    return AgentData(torch.as_tensor(x, **f), torch.as_tensor(y, **f),
+                     torch.as_tensor(mask, **f))
+
+
+def solitary_mean(data: AgentData) -> torch.Tensor:
+    """Closed-form solitary model for the quadratic loss: the local mean.
+
+    Agents with m_i = 0 get theta = 0 (their confidence is ~0, so the
+    value is overridden by propagation).
+    """
+    cnt = data.counts[:, None]
+    s = torch.sum(data.x * data.mask[..., None], dim=1)
+    return torch.where(cnt > 0, s / cnt.clamp(min=1.0), 0.0)
+
+
+def confidences_from_counts(counts, floor: float = 1e-3,
+                            device=None) -> torch.Tensor:
+    """c_i = m_i / max_j m_j, clipped to [floor, 1] — paper §3.1.
+
+    A tensor ``counts`` keeps its device; anything else goes to ``device``
+    (CUDA when None).
+    """
+    if not isinstance(counts, torch.Tensor):
+        counts = torch.as_tensor(np.asarray(counts),
+                                 device=resolve_device(device))
+    counts = counts.to(torch.float32)
+    c = counts / torch.clamp(counts.max(), min=1.0)
+    return torch.clamp(c, floor, 1.0)

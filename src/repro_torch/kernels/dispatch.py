@@ -1,0 +1,148 @@
+"""Backend dispatch for the model-propagation hot paths (counterpart of
+``repro.kernels.dispatch``, slimmed to this port's ops and impls).
+
+A registry keyed by
+
+    op   ∈ {mix, sparse_mix, round_step, neighbor_aggregate}
+    impl ∈ {reference, cuda}
+
+maps to callables; ``resolve(op, backend, device)`` returns the one a call
+site uses.  ``reference`` is plain PyTorch (``kernels.ref``, which is
+also each kernel module's plain version), ``cuda`` the hand-written Hopper
+kernel.  Selection:
+
+* **auto** (the default): ``cuda`` for a CUDA device where the op has a
+  kernel, ``reference`` otherwise (CPU tensors, or ``neighbor_aggregate``,
+  which has no kernel).
+* per-op **overrides** via :class:`ReproBackend`; asking for ``cuda`` on a
+  non-CUDA device raises :class:`BackendUnavailable` — nothing falls back
+  silently.
+
+Engine modules reach kernels only through this module (repro-lint
+RPL001), which also re-exports the ``round_step`` layout helpers and the
+kernels' launch counters.
+
+Canonical signatures (shared by every impl of an op):
+
+    mix:        (theta (n,D), theta_sol (n,D), A (n,n), b (n,)) -> (n,D)
+    sparse_mix: (table (N,p), idx (n,k) int32, w (n,k), b (n,),
+                 sol (n,p)) -> (n,p)
+    round_step: (theta (n,p), Ke (n*k,p+1), got_ever (n,) bool, msg (2B,p),
+                 tgt_row (2B,) int32, enc (2B,) int32, k_old (2B,p),
+                 theta_base (n,p), a_w (n*k,)) -> (theta, Ke, got_ever,
+                 keep (2B,) bool); both impls update the state in
+                 place and return it
+    neighbor_aggregate: (w (...,k), theta (...,k,p)) -> (...,p)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from . import graph_mix as _gm
+from . import ref
+from . import round_fuse as _rf
+from . import sparse_mix as _sm
+# layout/prefetch helpers shared by every round_step impl, re-exported so
+# engine code reaches them through dispatch
+from .round_fuse import (decode_slots, encode_slots,  # noqa: F401
+                         round_prefetch, round_scales, round_stale_src)
+
+IMPLS = ("reference", "cuda")
+
+
+class BackendUnavailable(RuntimeError):
+    """Requested implementation cannot run on this device."""
+
+
+_REGISTRY: Dict[str, Dict[str, Callable]] = {}
+
+
+def register(op: str, impl: str):
+    """Decorator registering ``fn`` as implementation ``impl`` of ``op``."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+
+    def deco(fn):
+        _REGISTRY.setdefault(op, {})[impl] = fn
+        return fn
+    return deco
+
+
+def ops() -> Tuple[str, ...]:
+    """All registered op names."""
+    return tuple(sorted(_REGISTRY))
+
+
+def implementations(op: str) -> Tuple[str, ...]:
+    """Registered implementation names for ``op`` (reference first)."""
+    return tuple(sorted(_REGISTRY[op], key=lambda n: (n != "reference", n)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ReproBackend:
+    """Backend selection threaded through the algorithm layers.
+
+    default:   implementation for every op without an override ("auto",
+               "reference" or "cuda").
+    overrides: per-op (op, impl) pairs, e.g. (("mix", "reference"),).
+    """
+
+    default: str = "auto"
+    overrides: Tuple[Tuple[str, str], ...] = ()
+
+    @classmethod
+    def using(cls, default: str = "auto", **per_op: str) -> "ReproBackend":
+        """Keyword-friendly constructor: ``ReproBackend.using(mix="cuda")``."""
+        return cls(default=default, overrides=tuple(sorted(per_op.items())))
+
+    def impl_for(self, op: str) -> str:
+        """The implementation name this backend selects for ``op``."""
+        for o, impl in self.overrides:
+            if o == op:
+                return impl
+        return self.default
+
+
+def resolve(op: str, backend, device) -> Callable:
+    """The callable implementing ``op`` under ``backend`` for tensors on
+    ``device`` (``backend=None`` means auto)."""
+    if op not in _REGISTRY:
+        raise KeyError(f"unknown op {op!r}; registered: {ops()}")
+    impls = _REGISTRY[op]
+    device = torch.device(device)
+    name = (backend or ReproBackend()).impl_for(op)
+    if name == "auto":
+        name = "cuda" if device.type == "cuda" and "cuda" in impls \
+            else "reference"
+    if name not in impls:
+        raise KeyError(f"op {op!r} has no implementation {name!r}; "
+                       f"registered: {implementations(op)}")
+    if name == "cuda" and device.type != "cuda":
+        raise BackendUnavailable(
+            f"{op}/cuda is a CUDA kernel and the tensors are on {device}; "
+            f"use the 'reference' implementation or a CUDA device")
+    return impls[name]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches so far, per kernel wrapper."""
+    return {"graph_mix": _gm.launches, "sparse_gather_mix": _sm.launches,
+            "round_step": _rf.launches}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    _gm.launches = _sm.launches = _rf.launches = 0
+
+
+register("mix", "reference")(ref.graph_mix)
+register("mix", "cuda")(_gm.graph_mix)
+register("sparse_mix", "reference")(ref.sparse_gather_mix)
+register("sparse_mix", "cuda")(_sm.sparse_gather_mix)
+register("round_step", "reference")(ref.gossip_round_step)
+register("round_step", "cuda")(_rf.round_step)
+register("neighbor_aggregate", "reference")(ref.neighbor_aggregate)

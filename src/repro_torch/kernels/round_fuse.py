@@ -1,0 +1,171 @@
+"""``round_step``: one fused MP gossip round over the flat slot table, and
+the layout and prefetch helpers around it (counterpart of
+``repro.kernels.round_fuse``, MP half).
+
+The flat table ``Ke (n*k, p+1)`` holds the neighbor slots with an id
+column at ``p`` that records the event that last wrote each slot.  A
+round lands ``[msg | id]`` at the encoded targets ``enc = row*k + slot``
+(undelivered events ride at the ``n*k`` sentinel), elects one winner per
+slot, and telescopes Eq. 6: each winner adds ``a_w (msg - k_old)`` to its
+row, after the row's first receipt swaps in ``theta_base`` (the Eq. 6
+image of the warm-start slots) and sets ``got_ever``.
+
+The CUDA kernel (``csrc/round_step.cu``) replaces the Pallas TPU
+megakernel ``repro/kernels/round_fuse.py::round_step_pallas``; the source
+note there gives its two launches, the winner rule and its bound.  It
+updates ``theta``, ``Ke`` and ``got_ever`` in place (the state lives in
+HBM with no size cap, and copying a multi-GB slot table every round would
+cost more than the round): callers use the returned tensors and do not
+read the inputs again.  Beside it sits the plain PyTorch version of the
+same algorithm (``kernels.ref.gossip_round_step``: same winners, same
+slot-order row sums, so the two agree bit for bit), which runs for tensors
+on the CPU only; for CUDA tensors the wrapper launches the kernel or
+raises.
+
+The helpers (``encode_slots``, ``decode_slots``, ``round_scales``,
+``round_stale_src``, ``round_prefetch``) are plain torch ops.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import gossip_round_step as round_step_plain
+
+#: round_step calls that launched the kernel in this process.
+launches = 0
+
+#: Event ids ride as float32 in the id column: exact below 2^24.
+MAX_EVENTS = 1 << 24
+
+
+# ---------------------------------------------------------------------------
+# Flat slot-table layout helpers
+# ---------------------------------------------------------------------------
+
+
+def encode_slots(K):
+    """(n, k, p) slot table -> flat (n*k, p+1) with the id column at -1."""
+    n, k, p = K.shape
+    flat = K.reshape(n * k, p)
+    return torch.cat([flat, flat.new_full((n * k, 1), -1.0)], dim=1)
+
+
+def decode_slots(Ke, k: int):
+    """Flat (n*k, p+1) -> the (n, k, p) slot table (id column dropped)."""
+    nk, p1 = Ke.shape
+    return Ke[:, : p1 - 1].reshape(nk // k, k, p1 - 1)
+
+
+def round_scales(nbr_p, c, *, alpha: float):
+    """Flat (n*k,) per-slot Eq. 6 gain ``a_i * w_is`` with
+    ``a_i = alpha / (alpha + (1 - alpha) c_i)``."""
+    a = alpha / (alpha + (1.0 - alpha) * c)
+    return (a[:, None] * nbr_p).reshape(-1)
+
+
+def round_stale_src(theta_prev, ev_i, ev_j):
+    """(2B, p) sender rows of the *previous* model for one event batch —
+    the stale-message source of :func:`round_prefetch`, gathered before
+    the in-place round that overwrites ``theta_prev``."""
+    return theta_prev[torch.cat([ev_i, ev_j])]
+
+
+def round_prefetch(theta, theta_prev, Ke, ev_i, ev_j, ev_s, ev_r,
+                   d_ij, d_ji, st_ij, st_ji, *, stale_src=None,
+                   no_stale=False):
+    """Gather one event batch's ``round_step`` operands.
+
+    Returns ``(msg, tgt_row, enc, k_old)`` for the 2B directed sends
+    (i->j slot r first, then j->i slot s): the sender models
+    (``theta_prev`` where stale, or ``stale_src`` when given), the receiver
+    rows (``n`` where undelivered), the encoded flat targets (``n*k``
+    sentinel where undelivered) and the pre-scatter slot values.
+    ``tgt_row`` and ``enc`` are int32; every output is contiguous.
+    """
+    n, p = theta.shape
+    nk = Ke.shape[0]
+    km = nk // n
+    send = torch.cat([ev_i, ev_j])
+    if no_stale:
+        msg = theta[send]
+    else:
+        stale = torch.cat([st_ij, st_ji])
+        if stale_src is None:
+            stale_src = theta_prev[send]
+        msg = torch.where(stale[:, None], stale_src, theta[send])
+    tgt_row = torch.cat([torch.where(d_ij, ev_j, n),
+                         torch.where(d_ji, ev_i, n)]).int()
+    tgt_slot = torch.cat([ev_r, ev_s]).int()
+    enc = torch.where(tgt_row < n, tgt_row.clamp(max=n - 1) * km + tgt_slot,
+                      nk).int()
+    k_old = Ke[enc.clamp(max=nk - 1), :p].contiguous()
+    return msg.contiguous(), tgt_row, enc, k_old
+
+
+# ---------------------------------------------------------------------------
+# round_step: kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check(theta, Ke, got_ever, msg, tgt_row, enc, k_old, theta_base, a_w):
+    n, p = theta.shape
+    nk = Ke.shape[0]
+    m = msg.shape[0]
+    if nk % n:
+        raise ValueError(f"round_step: Ke rows {nk} not a multiple of n={n}")
+    if m >= MAX_EVENTS:
+        raise ValueError(f"round_step: {m} events; ids ride as float32 in "
+                         f"the id column, exact only below {MAX_EVENTS}")
+    want = {"theta": (theta, torch.float32, (n, p)),
+            "Ke": (Ke, torch.float32, (nk, p + 1)),
+            "got_ever": (got_ever, torch.bool, (n,)),
+            "msg": (msg, torch.float32, (m, p)),
+            "tgt_row": (tgt_row, torch.int32, (m,)),
+            "enc": (enc, torch.int32, (m,)),
+            "k_old": (k_old, torch.float32, (m, p)),
+            "theta_base": (theta_base, torch.float32, (n, p)),
+            "a_w": (a_w, torch.float32, (nk,))}
+    for name, (t, dtype, shape) in want.items():
+        if t.device != theta.device:
+            raise ValueError(f"round_step: {name} on {t.device}, theta on "
+                             f"{theta.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"round_step: {name} must be {dtype}, got "
+                            f"{t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"round_step: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"round_step: {name} must be contiguous")
+
+
+def round_step(theta, Ke, got_ever, msg, tgt_row, enc, k_old, theta_base,
+               a_w):
+    """One fused MP gossip round; updates ``theta``, ``Ke`` and
+    ``got_ever`` in place and returns ``(theta, Ke, got_ever, keep)`` with
+    ``keep`` (2B,) bool the per-event winner mask.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    """
+    global launches
+    if theta.device.type == "cpu":
+        return round_step_plain(theta, Ke, got_ever, msg, tgt_row, enc,
+                                k_old, theta_base, a_w)
+    if theta.device.type != "cuda":
+        raise ValueError(f"round_step: no kernel for {theta.device}")
+    _check(theta, Ke, got_ever, msg, tgt_row, enc, k_old, theta_base, a_w)
+    n, p = theta.shape
+    nk = Ke.shape[0]
+    m = msg.shape[0]
+    dev = theta.device
+    win = torch.full((nk,), -1, dtype=torch.int32, device=dev)
+    keep = torch.empty((m,), dtype=torch.bool, device=dev)
+    _build.launch("repro_round_elect", win.data_ptr(), enc.data_ptr(),
+                  tgt_row.data_ptr(), m, n, nk // n, device=dev)
+    ptrs = [t.data_ptr() for t in (theta, Ke, got_ever, msg, k_old, tgt_row,
+                                   enc, theta_base, a_w, win, keep)]
+    _build.launch("repro_round_apply", *ptrs, m, n, nk // n, p, device=dev)
+    launches += 1
+    return theta, Ke, got_ever, keep

@@ -1,0 +1,14 @@
+"""Sparse event-driven network simulator, model-propagation half."""
+
+from .topology import (SparseTopology, cluster_topology,
+                       planted_partition_topology, random_geometric_topology,
+                       ring_topology)
+from .scheduler import (EventBatch, EventStream, NetworkConditions,
+                        churn_step, draw_events, draw_slots, draw_wakeups,
+                        precompute_event_stream, straggler_rates,
+                        stream_totals)
+from .engines import SimTrace, run_mp_scenario, sparse_sync_mp
+from .spec import ScenarioSpec, run_scenario
+from .scenarios import SCENARIOS, Scenario, get_scenario, list_scenarios
+
+__all__ = [n for n in dir() if not n.startswith("_")]

@@ -1,0 +1,98 @@
+"""Unified scenario API: one frozen spec, one entry point (counterpart of
+``repro.simulate.spec``, single-device model propagation).
+
+``run_scenario(ScenarioSpec(algo="mp", ...))`` runs the MP gossip engine
+on ``spec.device`` (CUDA when None).  Unlike the JAX package, ``stream=``
+is accepted for ``mp``: torch cannot replay ``jax.random``, so a
+precomputed EventStream is how the port takes the reference's draws.
+
+The rest of the JAX spec is not ported yet; each such field raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+from . import engines as _engines
+from .scheduler import EventStream, NetworkConditions
+
+_ALGOS = ("mp", "cl", "joint")
+
+#: What is not ported yet, and the ROADMAP queue-1 item that ports it.
+_LATER = {
+    "cl": "ROADMAP queue 1 item 5 (CL-ADMM)",
+    "joint": "ROADMAP queue 1 item 6 (joint graph learning)",
+    "telemetry": "ROADMAP queue 1 item 7 (scenario API and telemetry)",
+    "serve": "ROADMAP queue 1 item 9 (serving)",
+    "sharded": "ROADMAP queue 1 item 10 (multi-GPU)",
+}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ScenarioSpec:
+    """Everything that defines one scenario run.
+
+    core:   algo, topology (SparseTopology), conditions, rounds, batch,
+            seed, record_every
+    mp:     theta_sol (solitary models), c (confidences), alpha (Eq. 3 mix)
+    events: stream — a precomputed EventStream to replay (otherwise drawn
+            from ``seed`` by the torch scheduler)
+    exec:   backend (fused round_step when given), device (CUDA when None)
+
+    ``cl``/``joint`` payloads, telemetry, sharding and serving are fields
+    of the JAX spec that this port does not run yet.
+    """
+
+    algo: str
+    topology: Any
+    conditions: NetworkConditions
+    rounds: int
+    batch: int
+    seed: int = 0
+    record_every: int = 10
+    theta_sol: Any = None
+    c: Any = None
+    alpha: float = 0.5
+    stream: Optional[EventStream] = None
+    backend: Any = None
+    device: Any = None
+    telemetry: Any = None
+    sharded: bool = False
+    serve: Any = None
+
+    def __post_init__(self):
+        if self.algo not in _ALGOS:
+            raise ValueError(f"unknown algo {self.algo!r}; one of {_ALGOS}")
+
+    def _require(self, **fields):
+        for name, val in fields.items():
+            if val is None:
+                raise ValueError(
+                    f"algo={self.algo!r} requires ScenarioSpec.{name}")
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet: {_LATER[what]}")
+
+
+def run_scenario(spec: ScenarioSpec):
+    """Run the scenario a :class:`ScenarioSpec` describes; returns the
+    engine's :class:`~repro_torch.simulate.engines.SimTrace`."""
+    if spec.algo != "mp":
+        _not_ported(spec.algo)
+    if spec.sharded:
+        _not_ported("sharded")
+    if spec.serve is not None:
+        _not_ported("serve")
+    if spec.telemetry is not None and getattr(spec.telemetry, "enabled",
+                                              True):
+        _not_ported("telemetry")
+    spec._require(theta_sol=spec.theta_sol, c=spec.c)
+    return _engines.run_mp_scenario(
+        spec.topology, spec.theta_sol, spec.c, spec.alpha, spec.conditions,
+        spec.rounds, spec.batch, seed=spec.seed,
+        record_every=spec.record_every, backend=spec.backend,
+        stream=spec.stream, device=spec.device)

@@ -1,0 +1,104 @@
+"""The port's CUDA kernels on the card, each held against its plain
+PyTorch version on the same inputs (the tolerances of
+tests/test_torch_kernels.py).  The kernels have no CPU mode: on a host
+without a CUDA card every test here skips.
+
+Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels import graph_mix as gm  # noqa: E402
+from repro_torch.kernels import round_fuse as rf  # noqa: E402
+from repro_torch.kernels import sparse_mix as sm  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def on(dev, *arrays, dtype=torch.float32):
+    return [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
+
+
+@pytest.mark.parametrize("n,D", [(1, 1), (129, 300), (256, 512)])
+def test_graph_mix_kernel(cuda, n, D):
+    rng = np.random.default_rng(n + D)
+    args = on(cuda, rng.standard_normal((n, D)), rng.standard_normal((n, D)),
+              rng.uniform(size=(n, n)) / n, rng.uniform(size=n))
+    before = gm.launches
+    got = gm.graph_mix(*args)
+    assert gm.launches == before + 1
+    assert (got - gm.graph_mix_plain(*args)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("N,n,k,p", [(300, 200, 7, 40), (64, 64, 3, 32),
+                                     (50, 10, 1, 5)])
+def test_sparse_gather_mix_kernel(cuda, N, n, k, p):
+    rng = np.random.default_rng(N + n + k + p)
+    table, w, b, sol = on(cuda, rng.standard_normal((N, p)),
+                          rng.uniform(size=(n, k)), rng.uniform(size=n),
+                          rng.standard_normal((n, p)))
+    (idx,) = on(cuda, rng.integers(0, N, (n, k)), dtype=torch.int32)
+    got = sm.sparse_gather_mix(table, idx, w, b, sol)
+    want = sm.sparse_gather_mix_plain(table, idx, w, b, sol)
+    assert torch.equal(got, want)       # same slot-order arithmetic
+
+
+def make_round(dev, n, k, p, m, seed, deliver_frac=0.7, seen_frac=0.5):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, n * k, m)            # duplicate targets
+    deliver = rng.uniform(size=m) < deliver_frac
+    Ke = np.concatenate([rng.standard_normal((n * k, p)),
+                         rng.integers(-1, 50, (n * k, 1))], axis=1)
+    f = on(dev, rng.standard_normal((n, p)), Ke,
+           rng.standard_normal((m, p)), rng.standard_normal((m, p)),
+           rng.standard_normal((n, p)), rng.uniform(0.1, 1.0, n * k))
+    i = on(dev, np.where(deliver, codes // k, n), np.where(deliver, codes,
+                                                           n * k),
+           dtype=torch.int32)
+    (got_ever,) = on(dev, rng.uniform(size=n) < seen_frac, dtype=torch.bool)
+    return dict(theta=f[0], Ke=f[1], got_ever=got_ever, msg=f[2],
+                tgt_row=i[0], enc=i[1], k_old=f[3], theta_base=f[4],
+                a_w=f[5])
+
+
+@pytest.mark.parametrize("case", [dict(n=41, k=6, p=9, m=120, seed=1),
+                                  dict(n=11, k=3, p=4, m=40, seed=2),
+                                  dict(n=23, k=4, p=33, m=13, seed=3),
+                                  dict(n=500, k=8, p=32, m=2000, seed=4,
+                                       seen_frac=0.0),
+                                  dict(n=17, k=3, p=4, m=10, seed=5,
+                                       deliver_frac=0.0)])
+def test_round_step_kernel(cuda, case):
+    args = make_round(cuda, **case)
+    clone = lambda: {k: v.clone() for k, v in args.items()}  # noqa: E731
+    got = rf.round_step(*clone().values())
+    want = rf.round_step_plain(*clone().values())
+    assert torch.equal(got[3], want[3])           # keep
+    assert torch.equal(got[2], want[2])           # got_ever
+    assert torch.equal(got[1], want[1])           # Ke
+    assert torch.equal(got[0], want[0])           # theta: same sum order
+
+
+def test_round_step_replay_is_bit_identical(cuda):
+    a = make_round(cuda, 300, 6, 32, 900, seed=7)
+    b = {k: v.clone() for k, v in a.items()}
+    for _ in range(3):
+        ra = rf.round_step(*a.values())
+        rb = rf.round_step(*b.values())
+    assert all(torch.equal(x, y) for x, y in zip(ra, rb))
+
+
+def test_dispatch_auto_picks_kernels(cuda):
+    for op in ("mix", "sparse_mix", "round_step"):
+        assert dispatch.resolve(op, None, cuda) \
+            is dispatch._REGISTRY[op]["cuda"]

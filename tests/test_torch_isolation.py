@@ -1,0 +1,88 @@
+"""The port stands alone: no file of ``src/repro_torch/`` nor
+``chip_smoke.py`` imports ``jax`` or ``repro``; the package imports with
+``jax`` unavailable; and its entry points run on the CUDA card unless the
+caller names another device — without CUDA they raise instead of running
+on the CPU."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_repro_imports(path):
+    assert path.exists(), path
+    bad = imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[m] = None\n"
+        "import repro_torch, repro_torch.convert, repro_torch.core, "
+        "repro_torch.data, repro_torch.simulate, repro_torch.kernels\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without CUDA, device=None raises — never a silent CPU run."""
+    import numpy as np
+
+    from repro_torch import resolve_device
+    from repro_torch.core import graph, model_propagation
+    from repro_torch.simulate import (ScenarioSpec, get_scenario,
+                                      ring_topology, run_scenario,
+                                      sparse_sync_mp)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    topo = ring_topology(8)
+    sol = np.zeros((8, 2), np.float32)
+    c = np.ones(8, np.float32)
+    g = graph.ring_graph(8)
+    calls = [
+        lambda: run_scenario(ScenarioSpec(
+            algo="mp", topology=topo,
+            conditions=get_scenario("clean").make_conditions(4), rounds=4,
+            batch=2, theta_sol=sol, c=c)),
+        lambda: sparse_sync_mp(topo, sol, c, 0.9, 2),
+        lambda: model_propagation.synchronous(g, sol, c, 0.9, 2),
+        lambda: model_propagation.closed_form(g, sol, c, 0.9),
+        lambda: topo.device_tables(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

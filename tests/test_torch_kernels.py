@@ -1,0 +1,341 @@
+"""The port's kernel modules on the CPU, where each wrapper runs its plain
+PyTorch version: ``graph_mix`` and ``sparse_gather_mix`` against the JAX
+oracles and the Pallas kernels in interpret mode (atol 1e-5, the parity
+bar of ``repro.kernels.dispatch``); ``round_step`` against
+``ref.gossip_round_step`` and ``round_fuse.round_step_xla`` (keep and
+got_ever exact, theta and Ke within 1e-6, the bar of
+tests/test_round_fuse.py); the round helpers exactly; the dispatch rules.
+
+The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import round_fuse as jrf  # noqa: E402
+from repro.kernels.graph_mix import graph_mix as pallas_graph_mix  # noqa: E402
+from repro.kernels.sparse_mix import \
+    sparse_gather_mix as pallas_sparse_mix  # noqa: E402
+
+from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from repro_torch.kernels import dispatch, ref as tref  # noqa: E402
+from repro_torch.kernels import graph_mix as tgm  # noqa: E402
+from repro_torch.kernels import round_fuse as trf  # noqa: E402
+from repro_torch.kernels import sparse_mix as tsm  # noqa: E402
+
+ATOL = 1e-5
+
+
+def t(a, dtype=None):
+    return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# graph_mix
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,D", [(4, 64), (16, 100), (37, 513)])
+def test_graph_mix_plain_matches_jax(n, D):
+    rng = np.random.default_rng(n * 1000 + D)
+    theta = rng.standard_normal((n, D)).astype(np.float32)
+    sol = rng.standard_normal((n, D)).astype(np.float32)
+    A = (rng.uniform(size=(n, n)) / n).astype(np.float32)
+    b = rng.uniform(size=n).astype(np.float32)
+    got = tgm.graph_mix(t(theta), t(sol), t(A), t(b)).numpy()
+    want = np.asarray(jref.graph_mix(*map(jnp.asarray, (theta, sol, A, b))))
+    pallas = np.asarray(pallas_graph_mix(*map(jnp.asarray,
+                                              (theta, sol, A, b)),
+                                         interpret=True))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=0)
+    assert tgm.launches == 0          # CPU tensors never launch
+
+
+# ---------------------------------------------------------------------------
+# sparse_gather_mix
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,n,k,p", [(50, 50, 4, 32), (90, 37, 6, 9),
+                                     (20, 20, 3, 40)])
+def test_sparse_gather_mix_plain_matches_jax(N, n, k, p):
+    rng = np.random.default_rng(N + n + k + p)
+    table = rng.standard_normal((N, p)).astype(np.float32)
+    idx = rng.integers(0, N, (n, k)).astype(np.int32)
+    w = rng.uniform(size=(n, k)).astype(np.float32)
+    w[:, -1] = 0.0                                 # a pad slot
+    b = rng.uniform(size=n).astype(np.float32)
+    sol = rng.standard_normal((n, p)).astype(np.float32)
+    args = (table, idx, w, b, sol)
+    got = tsm.sparse_gather_mix(*map(t, args)).numpy()
+    want = np.asarray(jref.sparse_gather_mix(*map(jnp.asarray, args)))
+    pallas = np.asarray(pallas_sparse_mix(*map(jnp.asarray, args),
+                                          block_n=16, interpret=True))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=0)
+    assert tsm.launches == 0
+
+
+def test_neighbor_aggregate_matches_jax():
+    rng = np.random.default_rng(2)
+    w = rng.uniform(size=(7, 5)).astype(np.float32)
+    th = rng.standard_normal((7, 5, 3)).astype(np.float32)
+    want = np.stack([np.asarray(jref.neighbor_aggregate(jnp.asarray(w[i]),
+                                                        jnp.asarray(th[i])))
+                     for i in range(7)])
+    np.testing.assert_allclose(tref.neighbor_aggregate(t(w), t(th)).numpy(),
+                               want, atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# round_step
+# ---------------------------------------------------------------------------
+
+
+def make_round(n, k, p, m, seed, *, collide=True, deliver_frac=0.7,
+               seen_frac=0.5):
+    """A random round over the flat slot table: duplicate targets (when
+    ``collide``), sentinel (undelivered) events and first receipts."""
+    rng = np.random.default_rng(seed)
+    K = rng.standard_normal((n, k, p)).astype(np.float32)
+    Ke = np.concatenate([K.reshape(n * k, p),
+                         rng.integers(-1, 50, (n * k, 1)).astype(np.float32)],
+                        axis=1)
+    codes = rng.integers(0, n * k, m) if collide \
+        else rng.choice(n * k, size=m, replace=False)
+    deliver = rng.uniform(size=m) < deliver_frac
+    return dict(
+        theta=rng.standard_normal((n, p)).astype(np.float32),
+        Ke=Ke,
+        got_ever=rng.uniform(size=n) < seen_frac,
+        msg=rng.standard_normal((m, p)).astype(np.float32),
+        tgt_row=np.where(deliver, codes // k, n).astype(np.int32),
+        enc=np.where(deliver, codes, n * k).astype(np.int32),
+        k_old=rng.standard_normal((m, p)).astype(np.float32),
+        theta_base=rng.standard_normal((n, p)).astype(np.float32),
+        a_w=rng.uniform(0.1, 1.0, n * k).astype(np.float32))
+
+
+def run_round(fn, args):
+    out = fn(*(torch.as_tensor(a.copy()) for a in args.values()))
+    return [o.numpy() for o in out]
+
+
+JAX_ROUND = {"ref": jax.jit(jref.gossip_round_step),
+             "xla": jax.jit(jrf.round_step_xla)}
+
+
+def jax_round(name, args):
+    return [np.asarray(o) for o in
+            JAX_ROUND[name](*map(jnp.asarray, args.values()))]
+
+
+def assert_round_close(got, want, atol=1e-6):
+    theta, Ke, got_ever, keep = got
+    np.testing.assert_array_equal(keep, want[3])
+    np.testing.assert_array_equal(got_ever, want[2])
+    np.testing.assert_allclose(theta, want[0], atol=atol, rtol=0)
+    np.testing.assert_allclose(Ke, want[1], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("case", [
+    dict(n=41, k=6, p=9, m=48, seed=0, collide=False),
+    dict(n=41, k=6, p=9, m=120, seed=1),
+    dict(n=11, k=3, p=4, m=40, seed=2),               # heavy collisions
+    dict(n=23, k=4, p=33, m=13, seed=3),              # p > 32, odd m
+    dict(n=17, k=3, p=4, m=10, seed=4, deliver_frac=0.0),
+    dict(n=30, k=5, p=8, m=64, seed=5, seen_frac=0.0),  # all first receipts
+])
+def test_round_step_plain_matches_jax(case):
+    args = make_round(**case)
+    want = jax_round("ref", args)
+    want_x = jax_round("xla", args)
+    np.testing.assert_array_equal(want[3], want_x[3])  # the winner rule
+    got = run_round(trf.round_step, args)
+    assert_round_close(got, want)
+    assert_round_close(got, want_x)
+    assert trf.launches == 0
+
+
+def test_round_step_nothing_delivered_is_identity():
+    args = make_round(17, 3, 4, 10, seed=6, deliver_frac=0.0)
+    got = run_round(trf.round_step, args)
+    for g, name in zip(got[:3], ("theta", "Ke", "got_ever")):
+        np.testing.assert_array_equal(g, args[name])
+    assert not got[3].any()
+
+
+def test_round_step_chained_rounds():
+    """30 rounds chained through the in-place state stay within 1e-6 of
+    the oracle, and the slot table stays exact."""
+    n, k, p = 37, 5, 8
+    args = make_round(n, k, p, 24, seed=9)
+    state_t = [torch.as_tensor(args[f].copy())
+               for f in ("theta", "Ke", "got_ever")]
+    state_j = [jnp.asarray(args[f]) for f in ("theta", "Ke", "got_ever")]
+    for r in range(30):
+        ev = make_round(n, k, p, 24, seed=100 + r)
+        rest = [ev[f] for f in ("msg", "tgt_row", "enc", "k_old")] \
+            + [args["theta_base"], args["a_w"]]
+        state_t = list(trf.round_step(*state_t,
+                                      *map(torch.as_tensor, rest)))[:3]
+        state_j = list(JAX_ROUND["ref"](*state_j,
+                                        *map(jnp.asarray, rest)))[:3]
+    np.testing.assert_array_equal(state_t[1].numpy(), np.asarray(state_j[1]))
+    np.testing.assert_array_equal(state_t[2].numpy(), np.asarray(state_j[2]))
+    np.testing.assert_allclose(state_t[0].numpy(), np.asarray(state_j[0]),
+                               atol=1e-6, rtol=0)
+
+
+def test_round_step_rejects_too_many_events():
+    args = {k: torch.as_tensor(v) for k, v in
+            make_round(5, 2, 3, 4, seed=0).items()}
+    args["msg"] = torch.zeros((trf.MAX_EVENTS, 3))
+    with pytest.raises(ValueError, match="2\\^24|exact only below"):
+        trf._check(*args.values())
+
+
+# ---------------------------------------------------------------------------
+# round helpers: exactly the JAX package's
+# ---------------------------------------------------------------------------
+
+
+def test_slot_codecs_and_scales_exact():
+    rng = np.random.default_rng(11)
+    K = rng.standard_normal((6, 3, 4)).astype(np.float32)
+    Ke_t = trf.encode_slots(t(K))
+    Ke_j = jrf.encode_slots(jnp.asarray(K))
+    np.testing.assert_array_equal(Ke_t.numpy(), np.asarray(Ke_j))
+    np.testing.assert_array_equal(trf.decode_slots(Ke_t, 3).numpy(), K)
+    nbr_p = rng.uniform(size=(6, 3)).astype(np.float32)
+    c = rng.uniform(size=6).astype(np.float32)
+    # XLA may rewrite the division: equal to one float32 rounding
+    np.testing.assert_allclose(
+        trf.round_scales(t(nbr_p), t(c), alpha=0.9).numpy(),
+        np.asarray(jrf.round_scales(jnp.asarray(nbr_p), jnp.asarray(c),
+                                    alpha=0.9)), rtol=2.0 ** -23, atol=0)
+
+
+@pytest.mark.parametrize("no_stale", [False, True])
+def test_round_prefetch_exact(no_stale):
+    n, k, p, B = 13, 4, 5, 9
+    rng = np.random.default_rng(12)
+    theta = rng.standard_normal((n, p)).astype(np.float32)
+    theta_prev = rng.standard_normal((n, p)).astype(np.float32)
+    Ke = np.asarray(jrf.encode_slots(jnp.asarray(
+        rng.standard_normal((n, k, p)).astype(np.float32))))
+    ev = [rng.integers(0, n, B).astype(np.int32) for _ in range(2)] \
+        + [rng.integers(0, k, B).astype(np.int32) for _ in range(2)] \
+        + [rng.uniform(size=B) < q for q in (0.6, 0.6, 0.3, 0.3)]
+    if no_stale:
+        ev[6][:] = ev[7][:] = False
+    want = jrf.round_prefetch(jnp.asarray(theta), jnp.asarray(theta_prev),
+                              jnp.asarray(Ke), *map(jnp.asarray, ev),
+                              no_stale=no_stale)
+    got = trf.round_prefetch(t(theta), t(theta_prev), t(Ke), *map(t, ev),
+                             no_stale=no_stale)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the pre-gathered stale source gives the same operands
+    src = trf.round_stale_src(t(theta_prev), t(ev[0]), t(ev[1]))
+    got2 = trf.round_prefetch(t(theta), None, t(Ke), *map(t, ev),
+                              stale_src=src, no_stale=no_stale)
+    for g, w in zip(got2, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# dispatch rules
+# ---------------------------------------------------------------------------
+
+
+def test_dispatch_auto_and_explicit():
+    cpu = torch.device("cpu")
+    for op in ("mix", "sparse_mix", "round_step", "neighbor_aggregate"):
+        assert dispatch.resolve(op, None, cpu) \
+            is dispatch._REGISTRY[op]["reference"]
+    for op in ("mix", "sparse_mix", "round_step"):
+        assert dispatch.implementations(op) == ("reference", "cuda")
+        with pytest.raises(dispatch.BackendUnavailable):
+            dispatch.resolve(op, dispatch.ReproBackend.using(**{op: "cuda"}),
+                             cpu)
+        # auto picks the kernel for a CUDA device (resolution only)
+        assert dispatch.resolve(op, None, "cuda") \
+            is dispatch._REGISTRY[op]["cuda"]
+    with pytest.raises(KeyError):
+        dispatch.resolve("neighbor_aggregate",
+                         dispatch.ReproBackend(default="cuda"), "cuda")
+    with pytest.raises(KeyError):
+        dispatch.resolve("attention", None, cpu)
+    be = dispatch.ReproBackend.using(default="reference", mix="cuda")
+    assert be.impl_for("mix") == "cuda"
+    assert be.impl_for("round_step") == "reference"
+
+
+@pytest.mark.parametrize("op,plain", [
+    ("mix", tgm.graph_mix_plain),
+    ("sparse_mix", tsm.sparse_gather_mix_plain),
+    ("round_step", trf.round_step_plain)])
+def test_one_plain_version_per_op(op, plain):
+    """Each kernel's plain version is the op's dispatch reference, so the
+    card is held against the function that the CPU tests hold against JAX."""
+    assert dispatch.resolve(op, None, "cpu") is plain
+    assert plain.__module__ == tref.__name__
+
+
+def test_launch_counters_reset():
+    dispatch.reset_launch_counts()
+    assert dispatch.launch_counts() == {"graph_mix": 0,
+                                        "sparse_gather_mix": 0,
+                                        "round_step": 0}
+
+
+def test_wrappers_check_inputs():
+    with pytest.raises(TypeError):
+        tsm._check(torch.zeros(4, 2), torch.zeros(4, 2, dtype=torch.int64),
+                   torch.zeros(4, 2), torch.zeros(4), torch.zeros(4, 2))
+    with pytest.raises(ValueError):
+        tgm._check(torch.zeros(4, 3), torch.zeros(4, 3),
+                   torch.zeros(4, 4).t(), torch.zeros(4))
+    with pytest.raises(ValueError):
+        tgm._check(torch.zeros(4, 3), torch.zeros(4, 2),
+                   torch.zeros(4, 4), torch.zeros(4))
+
+
+# ---------------------------------------------------------------------------
+# the kernel library's build and C interface, checked without nvcc
+# ---------------------------------------------------------------------------
+
+
+def test_c_entry_points_match_declared_argtypes():
+    """Every ctypes signature names an ``extern "C"`` entry of csrc/ with as
+    many parameters (a mismatch would pass garbage to the card)."""
+    import re
+
+    from repro_torch.kernels import _build
+    sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    for name, argtypes in _build.SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", sources)
+        assert m, name
+        params = [a for a in m.group(1).split(",") if a.strip()]
+        assert len(params) == len(argtypes), name
+
+
+def test_build_is_lazy_and_needs_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    assert _build._lib is None            # importing built nothing
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+    srcs, key = _build._sources()
+    assert {p.name for p in srcs} == {"graph_mix.cu", "sparse_mix.cu",
+                                      "round_step.cu"}
+    assert len(key) == 16
