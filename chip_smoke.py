@@ -25,9 +25,29 @@ JAX package.  Phases, in order — any failure exits non-zero:
    c. ``synchronous`` on ``random_geometric_graph(2048, k=8)``, D = 4096,
       100 steps through ``graph_mix``, against the plain path.
 
-Prints one JSON line per kernel, then ``{"kernels": [...]}``, the card's
-name and power limit as nvidia-smi reports them, and last
-``{"ok": true, "device": {...}}``.
+Then CL-ADMM (paper §4.2) on the same topology and stream, after the MP
+state is freed:
+
+2cl. data: three standard-normal draws per agent (n, 3, p = 32) from the
+     seed, ``theta_sol = solitary_mean(data)``, mu = 0.1, rho = 1.0;
+3cl. ``cl_edge_step`` held bit for bit against its plain version on round
+     ``WARM`` of the CL run (its own inputs, captured after ``WARM`` rounds
+     of the plain body; the round must have stale sides and repeated
+     targets), and ``admm_edge_update`` on every edge of that state;
+4d.  ``run_scenario(ScenarioSpec(algo="cl", ...))`` with the kernel (auto)
+     and with the reference backend on the same stream: equal counters,
+     the accounting invariant, theta_hist within 1e-5, ``cl_edge_step``
+     launched once per round;
+4e.  ``dispatch.resolve("admm_edge", None, "cuda")`` once over every edge
+     of the CL run's final state, against its plain version;
+5.   where the time of a CL round goes: ``PROFILE_ROUNDS`` rounds of the
+     kernel path under ``torch.profiler``, device time by operation and
+     the device's busy share of the wall time (a reading, not a check).
+
+Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all five
+kernels, with their launches on their paths), the card's name and power
+limit as nvidia-smi reports them, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -37,6 +57,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -48,8 +69,10 @@ N_AGENTS, K_NN, P = 1_000_000, 8, 32
 BATCH, ROUNDS, RECORD = N_AGENTS // 10, 200, 50
 SWEEPS = 50
 WARM = 10          # rounds replayed before round_step is held and timed
+PROFILE_ROUNDS = 50
 N_DENSE, K_DENSE, D_DENSE, STEPS = 2048, 8, 4096, 100
 ALPHA, SEED = 0.9, 0
+MU, RHO = 0.1, 1.0          # CL-ADMM (the JAX benchmark's CL configuration)
 DEVICE = "cuda"
 
 
@@ -201,6 +224,115 @@ def check_round_step(torch, rf, state, ops):
         bound_ms=bms, bound_by=by, library_ms=None, library_call=None)
 
 
+def check_cl_edge_step(torch, rf, args, rho):
+    """cl_edge_step on round ``WARM`` of the CL run: the engine's own
+    inputs (post-primal theta/K, round-start Z/L, the prefetched stale
+    payload and the round's 2B sides), held bit for bit."""
+    theta, K, *zl = args[:6]
+    back = args[6:]
+    upd, own_s, stale, got = back[4], back[5], back[8], back[9]
+    n, k, p = K.shape
+    E = upd.shape[0]
+    tgt = (upd.long() * k + own_s.long())[got]
+    G = tgt.numel()
+    dup = G - torch.unique(tgt).numel()
+    n_stale = int((stale & got).sum())
+    log(f"[3cl] cl_edge_step round {WARM}: {E} sides, {G} delivered, "
+        f"{n_stale} of them stale, {dup} repeated targets")
+    if not (dup > 0 and n_stale > 0):
+        raise AssertionError("cl_edge_step: the held round needs stale "
+                             "sides and repeated targets")
+
+    def fresh():
+        return [a.clone() for a in zl]
+
+    za, zb = fresh(), fresh()
+    out = rf.cl_edge_step(theta, K, *za, *back, rho=rho)
+    want = rf.cl_edge_step_plain(theta, K, *zb, *back, rho=rho)
+    err = max((a - b).abs().max().item() for a, b in zip(out, want))
+    del out, want
+    # per delivered side its own four cells and the payload's four read,
+    # four written; per side four int32 indices and two byte flags
+    n_bytes = G * 12 * p * 4 + E * 18
+    n_ops = 16 * G * p
+    bms, by = bound_ms(n_bytes, n_ops)
+    return dict(
+        name="cl_edge_step", route="cuda",
+        source="src/repro_torch/kernels/csrc/cl_edge_step.cu",
+        replaces="src/repro/kernels/round_fuse.py:419",
+        shape=f"n={n} k={k} p={p} sides={E} delivered={G} "
+              f"stale={n_stale} repeated={dup}",
+        max_abs_err=err, tol=0.0,
+        ms=time_ms(torch, lambda: rf.cl_edge_step(theta, K, *za, *back,
+                                                  rho=rho), 50),
+        plain_ms=time_ms(torch, lambda: rf.cl_edge_step_plain(
+            theta, K, *zb, *back, rho=rho), 10),
+        bound_ms=bms, bound_by=by, library_ms=None, library_call=None)
+
+
+def edge_slabs(torch, tabs, st):
+    """The eight (E, p) slabs of every undirected edge (i < j) of a sparse
+    ADMM state, in ``admm_edge_update``'s order: i's and j's models and
+    copies of each other, then i's and j's duals of the edge."""
+    n, k = tabs.nbr_idx.shape
+    ar = torch.arange(k, device=tabs.nbr_idx.device)
+    live = ar[None, :] < tabs.deg_count[:, None]
+    rows = torch.arange(n, device=tabs.nbr_idx.device)[:, None]
+    i, s = torch.nonzero(live & (tabs.nbr_idx > rows), as_tuple=True)
+    j, r = tabs.nbr_idx[i, s].long(), tabs.rev_slot[i, s].long()
+    return (st.theta[i], st.K[j, r], st.theta[j], st.K[i, s],
+            st.L_own[i, s], st.L_nbr[i, s], st.L_own[j, r], st.L_nbr[j, r])
+
+
+def check_admm_edge(torch, au, slabs, rho):
+    """admm_edge_update over every edge slab of the CL state at round
+    ``WARM``."""
+    E, p = slabs[0].shape
+    out = au.admm_edge_update(*slabs, rho=rho)
+    want = au.admm_edge_update_plain(*slabs, rho)
+    err = max((a - b).abs().max().item() for a, b in zip(out, want))
+    del out, want
+    # eight inputs read once, six outputs written once; 22 operations
+    # per element (two Z: add, divide, add, add, scale; four duals:
+    # subtract, scale, add)
+    bms, by = bound_ms(14 * E * p * 4, 22 * E * p)
+    return dict(
+        name="admm_edge_update", route="cuda",
+        source="src/repro_torch/kernels/csrc/admm_edge.cu",
+        replaces="src/repro/kernels/admm_update.py:21",
+        shape=f"E={E} p={p}", max_abs_err=err, tol=0.0,
+        ms=time_ms(torch, lambda: au.admm_edge_update(*slabs, rho=rho), 20),
+        plain_ms=time_ms(torch, lambda: au.admm_edge_update_plain(*slabs,
+                                                                  rho), 5),
+        bound_ms=bms, bound_by=by, library_ms=None, library_call=None)
+
+
+def profile_cl(torch, run):
+    """Device time by kernel over ``run()``, and the device's busy share of
+    its wall time, from ``torch.profiler`` (CPU and CUDA activity; only
+    the device-side events are summed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    return wall_ms, busy_ms, rows
+
+
 def main() -> int:
     import torch
 
@@ -218,10 +350,12 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core.graph import random_geometric_graph
+    from repro_torch.core.losses import AgentData, solitary_mean
     from repro_torch.core.model_propagation import (mp_mix_operator,
                                                     synchronous)
     from repro_torch.core.sparse import batched_model_update
     from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import admm_update as au
     from repro_torch.kernels import graph_mix as gm
     from repro_torch.kernels import round_fuse as rf
     from repro_torch.kernels import sparse_mix as sm
@@ -393,8 +527,145 @@ def main() -> int:
             or not torch.isfinite(got).all():
         return fail("synchronous path")
 
+    del got, want, graph_inputs, sol_dense, P_dense, A_mix, sol, c, w, b
+
+    # 2cl. CL-ADMM data ----------------------------------------------------
+    rng_cl = np.random.default_rng(SEED + 1)
+    x = torch.as_tensor(rng_cl.standard_normal((N_AGENTS, 3, P)),
+                        dtype=torch.float32, device=dev)
+    data = AgentData(x, torch.zeros(N_AGENTS, 3, device=dev),
+                     torch.ones(N_AGENTS, 3, device=dev))
+    sol_cl = solitary_mean(data)
+    spec_cl = dict(algo="cl", topology=topo, conditions=cond, seed=SEED,
+                   batch=BATCH, data=data, mu=MU, rho=RHO, theta_sol=sol_cl,
+                   stream=stream, device=dev)
+    log(f"[2cl] CL data (n={N_AGENTS}, 3 draws, p={P}); mu={MU} rho={RHO}")
+
+    # 3cl. the CL kernels on round WARM's own inputs ------------------------
+    # run WARM + 1 rounds of the plain body, capturing the edge step's
+    # inputs on round WARM
+    plain_edge = dispatch.resolve("cl_edge_step", dispatch.ReproBackend(
+        default="reference"), dev)
+    captured = []
+
+    def capture(*args, rho):
+        # Z/L are updated in place below; the rest is not written again
+        captured.append(None if len(captured) != WARM else
+                        [a.clone() if 2 <= q < 6 else a
+                         for q, a in enumerate(args)])
+        return plain_edge(*args, rho=rho)
+
+    dispatch.register("cl_edge_step", "reference")(capture)
+    try:
+        warm = run_scenario(ScenarioSpec(
+            **spec_cl, rounds=WARM + 1, record_every=WARM + 1,
+            backend=dispatch.ReproBackend(default="reference")))
+    finally:
+        dispatch.register("cl_edge_step", "reference")(plain_edge)
+    del warm
+    args = captured[WARM]
+    del captured
+    cl_kernels = [check_cl_edge_step(torch, rf, args, RHO)]
+    warm_state = types.SimpleNamespace(theta=args[0], K=args[1],
+                                       L_own=args[4], L_nbr=args[5])
+    del args
+    slabs = edge_slabs(torch, tabs, warm_state)
+    if slabs[0].shape[0] != topo.n_edges:
+        return fail(f"edge slabs: {slabs[0].shape[0]} edges, topology has "
+                    f"{topo.n_edges}")
+    log(f"[3cl] admm_edge_update over E={topo.n_edges} edges of round "
+        f"{WARM}'s state")
+    cl_kernels.append(check_admm_edge(torch, au, slabs, RHO))
+    del slabs, warm_state
+    for kr in cl_kernels:
+        log(json.dumps(kr))
+        if not kr["max_abs_err"] <= kr["tol"]:
+            return fail(f"{kr['name']}: max_abs_err {kr['max_abs_err']} "
+                        f"> {kr['tol']}")
+    kernels += cl_kernels
+    log("[3cl] both CL kernels agree with their plain versions bit for bit")
+
+    # 4d. the CL scenario path: kernel (auto) and reference ---------------
+    cl_runs = {}
+    for name, backend in (("cl-kernel", None),
+                          ("cl-reference",
+                           dispatch.ReproBackend(default="reference"))):
+        dispatch.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = run_scenario(ScenarioSpec(**spec_cl, rounds=ROUNDS,
+                                       record_every=RECORD,
+                                       backend=backend))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[name] = dispatch.launch_counts()
+        log(f"[4d] {name}: {tr.rounds} rounds, {tr.events} events in "
+            f"{secs:.3f} s = {tr.events / secs:.4g} events/s; "
+            f"delivered={tr.delivered} dropped={tr.dropped} "
+            f"invalid={tr.invalid}; launches {counts[name]}")
+        if name == "cl-reference":
+            tr.final = None                  # 11.5 GB; only the kernel's
+        cl_runs[name] = tr                   # final state is used below
+    ck, cr = cl_runs["cl-kernel"], cl_runs["cl-reference"]
+    if counts["cl-kernel"]["cl_edge_step"] != ck.rounds:
+        return fail(f"CL run launched cl_edge_step "
+                    f"{counts['cl-kernel']['cl_edge_step']} times for "
+                    f"{ck.rounds} rounds")
+    if any(counts["cl-reference"].values()):
+        return fail(f"CL reference run launched kernels: "
+                    f"{counts['cl-reference']}")
+    if (ck.delivered, ck.dropped, ck.invalid, ck.events) != \
+            (cr.delivered, cr.dropped, cr.invalid, cr.events):
+        return fail("CL kernel and reference counters differ")
+    if ck.delivered + ck.dropped != 2 * (ck.events - ck.invalid):
+        return fail("CL accounting invariant broken")
+    if ck.theta_hist.shape != (ROUNDS // RECORD, N_AGENTS, P) \
+            or not torch.isfinite(ck.theta_hist).all():
+        return fail(f"CL theta_hist {tuple(ck.theta_hist.shape)} not "
+                    f"finite or of the wrong shape")
+    hist_err = (ck.theta_hist - cr.theta_hist).abs().max().item()
+    moved = (ck.theta_hist[-1] - sol_cl).abs().max().item()
+    log(f"[4d] CL theta_hist kernel vs reference max |diff| = "
+        f"{hist_err:.3g} (tol 1e-5); max |theta - theta_sol| = {moved:.3g}")
+    if not hist_err <= 1e-5 or not moved > 0:
+        return fail("CL kernel trajectory disagrees with the reference")
+
+    # 4e. admm_edge over every edge of the CL run's final state -----------
+    slabs = edge_slabs(torch, tabs, ck.final)
+    del cl_runs, cr
+    ck.final = None
+    admm_edge = dispatch.resolve("admm_edge", None, dev)
+    dispatch.reset_launch_counts()
+    out = admm_edge(*slabs, rho=RHO)
+    torch.cuda.synchronize()
+    counts["admm_edge"] = dispatch.launch_counts()
+    want = au.admm_edge_update_plain(*slabs, RHO)
+    err = max((a - b).abs().max().item() for a, b in zip(out, want))
+    finite = all(bool(torch.isfinite(a).all()) for a in out)
+    log(f"[4e] admm_edge over E={slabs[0].shape[0]} edges of the final "
+        f"state: launches {counts['admm_edge']}, max |kernel - plain| = "
+        f"{err:.3g} (tol 0)")
+    if counts["admm_edge"]["admm_edge_update"] != 1 or err != 0 \
+            or not finite:
+        return fail("admm_edge path")
+    del slabs, out, want
+
+    # 5. where a CL round's time goes (a reading; nothing is checked) ----
+    wall_ms, busy_ms, rows = profile_cl(torch, lambda: run_scenario(
+        ScenarioSpec(**spec_cl, rounds=PROFILE_ROUNDS,
+                     record_every=PROFILE_ROUNDS)))
+    if busy_ms > 0:
+        log(f"[5] CL kernel path, {PROFILE_ROUNDS} rounds under the "
+            f"profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+            f"({100 * busy_ms / wall_ms:.1f} %)")
+        for ms, key, count in rows[:14]:
+            log(f"[5]   {ms:9.3f} ms  {count:6d} x  {key[:100]}")
+    else:
+        log("[5] the profiler recorded no device time: not measured")
+
     path_of = {"round_step": "fused", "sparse_gather_mix": "sparse_sync_mp",
-               "graph_mix": "synchronous"}
+               "graph_mix": "synchronous", "cl_edge_step": "cl-kernel",
+               "admm_edge_update": "admm_edge"}
     summary = []
     for kr in kernels:
         kr["launches"] = counts[path_of[kr["name"]]][kr["name"]]

@@ -8,11 +8,16 @@ field name only, so this module imports nothing of ``repro``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.collaborative import ADMMState
+from repro_torch.core.losses import AgentData
 from repro_torch.core.sparse import DeviceTables, to_device
+from repro_torch.simulate.engines import SparseADMMState
 from repro_torch.simulate.scheduler import EventStream
 
 
@@ -52,3 +57,27 @@ def models_from_arrays(theta_sol, c, device=None):
     return (torch.as_tensor(theta_sol.reshape(len(theta_sol), -1),
                             device=device),
             torch.as_tensor(c, device=device))
+
+
+def _f32(a, device):
+    return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+
+def data_from_arrays(data, device=None) -> AgentData:
+    """Padded agent datasets (an object with ``x``, ``y`` and ``mask``,
+    e.g. the JAX package's AgentData) as an AgentData of float32 tensors."""
+    device = resolve_device(device)
+    return AgentData(*(_f32(getattr(data, f), device)
+                       for f in ("x", "y", "mask")))
+
+
+def admm_state_from_arrays(state, device=None):
+    """ADMM state as the port's: a sparse one (fields ``theta``, ``K``,
+    ``Z_own``, ``Z_nbr``, ``L_own``, ``L_nbr``, e.g. the JAX package's
+    SparseADMMState) as a SparseADMMState, a dense one (``T`` instead of
+    ``theta``/``K``, e.g. its ADMMState) as an ADMMState.  Every field is
+    its own float32 tensor (the port's engines update them in place)."""
+    device = resolve_device(device)
+    cls = ADMMState if hasattr(state, "T") else SparseADMMState
+    return cls(*(_f32(getattr(state, f.name), device)
+                 for f in dataclasses.fields(cls)))

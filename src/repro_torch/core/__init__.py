@@ -1,14 +1,24 @@
-"""Core: graphs, padded-neighbor tables and model propagation (paper §3)."""
+"""Core: graphs, padded-neighbor tables, model propagation (paper §3) and
+collaborative learning by ADMM (paper §4)."""
 
-from .graph import (Graph, as_torch, gaussian_kernel_graph,
-                    knn_graph_from_similarity, random_geometric_graph,
-                    ring_graph, two_moons)
-from .losses import (AgentData, confidences_from_counts, pad_datasets,
-                     solitary_mean)
+from .collaborative import (ADMMState, CLTrace, async_admm, cl_objective,
+                            direct_minimize, init_state, sync_admm)
+from .consensus import consensus_mean, consensus_model
+from .graph import (Graph, angular_kernel_graph, as_torch,
+                    gaussian_kernel_graph, knn_graph_from_similarity,
+                    random_geometric_graph, ring_graph, two_moons)
+from .losses import (LOSSES, AgentData, confidences_from_counts,
+                     hinge_loss, local_stats, logistic_loss, masked_sum,
+                     pad_datasets, quadratic_loss, solitary_gd,
+                     solitary_mean, total_loss)
 from .model_propagation import (closed_form, label_propagation,
                                 mp_mix_operator, mp_objective, synchronous)
-from .sparse import (DeviceTables, NeighborTables, batched_model_update,
-                     live_slots, neighbor_aggregate, padded_neighbor_tables,
-                     record_chunks, tables_from_adjacency, to_device)
+from .primal import ExactQuadraticPrimal
+from .sparse import (DeviceTables, NeighborTables, admm_edge_halfstep,
+                     batched_admm_primal, batched_model_update, live_slots,
+                     neighbor_aggregate, padded_neighbor_tables,
+                     personalized_predict, quadratic_primal_core,
+                     record_chunks, sample_event, tables_from_adjacency,
+                     to_device)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +60,11 @@ class Graph:
         """(n,) weighted degrees D_ii = sum_j W_ij (paper §2.1)."""
         return self.W.sum(axis=1)
 
+    def edges(self) -> List[Tuple[int, int]]:
+        """Undirected edges (i < j) with positive weight."""
+        iu, ju = np.nonzero(np.triu(self.W, k=1))
+        return list(zip(iu.tolist(), ju.tolist()))
+
     @property
     def P(self) -> np.ndarray:
         """Stochastic similarity matrix P = D^{-1} W (paper Prop. 1)."""
@@ -85,6 +90,26 @@ def gaussian_kernel_graph(points: np.ndarray, sigma: float = 0.1,
     if threshold > 0:
         W = np.where(W >= threshold, W, 0.0)
     return Graph(W)
+
+
+def angular_kernel_graph(models: np.ndarray, sigma: float = 0.1,
+                         threshold: float = 1e-3) -> Graph:
+    """W_ij = exp((cos(phi_ij) - 1)/sigma) over target-model angles (§5.2).
+
+    ``sigma`` must be positive; zero-norm model rows are treated as
+    unit-norm so the cosine is defined.
+    """
+    if sigma <= 0:
+        raise ValueError(f"sigma must be > 0, got {sigma}")
+    m = np.asarray(models, dtype=np.float64)
+    norms = np.linalg.norm(m, axis=1, keepdims=True)
+    norms = np.where(norms == 0, 1.0, norms)
+    u = m / norms
+    cos = np.clip(u @ u.T, -1.0, 1.0)
+    W = np.exp((cos - 1.0) / sigma)
+    np.fill_diagonal(W, 0.0)
+    W = np.where(W >= threshold, W, 0.0)
+    return Graph(np.maximum(W, W.T))       # exactly symmetric
 
 
 def knn_graph_from_similarity(sim: np.ndarray, k: int) -> Graph:

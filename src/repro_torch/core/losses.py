@@ -1,6 +1,6 @@
-"""Padded per-agent datasets, solitary models and confidences (paper
-Eq. 1, §3.1) — the subset of ``repro.core.losses`` the model-propagation
-problems need.
+"""Padded per-agent datasets, local losses, solitary models and
+confidences (paper Eq. 1, §3.1; counterpart of ``repro.core.losses``
+without ``guarded_loss``).
 
 Datasets are padded to a common max size with a mask, so the whole agent
 population is processed as one batch (agents have widely varying m_i by
@@ -66,6 +66,77 @@ def pad_datasets(xs, ys=None, device=None) -> AgentData:
     f = dict(dtype=torch.float32, device=device)
     return AgentData(torch.as_tensor(x, **f), torch.as_tensor(y, **f),
                      torch.as_tensor(mask, **f))
+
+
+# ---------------------------------------------------------------------------
+# Losses  l(theta; x, y).  All return the SUM over the local dataset
+# (paper Eq. 1: L_i(theta) = sum_j l(theta; x_j, y_j)).
+# ---------------------------------------------------------------------------
+
+
+def quadratic_loss(theta, x, y, mask):
+    """Mean estimation: l(theta; x) = ||theta - x||^2 (paper §5.1)."""
+    r = theta[None, :] - x
+    return torch.sum(mask * torch.sum(r * r, dim=-1))
+
+
+def hinge_loss(theta, x, y, mask):
+    """l(theta; (x, y)) = max(0, 1 - y theta^T x) (paper §5.2)."""
+    margins = 1.0 - y * (x @ theta)
+    # maximum, not clamp: at a tie its subgradient is 1/2, as in JAX
+    return torch.sum(mask * torch.maximum(torch.zeros_like(margins),
+                                          margins))
+
+
+def logistic_loss(theta, x, y, mask):
+    """log(1 + exp(-y theta^T x)) — an extra loss beyond the paper's two."""
+    z = y * (x @ theta)
+    return torch.sum(mask * torch.logaddexp(torch.zeros_like(z), -z))
+
+
+LOSSES = {"quadratic": quadratic_loss, "hinge": hinge_loss,
+          "logistic": logistic_loss}
+
+
+def masked_sum(vals, mask):
+    """Sum ``vals`` over live rows with an exact-zero pad contribution (the
+    ``where`` also zeroes the pads' gradient)."""
+    return torch.sum(torch.where(mask > 0, vals, 0.0))
+
+
+def total_loss(loss_fn, theta_all, data: AgentData):
+    """Sum_i L_i(theta_i) for per-agent parameters theta_all (n, p)."""
+    per_agent = torch.func.vmap(loss_fn)(theta_all, data.x, data.y,
+                                         data.mask)
+    return torch.sum(per_agent)
+
+
+def solitary_gd(data: AgentData, loss: str = "hinge", steps: int = 200,
+                lr: float = 0.05, l2: float = 1e-3) -> torch.Tensor:
+    """Solitary models by (sub)gradient descent on each agent's mean local
+    loss plus ``l2 / 2 ||theta||^2`` (well-posed for tiny m_i), all agents
+    at once, from theta = 0."""
+    loss_fn = LOSSES[loss]
+    n, _, p = data.x.shape
+
+    def agent_obj(theta, x, y, mask):
+        m = torch.clamp(torch.sum(mask), min=1.0)
+        return loss_fn(theta, x, y, mask) / m \
+            + 0.5 * l2 * torch.sum(theta * theta)
+
+    grad = torch.func.vmap(torch.func.grad(agent_obj))
+    thetas = torch.zeros((n, p), dtype=data.x.dtype, device=data.x.device)
+    for _ in range(steps):
+        thetas = thetas - lr * grad(thetas, data.x, data.y, data.mask)
+    return thetas
+
+
+def local_stats(data: AgentData):
+    """``(m (n,), sx (n, p))``: each agent's live-sample count and sample
+    sum — the quadratic CL-ADMM primal's sufficient statistics (one shared
+    computation for the dense and sparse engines)."""
+    return data.mask.sum(dim=1), torch.sum(data.x * data.mask[..., None],
+                                           dim=1)
 
 
 def solitary_mean(data: AgentData) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Padded-neighbor (CSR-style) tables and the shared slot helpers
-(counterpart of ``repro.core.sparse``, model-propagation subset).
+"""Padded-neighbor (CSR-style) tables and the shared slot helpers of the
+model-propagation and CL-ADMM engines (counterpart of
+``repro.core.sparse``).
 
 The host-side tables are numpy and build exactly the arrays the JAX
 package builds from the same adjacency:
@@ -29,6 +30,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels.dispatch import ReproBackend, resolve
+# the edge half-step is the plain math of the cl_edge_step op; one copy
+from repro_torch.kernels.ref import admm_edge_halfstep  # noqa: F401
 
 
 class NeighborTables(NamedTuple):
@@ -202,6 +205,28 @@ def live_slots(deg_count: torch.Tensor, k_max: int) -> torch.Tensor:
             < deg_count[:, None])
 
 
+def sample_event(n: int, slot_cdf, deg_count, *, draw=None,
+                 generator: Optional[torch.Generator] = None):
+    """One wake-up: (agent i, neighbor slot s) — paper §3.2 / §4.2.
+
+    ``draw=(i, s)`` takes an explicit draw (e.g. the JAX package's, which
+    torch cannot replay); otherwise i is uniform over agents and s is drawn
+    from pi_i by inverting the float32 slot cdf, both from ``generator``.
+    Either way s is clamped to ``[0, max(deg_count[i] - 1, 0)]``, so pads
+    are never selected; a degree-0 agent's event is a no-op for every
+    engine.  Returns python ints.
+    """
+    if draw is not None:
+        i, s = (int(v) for v in draw)
+    else:
+        i = int(torch.randint(n, (), generator=generator))
+        u = torch.rand((), generator=generator)
+        cdf = torch.as_tensor(slot_cdf[i]).cpu()
+        s = int(torch.searchsorted(cdf, u.reshape(1), right=True))
+    deg = int(deg_count[i])
+    return i, max(min(s, deg - 1), 0)
+
+
 def record_chunks(steps: int, record_every: int) -> tuple:
     """The recording policy for chunked engines (``repro.core.sparse``).
 
@@ -235,3 +260,31 @@ def batched_model_update(nbr_p_rows, K_rows, c_rows, sol_rows, alpha,
     abar = 1.0 - alpha
     return (alpha * agg + abar * c_rows[:, None] * sol_rows) \
         / (alpha + abar * c_rows)[:, None]
+
+
+def personalized_predict(theta_rows, x_rows):
+    """(B,) predictions ``<theta_u, x_u>`` of B users' personalized linear
+    models (B, p) on their feature rows (B, p) — the serving decode step
+    (``repro.core.sparse.personalized_predict``)."""
+    return torch.sum(theta_rows * x_rows, dim=-1)
+
+
+def quadratic_primal_core(w, live, z_own_s, z_nbr_s, l_own_s, l_nbr_s,
+                          D_l, m_l, sx, mu, rho,
+                          backend: Optional[ReproBackend] = None):
+    """Exact argmin of the CL-ADMM local Lagrangian for the quadratic loss
+    over one agent's slot row, or a batch of them along leading axes
+    (block elimination; paper §4.2 step 1) — the "admm_primal" op.
+
+    w (..., k) raw edge weights (0 at pads); live (..., k) bool; z/l slot
+    rows (..., k, p); D_l, m_l (...); sx (..., p) sum of the agent's
+    samples.  Returns ``(theta_l (..., p), theta_js (..., k, p))``.
+    """
+    return resolve("admm_primal", backend, z_own_s.device)(
+        w, live, z_own_s, z_nbr_s, l_own_s, l_nbr_s, D_l, m_l, sx, mu, rho)
+
+
+#: The JAX package's name for the primal over a batch of rows (there a
+#: vmap of the row solve; here the same function, batched along its
+#: leading axes).
+batched_admm_primal = quadratic_primal_core

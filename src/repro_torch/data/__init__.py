@@ -1,5 +1,7 @@
-"""The paper's synthetic model-propagation problems."""
+"""The paper's synthetic problems."""
 
-from .synthetic import mean_estimation_problem, two_cluster_mean_problem
+from .synthetic import (accuracy, linear_classification_problem,
+                        mean_estimation_problem, two_cluster_mean_problem)
 
-__all__ = ["mean_estimation_problem", "two_cluster_mean_problem"]
+__all__ = ["accuracy", "linear_classification_problem",
+           "mean_estimation_problem", "two_cluster_mean_problem"]

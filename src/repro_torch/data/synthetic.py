@@ -1,19 +1,26 @@
-"""Synthetic problems of the paper's model-propagation experiments
-(counterpart of ``repro.data.synthetic``, MP subset).
+"""Synthetic problems of the paper's experiments (counterpart of
+``repro.data.synthetic``, without the LM streams and federated moons).
 
 The numpy draws are exactly those of the JAX package from the same seed:
 ``mean_estimation_problem`` (§5.1: two-moons auxiliary information,
-N(+-1, 40) sample streams, c_i ~ U(1/2 +- eps/2), m_i = round(100 c_i))
-and ``two_cluster_mean_problem`` (two planted clusters of agents with
-opposite mean targets).
+N(+-1, 40) sample streams, c_i ~ U(1/2 +- eps/2), m_i = round(100 c_i)),
+``two_cluster_mean_problem`` (two planted clusters of agents with
+opposite mean targets) and ``linear_classification_problem`` (§5.2:
+target models in a 2-D subspace of R^p, angular-kernel graph,
+m_i ~ U{1..20}, 5% label flips).
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import Optional
 
-from repro_torch.core.graph import gaussian_kernel_graph, two_moons
-from repro_torch.core.losses import pad_datasets
+import numpy as np
+import torch
+
+from repro_torch.core.graph import (angular_kernel_graph,
+                                    gaussian_kernel_graph,
+                                    knn_graph_from_similarity, two_moons)
+from repro_torch.core.losses import AgentData, pad_datasets
 
 
 def mean_estimation_problem(n: int = 300, eps: float = 1.0,
@@ -52,3 +59,48 @@ def two_cluster_mean_problem(n: int, p: int = 4, sep: float = 2.0,
         .astype(np.float32)
     c = rng.uniform(0.3, 1.0, n).astype(np.float32)
     return labels, targets.astype(np.float32), theta_sol, c
+
+
+def linear_classification_problem(n: int = 100, p: int = 50,
+                                  sigma: float = 0.1,
+                                  label_noise: float = 0.05,
+                                  max_train: int = 20, n_test: int = 100,
+                                  seed: int = 0, knn: Optional[int] = None,
+                                  device=None):
+    """Returns (graph, train AgentData, test AgentData, target models);
+    the datasets on ``device`` (CUDA when None), the rest numpy."""
+    rng = np.random.default_rng(seed)
+    targets = np.zeros((n, p))
+    targets[:, :2] = rng.standard_normal((n, 2))
+    if knn is None:
+        graph = angular_kernel_graph(targets, sigma=sigma, threshold=1e-2)
+    else:
+        u = targets / np.linalg.norm(targets, axis=1, keepdims=True)
+        graph = knn_graph_from_similarity(u @ u.T, knn)
+
+    def gen(m_per_agent):
+        xs, ys = [], []
+        for i in range(n):
+            m = m_per_agent[i]
+            x = rng.uniform(-1, 1, (m, p))
+            y = np.sign(x @ targets[i])
+            y[y == 0] = 1.0  # scatter: unique targets (boolean mask)
+            flip = rng.uniform(size=m) < label_noise
+            xs.append(x)
+            ys.append(np.where(flip, -y, y))
+        return pad_datasets(xs, ys, device=device)
+
+    m_train = rng.integers(1, max_train + 1, n)
+    train = gen(m_train)
+    test = gen(np.full(n, n_test))
+    return graph, train, test, targets
+
+
+def accuracy(theta_all, data: AgentData) -> np.ndarray:
+    """(n,) per-agent accuracy of linear models (n, p) on padded
+    datasets, as numpy."""
+    x, y, mask = (a.cpu().numpy() for a in (data.x, data.y, data.mask))
+    theta = torch.as_tensor(theta_all).cpu().float().numpy()
+    pred = np.sign(np.einsum("nmp,np->nm", x, theta))
+    correct = (pred == y) * mask
+    return correct.sum(1) / np.maximum(mask.sum(1), 1)

@@ -8,8 +8,9 @@ library with a plain C interface.  The library lives under
 flags, so an edited source
 rebuilds and an unchanged one loads the cached library.  It is loaded with
 ``ctypes``; every entry point declares its ``argtypes`` (``c_void_p`` for
-pointers and the CUDA stream, ``c_int`` for sizes) and returns
-``cudaGetLastError()``, which :func:`launch` turns into an exception.
+pointers and the CUDA stream, ``c_int`` for sizes, ``c_float`` for
+scalars) and returns ``cudaGetLastError()``, which :func:`launch` turns
+into an exception.
 
 Nothing here runs at import time: the CPU-only tests import every module
 of the package on hosts without ``nvcc``.
@@ -33,8 +34,9 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-P, I = ctypes.c_void_p, ctypes.c_int
-#: C entry points and their argument types (pointers, sizes, stream last).
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C entry points and their argument types (pointers, sizes, scalars,
+#: stream last).
 SIGNATURES = {
     # A, theta, sol, b, out, n, D, stream
     "repro_graph_mix": (P, P, P, P, P, I, I, P),
@@ -45,6 +47,12 @@ SIGNATURES = {
     # theta, Ke, got_ever, msg, k_old, tgt_row, enc, theta_base, a_w,
     # win, keep, m, n, k, p, stream
     "repro_round_apply": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # theta, K, Z_own, Z_nbr, L_own, L_nbr, pay_th, pay_K, pay_Lo, pay_Ln,
+    # upd, own_s, oth_a, oth_s, stale, got, scratch, E, k, p, rho, stream
+    "repro_cl_edge_step": (P,) * 17 + (I, I, I, F, P),
+    # t_ii, t_ji, t_jj, t_ij, l_own_i, l_nbr_j_of_i, l_own_j, l_nbr_i_of_j,
+    # z_i, z_j and the four dual outputs, E, p, rho, stream
+    "repro_admm_edge": (P,) * 14 + (I, I, F, P),
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,11 @@
-"""Backend dispatch for the model-propagation hot paths (counterpart of
-``repro.kernels.dispatch``, slimmed to this port's ops and impls).
+"""Backend dispatch for the model-propagation and CL-ADMM hot paths
+(counterpart of ``repro.kernels.dispatch``, slimmed to this port's ops and
+impls).
 
 A registry keyed by
 
-    op   ∈ {mix, sparse_mix, round_step, neighbor_aggregate}
+    op   ∈ {mix, sparse_mix, round_step, neighbor_aggregate, admm_primal,
+            admm_edge, cl_edge_step}
     impl ∈ {reference, cuda}
 
 maps to callables; ``resolve(op, backend, device)`` returns the one a call
@@ -12,8 +14,8 @@ also each kernel module's plain version), ``cuda`` the hand-written Hopper
 kernel.  Selection:
 
 * **auto** (the default): ``cuda`` for a CUDA device where the op has a
-  kernel, ``reference`` otherwise (CPU tensors, or ``neighbor_aggregate``,
-  which has no kernel).
+  kernel, ``reference`` otherwise (CPU tensors, or ``neighbor_aggregate``
+  and ``admm_primal``, which have no kernel).
 * per-op **overrides** via :class:`ReproBackend`; asking for ``cuda`` on a
   non-CUDA device raises :class:`BackendUnavailable` — nothing falls back
   silently.
@@ -33,6 +35,17 @@ Canonical signatures (shared by every impl of an op):
                  keep (2B,) bool); both impls update the state in
                  place and return it
     neighbor_aggregate: (w (...,k), theta (...,k,p)) -> (...,p)
+    admm_primal: (w (...,k), live (...,k) bool, z_own, z_nbr, l_own,
+                  l_nbr (...,k,p), D (...), m (...), sx (...,p), mu, rho)
+                 -> (theta (...,p), theta_js (...,k,p))
+    admm_edge:  (t_ii, t_ji, t_jj, t_ij, l_own_i, l_nbr_j_of_i, l_own_j,
+                 l_nbr_i_of_j (E,p), *, rho) -> (z_i, z_j, and the four
+                 updated duals, each (E,p))
+    cl_edge_step: (theta (n,p), K, Z_own, Z_nbr, L_own, L_nbr (n,k,p),
+                   pay_th, pay_K, pay_Lo, pay_Ln (E,p), upd, own_s, oth_a,
+                   oth_s (E,) int32, stale, got (E,) bool, *, rho)
+                  -> (Z_own, Z_nbr, L_own, L_nbr); both impls update the
+                  four arrays in place and return them
 """
 
 from __future__ import annotations
@@ -42,14 +55,16 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from . import admm_update as _au
 from . import graph_mix as _gm
 from . import ref
 from . import round_fuse as _rf
 from . import sparse_mix as _sm
-# layout/prefetch helpers shared by every round_step impl, re-exported so
-# engine code reaches them through dispatch
-from .round_fuse import (decode_slots, encode_slots,  # noqa: F401
-                         round_prefetch, round_scales, round_stale_src)
+# layout/prefetch helpers shared by every round_step / cl_edge_step impl,
+# re-exported so engine code reaches them through dispatch
+from .round_fuse import (cl_stale_prefetch, decode_slots,  # noqa: F401
+                         encode_slots, round_prefetch, round_scales,
+                         round_stale_src)
 
 IMPLS = ("reference", "cuda")
 
@@ -131,12 +146,14 @@ def resolve(op: str, backend, device) -> Callable:
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, per kernel wrapper."""
     return {"graph_mix": _gm.launches, "sparse_gather_mix": _sm.launches,
-            "round_step": _rf.launches}
+            "round_step": _rf.launches, "cl_edge_step": _rf.cl_edge_launches,
+            "admm_edge_update": _au.launches}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     _gm.launches = _sm.launches = _rf.launches = 0
+    _rf.cl_edge_launches = _au.launches = 0
 
 
 register("mix", "reference")(ref.graph_mix)
@@ -146,3 +163,8 @@ register("sparse_mix", "cuda")(_sm.sparse_gather_mix)
 register("round_step", "reference")(ref.gossip_round_step)
 register("round_step", "cuda")(_rf.round_step)
 register("neighbor_aggregate", "reference")(ref.neighbor_aggregate)
+register("admm_primal", "reference")(ref.quadratic_primal)
+register("admm_edge", "reference")(ref.admm_edge_update)
+register("admm_edge", "cuda")(_au.admm_edge_update)
+register("cl_edge_step", "reference")(ref.cl_edge_step)
+register("cl_edge_step", "cuda")(_rf.cl_edge_step)

@@ -1,13 +1,17 @@
 """Plain-PyTorch twins of the JAX package's oracles (``repro.kernels.ref``)
-for the ops of the model-propagation path: ``graph_mix``,
-``sparse_gather_mix``, ``neighbor_aggregate`` and ``gossip_round_step``.
+for the ops of the model-propagation path (``graph_mix``,
+``sparse_gather_mix``, ``neighbor_aggregate``, ``gossip_round_step``) and
+of the CL-ADMM path (``quadratic_primal``, ``admm_edge_halfstep``,
+``admm_edge_update``, ``cl_edge_step``).
 
 They are the ``reference`` implementations of ``kernels.dispatch`` and the
 one plain version of each CUDA kernel (the kernel modules import them as
 ``*_plain``); each computes what its JAX namesake computes, with torch ops
 on whatever device its tensors lie on.  ``sparse_gather_mix`` and
 ``gossip_round_step`` follow their kernels' summation order, so the kernels
-agree with them bit for bit.
+agree with them bit for bit; the CL-ADMM edge math divides by ``rho`` as a
+tensor (a CUDA division by a Python scalar multiplies by its reciprocal),
+so it rounds as the kernels' ``__fdiv_rn`` does.
 """
 
 from __future__ import annotations
@@ -98,3 +102,135 @@ def gossip_round_step(theta, Ke, got_ever, msg, tgt_row, enc, k_old,
     theta[rows] = acc  # scatter: unique targets (rows are unique)
     got_ever[rows] = True  # scatter: unique targets (rows are unique)
     return theta, Ke, got_ever, keep
+
+
+# ---------------------------------------------------------------------------
+# CL-ADMM (paper §4.2)
+# ---------------------------------------------------------------------------
+
+
+def quadratic_primal(w, live, z_own_s, z_nbr_s, l_own_s, l_nbr_s, D_l, m_l,
+                     sx, mu, rho):
+    """Exact argmin of the CL-ADMM local Lagrangian for the quadratic loss
+    over agents' slot rows (block elimination; paper §4.2 step 1).
+
+    Leading axes ``...`` are a batch of rows (none for one row):
+    w (..., k) raw edge weights (0 at pads); live (..., k) bool;
+    z/l slot rows (..., k, p); D_l, m_l (...); sx (..., p) sum of the
+    agent's samples.  Returns ``(theta_l (..., p), theta_js (..., k, p))``.
+
+    The fused form of ``repro.kernels.dispatch`` (``admm_primal``/``xla``):
+    masked slot sums and one weighted contraction over the slots.
+    """
+    f = torch.float32
+    w = w.to(f)
+    wl = torch.where(live, w, 0.0)
+    b = rho * z_nbr_s.to(f) - l_nbr_s.to(f)
+    denom = torch.where(live, w + rho, 1.0)
+    n_nbrs = live.sum(-1)
+    a = (D_l + 2.0 * mu * D_l * m_l + rho * n_nbrs
+         - torch.sum(wl * wl / denom, dim=-1))
+    zo = torch.where(live[..., None], rho * z_own_s.to(f) - l_own_s.to(f),
+                     0.0)
+    rhs = (2.0 * mu * D_l[..., None] * sx
+           + torch.sum(zo, dim=-2)
+           + torch.einsum("...k,...kp->...p", wl / denom,
+                          torch.where(live[..., None], b, 0.0)))
+    theta_l = rhs / a[..., None]
+    theta_js = (w[..., None] * theta_l[..., None, :] + b) / denom[..., None]
+    return theta_l, theta_js
+
+
+def _rho_tensor(rho, like):
+    """``rho`` as a 0-d float32 tensor on ``like``'s device, the divisor of
+    the edge math (see the module docstring); filled on the device, so no
+    copy from the host."""
+    return torch.full((), rho, dtype=torch.float32, device=like.device)
+
+
+def admm_edge_halfstep(theta_own, k_own, l_own, l_nbr,
+                       theta_pay, k_pay, l_own_pay, l_nbr_pay, rho):
+    """One endpoint's half of the CL-ADMM edge update (paper §4.2 steps
+    2-3) over (..., p) slices of a batch of event sides: this side's
+    post-primal model, its copy of the partner and its two dual slots, and
+    the same four quantities from the partner's payload.
+
+    Returns ``(z_own, z_nbr, l_own_new, l_nbr_new)``.
+    """
+    r = _rho_tensor(rho, theta_own)
+    z_own = 0.5 * ((l_own + l_nbr_pay) / r + theta_own + k_pay)
+    z_nbr = 0.5 * ((l_own_pay + l_nbr) / r + theta_pay + k_own)
+    l_own_new = l_own + rho * (theta_own - z_own)
+    l_nbr_new = l_nbr + rho * (k_own - z_nbr)
+    return z_own, z_nbr, l_own_new, l_nbr_new
+
+
+def admm_edge_update(t_ii, t_ji, t_jj, t_ij, l_own_i, l_nbr_j_of_i,
+                     l_own_j, l_nbr_i_of_j, rho: float):
+    """Fused CL-ADMM Z + dual update for a batch of edges (paper steps 2-3).
+
+    Inputs are (E, p) slices: for each edge e = (i, j),
+      t_ii = Theta_i^i, t_ji = Theta_j^i, t_jj = Theta_j^j, t_ij = Theta_i^j
+      l_own_i = Lambda_{ei}^i, l_nbr_j_of_i = Lambda_{ei}^j (i's duals)
+      l_own_j = Lambda_{ej}^j, l_nbr_i_of_j = Lambda_{ej}^i (j's duals)
+    Returns ``(z_i, z_j, l_own_i', l_nbr_j_of_i', l_own_j', l_nbr_i_of_j')``
+    in the inputs' dtype, computed in float32.
+    """
+    dtype = t_ii.dtype
+    f = torch.float32
+    t_ii, t_ji, t_jj, t_ij = (a.to(f) for a in (t_ii, t_ji, t_jj, t_ij))
+    l_own_i, l_nbr_j_of_i, l_own_j, l_nbr_i_of_j = (
+        a.to(f) for a in (l_own_i, l_nbr_j_of_i, l_own_j, l_nbr_i_of_j))
+    r = _rho_tensor(rho, t_ii)
+    z_i = 0.5 * ((l_own_i + l_nbr_i_of_j) / r + t_ii + t_ji)
+    z_j = 0.5 * ((l_own_j + l_nbr_j_of_i) / r + t_jj + t_ij)
+    outs = (z_i, z_j, l_own_i + rho * (t_ii - z_i),
+            l_nbr_j_of_i + rho * (t_ij - z_j),
+            l_own_j + rho * (t_jj - z_j),
+            l_nbr_i_of_j + rho * (t_ji - z_i))
+    return tuple(a.to(dtype) for a in outs)
+
+
+def landed(tgt, got, size: int):
+    """(E,) bool: whether side e's target cell ``tgt[e]`` (< ``size``) is
+    written this round, i.e. whether some side with the same target has
+    ``got`` set.  Counted on the device (an integer index_add, exact in any
+    order), so masking a scatter by it needs no host sync."""
+    hit = torch.zeros(size, dtype=torch.int32, device=tgt.device)
+    hit.index_add_(0, tgt, got.to(torch.int32))
+    return hit[tgt] > 0
+
+
+def cl_edge_step(theta, K, Z_own, Z_nbr, L_own, L_nbr,
+                 pay_th, pay_K, pay_Lo, pay_Ln,
+                 upd, own_s, oth_a, oth_s, stale, got, *, rho: float):
+    """One batched CL-ADMM edge phase (scenario-engine semantics; the
+    ``cl_edge_step`` op and ``repro.kernels.round_fuse.cl_edge_step``).
+
+    theta (n, p) and K (n, k, p) are post-primal; Z_own, Z_nbr, L_own,
+    L_nbr (n, k, p) are round-start.  Per event side e, agent ``upd[e]``
+    updates its slot ``own_s[e]`` from partner ``oth_a[e]``'s payload:
+    its fresh cells (slot ``oth_s[e]``) or, where ``stale[e]``, the
+    prefetched stale rows ``pay_*[e]`` (E, p).  The four results land where
+    ``got`` — every read comes from the round-start state, every write
+    after all reads.  Updates the four Z/L arrays in place and returns them.
+    """
+    n, k, p = K.shape
+    st = stale[:, None]
+    a, s = oth_a.long(), oth_s.long()
+    u, o = upd.long(), own_s.long()
+    pay = (torch.where(st, pay_th, theta[a]), torch.where(st, pay_K, K[a, s]),
+           torch.where(st, pay_Lo, L_own[a, s]),
+           torch.where(st, pay_Ln, L_nbr[a, s]))
+    new = admm_edge_halfstep(theta[u], K[u, o], L_own[u, o], L_nbr[u, o],
+                             *pay, rho)
+    tgt = u * k + o
+    hit = landed(tgt, got, n * k)[:, None]
+    for arr, val in zip((Z_own, Z_nbr, L_own, L_nbr), new):
+        flat = arr.view(n * k, p)
+        # scatter: idempotent — duplicate (agent, slot) targets carry
+        # bit-identical values: each reads the same round-start cells and
+        # post-primal rows, and staleness is drawn per sender per round;
+        # a target no side got writes its own value back
+        flat[tgt] = torch.where(hit, val, flat[tgt])
+    return Z_own, Z_nbr, L_own, L_nbr

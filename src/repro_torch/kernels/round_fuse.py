@@ -1,6 +1,7 @@
 """``round_step``: one fused MP gossip round over the flat slot table, and
-the layout and prefetch helpers around it (counterpart of
-``repro.kernels.round_fuse``, MP half).
+``cl_edge_step``: the CL-ADMM edge phase of one scenario round, with the
+layout and prefetch helpers around them (counterpart of
+``repro.kernels.round_fuse``).
 
 The flat table ``Ke (n*k, p+1)`` holds the neighbor slots with an id
 column at ``p`` that records the event that last wrote each slot.  A
@@ -22,8 +23,18 @@ slot-order row sums, so the two agree bit for bit), which runs for tensors
 on the CPU only; for CUDA tensors the wrapper launches the kernel or
 raises.
 
+``cl_edge_step``'s CUDA kernel (``csrc/cl_edge_step.cu``, two launches:
+compute into scratch, then land) replaces the Pallas TPU kernel
+``repro/kernels/round_fuse.py::cl_edge_step_pallas``.  It too updates its
+state (``Z_own``, ``Z_nbr``, ``L_own``, ``L_nbr``) in place, so the
+one-round-stale payload — the previous round's post-primal ``theta``/``K``
+and its round-start ``L_own``/``L_nbr`` — is gathered ahead by
+:func:`cl_stale_prefetch` instead of kept as a whole snapshot.  Its plain
+version is ``kernels.ref.cl_edge_step`` (CPU tensors only).
+
 The helpers (``encode_slots``, ``decode_slots``, ``round_scales``,
-``round_stale_src``, ``round_prefetch``) are plain torch ops.
+``round_stale_src``, ``round_prefetch``, ``cl_stale_prefetch``) are plain
+torch ops.
 """
 
 from __future__ import annotations
@@ -31,10 +42,14 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .ref import cl_edge_step as cl_edge_step_plain
 from .ref import gossip_round_step as round_step_plain
 
 #: round_step calls that launched the kernel in this process.
 launches = 0
+
+#: cl_edge_step calls that launched the kernel in this process.
+cl_edge_launches = 0
 
 #: Event ids ride as float32 in the id column: exact below 2^24.
 MAX_EVENTS = 1 << 24
@@ -169,3 +184,79 @@ def round_step(theta, Ke, got_ever, msg, tgt_row, enc, k_old, theta_base,
     _build.launch("repro_round_apply", *ptrs, m, n, nk // n, p, device=dev)
     launches += 1
     return theta, Ke, got_ever, keep
+
+
+# ---------------------------------------------------------------------------
+# cl_edge_step: stale-payload prefetch and kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def cl_stale_prefetch(theta, K, L_own, L_nbr, oth_a, oth_s):
+    """The (E, p) stale payload rows of one round's event sides, gathered
+    from the state they must come from: the partner ``oth_a``'s model and
+    its slot ``oth_s`` of ``K``, ``L_own`` and ``L_nbr``.
+
+    The engine calls it for round t+1's sides between round t's primal
+    and edge phases, when ``theta``/``K`` are round t's post-primal values
+    and ``L_own``/``L_nbr`` still round t's round-start values — round
+    t+1's one-round-stale payload — so no (n, k, p) snapshot is kept.
+    Returns ``(pay_th, pay_K, pay_Lo, pay_Ln)``, each contiguous.
+    """
+    a, s = oth_a.long(), oth_s.long()
+    return (theta[a], K[a, s], L_own[a, s], L_nbr[a, s])
+
+
+_CL_FLOATS = ("theta", "K", "Z_own", "Z_nbr", "L_own", "L_nbr", "pay_th",
+              "pay_K", "pay_Lo", "pay_Ln")
+_CL_SIDES = ("upd", "own_s", "oth_a", "oth_s", "stale", "got")
+
+
+def _check_cl(*args):
+    theta, K = args[0], args[1]
+    n, k, p = K.shape
+    E = args[10].shape[0]
+    shapes = [(n, p)] + [(n, k, p)] * 5 + [(E, p)] * 4 + [(E,)] * 6
+    dtypes = [torch.float32] * 10 + [torch.int32] * 4 + [torch.bool] * 2
+    for name, t, shape, dtype in zip(_CL_FLOATS + _CL_SIDES, args, shapes,
+                                     dtypes):
+        if t.device != theta.device:
+            raise ValueError(f"cl_edge_step: {name} on {t.device}, theta on "
+                             f"{theta.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"cl_edge_step: {name} must be {dtype}, got "
+                            f"{t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"cl_edge_step: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"cl_edge_step: {name} must be contiguous")
+
+
+def cl_edge_step(theta, K, Z_own, Z_nbr, L_own, L_nbr,
+                 pay_th, pay_K, pay_Lo, pay_Ln,
+                 upd, own_s, oth_a, oth_s, stale, got, *, rho: float):
+    """One batched CL-ADMM edge phase (``kernels.ref.cl_edge_step``):
+    updates ``Z_own``, ``Z_nbr``, ``L_own`` and ``L_nbr`` in place and
+    returns them.  The side indices must lie in range (agents < n, slots
+    < k), as the scheduler's events do: checking them here would cost a
+    host sync a round.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    """
+    global cl_edge_launches
+    args = (theta, K, Z_own, Z_nbr, L_own, L_nbr, pay_th, pay_K, pay_Lo,
+            pay_Ln, upd, own_s, oth_a, oth_s, stale, got)
+    if theta.device.type == "cpu":
+        return cl_edge_step_plain(*args, rho=rho)
+    if theta.device.type != "cuda":
+        raise ValueError(f"cl_edge_step: no kernel for {theta.device}")
+    _check_cl(*args)
+    _, k, p = K.shape
+    E = upd.shape[0]
+    scratch = torch.empty((E, 4, p), dtype=torch.float32,
+                          device=theta.device)
+    _build.launch("repro_cl_edge_step",
+                  *(t.data_ptr() for t in args + (scratch,)), E, k, p,
+                  float(rho), device=theta.device)
+    cl_edge_launches += 1
+    return Z_own, Z_nbr, L_own, L_nbr

@@ -1,10 +1,12 @@
-"""Sparse event-driven engines, model-propagation half (counterpart of
-``repro.simulate.engines``).
+"""Sparse event-driven engines: model propagation and CL-ADMM
+(counterpart of ``repro.simulate.engines``).
 
 State is O(n * k * p) padded-neighbor storage:
 
   theta (n, p)        — each agent's own model
   K     (n, k_max, p) — K[i, s] = agent i's copy of neighbor nbr_idx[i, s]
+  Z_own, Z_nbr, L_own, L_nbr (n, k_max, p) — CL-ADMM's per-slot secondary
+                        and dual variables of the edge (i, nbr_idx[i, s])
 
 * ``sparse_sync_mp`` — the synchronous Eq. 5 sweep, one ``sparse_mix`` op
   (the ``sparse_gather_mix`` CUDA kernel on the card) per sweep.
@@ -14,6 +16,12 @@ State is O(n * k * p) padded-neighbor storage:
   ``round_step`` op (``backend`` given; the ``round_step`` CUDA kernel on
   the card).  Both consume the same events, so their counters match
   exactly and their trajectories agree to fp rounding.
+* ``sparse_async_admm`` — asynchronous CL-ADMM one wake-up at a time over
+  the slot rows; bit for bit ``core.collaborative.async_admm``.
+* ``run_cl_scenario`` — asynchronous CL-ADMM under a fault scenario, B
+  wake-ups per round: a batched primal phase (torch ops), then one
+  ``cl_edge_step`` op (the CUDA kernel on the card).  The state is updated
+  in place; no (n, k, p) array is copied in any round.
 """
 
 from __future__ import annotations
@@ -21,14 +29,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.losses import AgentData, local_stats
 from repro_torch.core.model_propagation import mp_mix_operator
-from repro_torch.core.sparse import batched_model_update, record_chunks
-from repro_torch.kernels.dispatch import (ReproBackend, encode_slots,
-                                          resolve, round_prefetch,
-                                          round_scales, round_stale_src)
+from repro_torch.core.primal import ExactQuadraticPrimal
+from repro_torch.core.sparse import (admm_edge_halfstep, batched_model_update,
+                                     live_slots, quadratic_primal_core,
+                                     record_chunks, sample_event)
+from repro_torch.kernels.dispatch import (ReproBackend, cl_stale_prefetch,
+                                          encode_slots, resolve,
+                                          round_prefetch, round_scales,
+                                          round_stale_src)
+from repro_torch.kernels.ref import landed
 from .scheduler import (EventStream, NetworkConditions,
                         precompute_event_stream, stream_totals)
 from .topology import SparseTopology
@@ -235,3 +250,243 @@ def _fused_rounds(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
         if (t + 1) % record_every == 0:
             hist.append(theta.clone())
     return hist
+
+
+# ---------------------------------------------------------------------------
+# Exact sparse CL-ADMM (mirrors core.collaborative.async_admm, quadratic)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SparseADMMState:
+    """Sparse partial-consensus state: per-agent self model (n, p) and
+    per-slot copies / secondary / dual variables (n, k_max, p)."""
+
+    theta: torch.Tensor
+    K: torch.Tensor
+    Z_own: torch.Tensor
+    Z_nbr: torch.Tensor
+    L_own: torch.Tensor
+    L_nbr: torch.Tensor
+
+
+def init_sparse_admm(topo: SparseTopology, theta_sol,
+                     device=None) -> SparseADMMState:
+    """Warm start (paper §4.2): share solitary models with neighbors; every
+    array its own allocation on ``device`` (CUDA when None), since the
+    engines update them in place."""
+    device = resolve_device(device)
+    n, k = topo.n, topo.k_max
+    if isinstance(theta_sol, torch.Tensor):
+        theta = theta_sol.to(device, torch.float32).reshape(n, -1).clone()
+    else:
+        theta = torch.as_tensor(np.array(theta_sol, dtype=np.float32),
+                                device=device).reshape(n, -1)
+    p = theta.shape[1]
+    K = theta[torch.as_tensor(topo.tables.nbr_idx, device=device).long()]
+    Z_own = theta[:, None, :].expand(n, k, p).contiguous()
+    return SparseADMMState(theta, K, Z_own, K.clone(),
+                           torch.zeros_like(K), torch.zeros_like(K))
+
+
+def _admm_payload(topo: SparseTopology, data: AgentData, theta_sol, state,
+                  device):
+    """(tables, D (n,), m (n,), sx (n, p), state) on ``device``."""
+    tabs = topo.device_tables(device)
+    if state is None:
+        if theta_sol is None:
+            raise ValueError("need theta_sol (warm start) or explicit state")
+        state = init_sparse_admm(topo, theta_sol, device)
+    m, sx = local_stats(data)
+    return tabs, tabs.deg_w, m.to(device), sx.to(device), state
+
+
+@dataclasses.dataclass
+class SparseCLTrace:
+    """Recorded sparse CL-ADMM trajectory (models, comms, final state)."""
+
+    theta_hist: torch.Tensor
+    comms_hist: np.ndarray
+    final: SparseADMMState
+
+
+def _sparse_primal_quadratic(st: SparseADMMState, l: int, tabs, D, m, sx,
+                             mu, rho, backend=None):
+    """Slot-row mirror of ``core.collaborative._primal_quadratic``: the
+    same "admm_primal" call on the same slot-row shapes; writes row l."""
+    k = tabs.nbr_w.shape[1]
+    live = torch.arange(k, device=D.device) < tabs.deg_count[l]
+    theta_l, theta_js = quadratic_primal_core(
+        tabs.nbr_w[l], live, st.Z_own[l], st.Z_nbr[l], st.L_own[l],
+        st.L_nbr[l], D[l], m[l], sx[l], mu, rho, backend)
+    st.K[l] = torch.where(live[:, None], theta_js, st.K[l])
+    st.theta[l] = theta_l
+
+
+def _sparse_edge_zl(st: SparseADMMState, i, s, j, r, rho):
+    """Slot mirror of ``core.collaborative._edge_zl_update`` for edge
+    (i, j): slot s is j's position in i's row, slot r is i's in j's."""
+    cells_i = (st.theta[i], st.K[i, s], st.L_own[i, s], st.L_nbr[i, s])
+    cells_j = (st.theta[j], st.K[j, r], st.L_own[j, r], st.L_nbr[j, r])
+    new_i = admm_edge_halfstep(*cells_i, *cells_j, rho)
+    new_j = admm_edge_halfstep(*cells_j, *cells_i, rho)
+    for arr, vi, vj in zip((st.Z_own, st.Z_nbr, st.L_own, st.L_nbr), new_i,
+                           new_j):
+        # scatter: unique targets — (i, s) and (j, r) are the edge's two
+        # directed slots, distinct cells
+        arr[i, s] = vi
+        arr[j, r] = vj  # scatter: unique targets
+
+
+def sparse_async_admm(topo: SparseTopology, data: AgentData, mu: float,
+                      rho: float, steps: int = 1000, seed: int = 0,
+                      record_every: int = 50, theta_sol=None,
+                      state: Optional[SparseADMMState] = None, draws=None,
+                      backend: Optional[ReproBackend] = None,
+                      device=None) -> SparseCLTrace:
+    """Asynchronous decentralized CL-ADMM (paper §4.2) over sparse slot
+    state, one wake-up per tick, on ``device`` (CUDA when None); ``state``
+    is updated in place.
+
+    Quadratic loss (exact primal).  ``draws = (i_seq, s_seq)`` gives the
+    wake-ups; otherwise a ``torch.Generator`` seeded with ``seed`` draws
+    them.  Bit for bit ``core.collaborative.async_admm(...,
+    loss="quadratic")`` on the same graph and draws, storing O(n k p)
+    instead of 5 O(n^2 p).
+    """
+    device = resolve_device(device)
+    tabs, D, m, sx, st = _admm_payload(topo, data, theta_sol, state, device)
+    host = topo.tables
+    record_every, n_rec = record_chunks(steps, record_every)
+    gen = torch.Generator().manual_seed(seed) if draws is None else None
+    hist = []
+    for t in range(n_rec * record_every):
+        i, s = sample_event(topo.n, host.slot_cdf, host.deg_count,
+                            generator=gen, draw=None if draws is None
+                            else (draws[0][t], draws[1][t]))
+        if host.deg_count[i] > 0:        # a degree-0 waker is a no-op
+            j, r = int(host.nbr_idx[i, s]), int(host.rev_slot[i, s])
+            _sparse_primal_quadratic(st, i, tabs, D, m, sx, mu, rho, backend)
+            _sparse_primal_quadratic(st, j, tabs, D, m, sx, mu, rho, backend)
+            _sparse_edge_zl(st, i, s, j, r, rho)
+        if (t + 1) % record_every == 0:
+            hist.append(st.theta.clone())
+    comms = 2 * record_every * (np.arange(n_rec) + 1)
+    return SparseCLTrace(torch.stack(hist), comms, st)
+
+
+# ---------------------------------------------------------------------------
+# Scenario engine: batched wake-ups + network conditions (CL-ADMM)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CLSimTrace(SimTrace):
+    """SimTrace plus the final sparse ADMM state."""
+
+    final: Optional[SparseADMMState] = None
+
+
+def _event_sides(ev):
+    """The 2B event sides of one round: side e updates agent ``upd[e]``'s
+    slot ``own_s[e]`` from partner ``oth_a[e]`` (slot ``oth_s[e]``), whose
+    payload is ``stale[e]`` and was delivered where ``got[e]`` (the
+    i-sides first: i receives j's payload, then j receives i's)."""
+    cat = torch.cat
+    return (cat([ev.i, ev.j]), cat([ev.s, ev.r]), cat([ev.j, ev.i]),
+            cat([ev.r, ev.s]), cat([ev.stale_ji, ev.stale_ij]),
+            cat([ev.deliver_ji, ev.deliver_ij]))
+
+
+def run_cl_scenario(topo: SparseTopology, data: AgentData, mu: float,
+                    rho: float, conditions: NetworkConditions, rounds: int,
+                    batch: int, seed: int = 0, record_every: int = 10,
+                    theta_sol=None, state: Optional[SparseADMMState] = None,
+                    stream: Optional[EventStream] = None,
+                    backend: Optional[ReproBackend] = None, primal=None,
+                    device=None) -> CLSimTrace:
+    """Asynchronous CL-ADMM (paper §4.2) under a fault scenario, B
+    wake-ups per round, on ``device`` (CUDA when None).
+
+    ``stream`` replays a precomputed EventStream (e.g. the JAX package's,
+    carried across by ``repro_torch.convert.stream_from_arrays``); when
+    absent the torch scheduler draws one from ``seed``.  ``state`` (or the
+    warm start from ``theta_sol``) is updated in place and returned as
+    ``final``.  ``primal`` is None or ``core.primal.ExactQuadraticPrimal()``
+    (the same computation); any other solver raises NotImplementedError.
+
+    One round:
+
+    1. **primal** — every endpoint whose partner's payload was delivered
+       recomputes its exact quadratic primal from its round-start rows
+       and rewrites its theta and live K slots.  Duplicate agents read the
+       same rows and write identical values.
+    2. **prefetch** — the next round's stale payload rows, gathered from
+       this round's post-primal theta/K and round-start L_own/L_nbr
+       (``cl_stale_prefetch``); round 0's come from the initial state.
+    3. **edge** — one ``cl_edge_step`` op over the 2B sides: each
+       delivered side updates its own (Z_own, Z_nbr, L_own, L_nbr) slot
+       from its post-primal cells and the partner's payload (fresh, or
+       the prefetched stale rows).
+    """
+    device = resolve_device(device)
+    if primal is None:
+        primal = ExactQuadraticPrimal()
+    elif not isinstance(primal, ExactQuadraticPrimal):
+        raise NotImplementedError(
+            f"primal solver {type(primal).__name__} is not ported to "
+            f"repro_torch yet: ROADMAP queue 1 item 5 (InexactPrimal and "
+            f"the nonlinear CL-ADMM agents)")
+    tabs, D, m, sx, st = _admm_payload(topo, data, theta_sol, state, device)
+    record_every, n_rec = record_chunks(rounds, record_every)
+    total_rounds = n_rec * record_every
+    if stream is None:
+        stream = precompute_event_stream(
+            tabs, torch.as_tensor(topo.partition_halves()), conditions,
+            batch, seed, total_rounds, device=device)
+    if stream.rounds < total_rounds or stream.i.shape[1] != batch:
+        raise ValueError(f"stream is ({stream.rounds}, "
+                         f"{stream.i.shape[1]}); the run needs "
+                         f"({total_rounds}, {batch})")
+
+    n, k = tabs.nbr_w.shape
+    edge_step = resolve("cl_edge_step", backend, device)
+    live = live_slots(tabs.deg_count, k)
+
+    sides = _event_sides(stream.batch_at(0))
+    pay = cl_stale_prefetch(st.theta, st.K, st.L_own, st.L_nbr, sides[2],
+                            sides[3])
+    hist = []
+    for t in range(total_rounds):
+        upd, got = sides[0], sides[5]
+        u = upd.long()
+        rows = live[u]
+        new_theta, theta_js = primal.solve_batch(
+            tabs.nbr_w[u], rows, st.Z_own[u], st.Z_nbr[u], st.L_own[u],
+            st.L_nbr[u], D[u], m[u], sx[u], (), st.theta[u], mu, rho,
+            backend)
+        K_rows = st.K[u]
+        hit = landed(u, got, n)[:, None]
+        # scatter: idempotent — duplicate agents in upd derive identical
+        # rows from the same round-start state; a row that no side got
+        # writes its own value back
+        st.theta[u] = torch.where(hit, new_theta, st.theta[u])
+        # scatter: idempotent (the same argument, for the K rows)
+        st.K[u] = torch.where(hit[..., None] & rows[..., None], theta_js,
+                              K_rows)
+        nxt, pay_next = None, None
+        if t + 1 < total_rounds:
+            nxt = _event_sides(stream.batch_at(t + 1))
+            pay_next = cl_stale_prefetch(st.theta, st.K, st.L_own, st.L_nbr,
+                                         nxt[2], nxt[3])
+        edge_step(st.theta, st.K, st.Z_own, st.Z_nbr, st.L_own, st.L_nbr,
+                  *pay, *sides, rho=rho)
+        sides, pay = nxt, pay_next
+        if (t + 1) % record_every == 0:
+            hist.append(st.theta.clone())
+    ends = torch.arange(1, n_rec + 1, device=device) * record_every - 1
+    delivered, dropped, invalid = stream_totals(
+        EventStream(*(f[:total_rounds] for f in stream)))
+    return CLSimTrace(torch.stack(hist), stream.active_frac[ends],
+                      delivered, dropped, total_rounds, total_rounds * batch,
+                      invalid, final=st)

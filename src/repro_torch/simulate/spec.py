@@ -1,9 +1,9 @@
 """Unified scenario API: one frozen spec, one entry point (counterpart of
-``repro.simulate.spec``, single-device model propagation).
+``repro.simulate.spec``, single device).
 
 ``run_scenario(ScenarioSpec(algo="mp", ...))`` runs the MP gossip engine
-on ``spec.device`` (CUDA when None).  Unlike the JAX package, ``stream=``
-is accepted for ``mp``: torch cannot replay ``jax.random``, so a
+and ``algo="cl"`` the CL-ADMM engine on ``spec.device`` (CUDA when None).
+``stream=`` is accepted for both: torch cannot replay ``jax.random``, so a
 precomputed EventStream is how the port takes the reference's draws.
 
 The rest of the JAX spec is not ported yet; each such field raises
@@ -22,7 +22,6 @@ _ALGOS = ("mp", "cl", "joint")
 
 #: What is not ported yet, and the ROADMAP queue-1 item that ports it.
 _LATER = {
-    "cl": "ROADMAP queue 1 item 5 (CL-ADMM)",
     "joint": "ROADMAP queue 1 item 6 (joint graph learning)",
     "telemetry": "ROADMAP queue 1 item 7 (scenario API and telemetry)",
     "serve": "ROADMAP queue 1 item 9 (serving)",
@@ -37,12 +36,17 @@ class ScenarioSpec:
     core:   algo, topology (SparseTopology), conditions, rounds, batch,
             seed, record_every
     mp:     theta_sol (solitary models), c (confidences), alpha (Eq. 3 mix)
+    cl:     data (AgentData), mu, rho, theta_sol (warm start) or state
+            (a SparseADMMState, updated in place), primal (None or
+            ExactQuadraticPrimal; the engine raises NotImplementedError,
+            naming the ROADMAP item, for any other solver)
     events: stream — a precomputed EventStream to replay (otherwise drawn
             from ``seed`` by the torch scheduler)
-    exec:   backend (fused round_step when given), device (CUDA when None)
+    exec:   backend (mp: fused round_step when given; both: per-op impl
+            choice), device (CUDA when None)
 
-    ``cl``/``joint`` payloads, telemetry, sharding and serving are fields
-    of the JAX spec that this port does not run yet.
+    ``joint`` payloads, telemetry, sharding, serving and the inexact
+    primal are fields of the JAX spec that this port does not run yet.
     """
 
     algo: str
@@ -55,6 +59,11 @@ class ScenarioSpec:
     theta_sol: Any = None
     c: Any = None
     alpha: float = 0.5
+    data: Any = None
+    mu: Optional[float] = None
+    rho: Optional[float] = None
+    state: Any = None
+    primal: Any = None
     stream: Optional[EventStream] = None
     backend: Any = None
     device: Any = None
@@ -65,6 +74,9 @@ class ScenarioSpec:
     def __post_init__(self):
         if self.algo not in _ALGOS:
             raise ValueError(f"unknown algo {self.algo!r}; one of {_ALGOS}")
+        if self.primal is not None and self.algo != "cl":
+            raise ValueError("primal solvers plug into the CL-ADMM engine "
+                             "only (algo='cl')")
 
     def _require(self, **fields):
         for name, val in fields.items():
@@ -80,9 +92,10 @@ def _not_ported(what: str):
 
 def run_scenario(spec: ScenarioSpec):
     """Run the scenario a :class:`ScenarioSpec` describes; returns the
-    engine's :class:`~repro_torch.simulate.engines.SimTrace`."""
-    if spec.algo != "mp":
-        _not_ported(spec.algo)
+    engine's :class:`~repro_torch.simulate.engines.SimTrace` (a
+    ``CLSimTrace`` for ``cl``)."""
+    if spec.algo == "joint":
+        _not_ported("joint")
     if spec.sharded:
         _not_ported("sharded")
     if spec.serve is not None:
@@ -90,6 +103,16 @@ def run_scenario(spec: ScenarioSpec):
     if spec.telemetry is not None and getattr(spec.telemetry, "enabled",
                                               True):
         _not_ported("telemetry")
+    if spec.algo == "cl":
+        spec._require(data=spec.data, mu=spec.mu, rho=spec.rho)
+        if spec.state is None:
+            spec._require(theta_sol=spec.theta_sol)
+        return _engines.run_cl_scenario(
+            spec.topology, spec.data, spec.mu, spec.rho, spec.conditions,
+            spec.rounds, spec.batch, seed=spec.seed,
+            record_every=spec.record_every, theta_sol=spec.theta_sol,
+            state=spec.state, stream=spec.stream, backend=spec.backend,
+            primal=spec.primal, device=spec.device)
     spec._require(theta_sol=spec.theta_sol, c=spec.c)
     return _engines.run_mp_scenario(
         spec.topology, spec.theta_sol, spec.c, spec.alpha, spec.conditions,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs (the tolerances of
-tests/test_torch_kernels.py).  The kernels have no CPU mode: on a host
-without a CUDA card every test here skips.
+tests/test_torch_kernels.py; ``cl_edge_step`` and ``admm_edge_update``
+bit for bit, repeated targets included).  The kernels have no CPU mode:
+on a host without a CUDA card every test here skips.
 
 Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -11,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import admm_update as au  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels import graph_mix as gm  # noqa: E402
 from repro_torch.kernels import round_fuse as rf  # noqa: E402
@@ -98,7 +100,76 @@ def test_round_step_replay_is_bit_identical(cuda):
     assert all(torch.equal(x, y) for x, y in zip(ra, rb))
 
 
+@pytest.mark.parametrize("E,p,rho", [(1, 1, 1.0), (1000, 32, 0.7),
+                                     (333, 45, 2.5)])
+def test_admm_edge_kernel(cuda, E, p, rho):
+    rng = np.random.default_rng(E + p)
+    args = on(cuda, *(rng.standard_normal((E, p)) for _ in range(8)))
+    before = au.launches
+    got = au.admm_edge_update(*args, rho=rho)
+    assert au.launches == before + 1
+    want = au.admm_edge_update_plain(*args, rho)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))  # bit for bit
+
+
+def make_cl_edge(dev, n, B, p, seed, rho=1.0):
+    """One CL-ADMM edge phase from the port's own scheduler: a small
+    topology and B wake-ups with dropped and stale sides (B >= n makes
+    repeated (agent, slot) targets certain), a random state, and the stale
+    payload gathered from a random previous-round snapshot, as the engine
+    gathers it (so repeated targets carry identical values)."""
+    from repro_torch.simulate import (NetworkConditions,
+                                      precompute_event_stream,
+                                      random_geometric_topology)
+    from repro_torch.simulate.engines import _event_sides
+    topo = random_geometric_topology(n, k=4, seed=seed)
+    tabs = topo.device_tables(dev)
+    cond = NetworkConditions(drop_prob=0.3, stale_prob=0.3)
+    stream = precompute_event_stream(
+        tabs, torch.as_tensor(topo.partition_halves()), cond, B, seed, 1,
+        device=dev)
+    sides = _event_sides(stream.batch_at(0))
+    k = topo.k_max
+    rng = np.random.default_rng(seed)
+    f = on(dev, rng.standard_normal((n, p)), *(rng.standard_normal(
+        (n, k, p)) for _ in range(5)))
+    snap = on(dev, rng.standard_normal((n, p)), *(rng.standard_normal(
+        (n, k, p)) for _ in range(3)))
+    pay = rf.cl_stale_prefetch(*snap, sides[2], sides[3])
+    return f + list(pay), sides, rho
+
+
+def cl_edge_run(fn, f, sides, rho):
+    state = [t.clone() for t in f]
+    return fn(*state, *sides, rho=rho)
+
+
+@pytest.mark.parametrize("n,B,p,seed,rho", [(50, 200, 32, 1, 1.0),
+                                            (300, 300, 9, 2, 0.7),
+                                            (40, 80, 40, 3, 1.5)])
+def test_cl_edge_step_kernel(cuda, n, B, p, seed, rho):
+    f, sides, rho = make_cl_edge(cuda, n, B, p, seed, rho)
+    upd, own_s, _, _, stale, got = sides
+    tgt = upd.long() * f[1].shape[1] + own_s.long()
+    landed_tgt = tgt[got]
+    assert landed_tgt.unique().numel() < landed_tgt.numel()   # duplicates
+    assert (stale & got).any()
+    before = rf.cl_edge_launches
+    out = cl_edge_run(rf.cl_edge_step, f, sides, rho)
+    assert rf.cl_edge_launches == before + 1
+    want = cl_edge_run(rf.cl_edge_step_plain, f, sides, rho)
+    assert all(torch.equal(g, w) for g, w in zip(out, want))  # bit for bit
+
+
+def test_cl_edge_step_nothing_got_is_identity(cuda):
+    f, sides, rho = make_cl_edge(cuda, 30, 40, 8, 4)
+    sides = sides[:5] + (torch.zeros_like(sides[5]),)
+    out = cl_edge_run(rf.cl_edge_step, f, sides, rho)
+    assert all(torch.equal(g, w) for g, w in zip(out, f[2:6]))
+
+
 def test_dispatch_auto_picks_kernels(cuda):
-    for op in ("mix", "sparse_mix", "round_step"):
+    for op in ("mix", "sparse_mix", "round_step", "admm_edge",
+               "cl_edge_step"):
         assert dispatch.resolve(op, None, cuda) \
             is dispatch._REGISTRY[op]["cuda"]

@@ -167,5 +167,11 @@ def test_unported_spec_fields_raise(setup, field, value):
         "clean").make_conditions(ROUNDS), rounds=ROUNDS, batch=BATCH,
         theta_sol=sol, c=c, device=CPU)
     kw[field] = value
+    if kw["algo"] == "cl":
+        # CL-ADMM runs; what it still lacks is the inexact primal
+        from repro_torch.core.losses import pad_datasets
+        kw.update(data=pad_datasets(list(sol[:, None, :]), device=CPU),
+                  mu=0.1, rho=1.0,
+                  primal=type("InexactPrimal", (), {"needs_data": True})())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_scenario(ScenarioSpec(**kw))

@@ -46,6 +46,9 @@ def test_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         "import repro_torch, repro_torch.convert, repro_torch.core, "
         "repro_torch.data, repro_torch.simulate, repro_torch.kernels\n"
+        "import repro_torch.core.collaborative, repro_torch.core.consensus, "
+        "repro_torch.core.primal, repro_torch.kernels.admm_update, "
+        "repro_torch.kernels.round_fuse\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -60,9 +63,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
     import numpy as np
 
     from repro_torch import resolve_device
-    from repro_torch.core import graph, model_propagation
+    from repro_torch.core import collaborative, graph, model_propagation
+    from repro_torch.core.losses import pad_datasets
+    from repro_torch.data import linear_classification_problem
     from repro_torch.simulate import (ScenarioSpec, get_scenario,
-                                      ring_topology, run_scenario,
+                                      init_sparse_admm, ring_topology,
+                                      run_scenario, sparse_async_admm,
                                       sparse_sync_mp)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -73,7 +79,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
     sol = np.zeros((8, 2), np.float32)
     c = np.ones(8, np.float32)
     g = graph.ring_graph(8)
+    data = pad_datasets(list(sol[:, None, :]), device="cpu")
     calls = [
+        lambda: run_scenario(ScenarioSpec(
+            algo="cl", topology=topo,
+            conditions=get_scenario("clean").make_conditions(4), rounds=4,
+            batch=2, data=data, mu=0.1, rho=1.0, theta_sol=sol)),
+        lambda: sparse_async_admm(topo, data, 0.1, 1.0, steps=2,
+                                  theta_sol=sol),
+        lambda: collaborative.async_admm(g, data, 0.1, 1.0, steps=2,
+                                         theta_sol=sol),
+        lambda: collaborative.sync_admm(g, data, 0.1, 1.0, steps=2,
+                                        theta_sol=sol),
+        lambda: init_sparse_admm(topo, sol),
+        lambda: linear_classification_problem(n=8, p=3),
         lambda: run_scenario(ScenarioSpec(
             algo="mp", topology=topo,
             conditions=get_scenario("clean").make_conditions(4), rounds=4,

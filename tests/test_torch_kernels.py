@@ -294,7 +294,9 @@ def test_launch_counters_reset():
     dispatch.reset_launch_counts()
     assert dispatch.launch_counts() == {"graph_mix": 0,
                                         "sparse_gather_mix": 0,
-                                        "round_step": 0}
+                                        "round_step": 0,
+                                        "cl_edge_step": 0,
+                                        "admm_edge_update": 0}
 
 
 def test_wrappers_check_inputs():
@@ -337,5 +339,6 @@ def test_build_is_lazy_and_needs_nvcc(monkeypatch, tmp_path):
         _build._nvcc()
     srcs, key = _build._sources()
     assert {p.name for p in srcs} == {"graph_mix.cu", "sparse_mix.cu",
-                                      "round_step.cu"}
+                                      "round_step.cu", "cl_edge_step.cu",
+                                      "admm_edge.cu"}
     assert len(key) == 16
