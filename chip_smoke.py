@@ -44,7 +44,25 @@ state is freed:
      kernel path under ``torch.profiler``, device time by operation and
      the device's busy share of the wall time (a reading, not a check).
 
-Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all five
+Then LM serving (Llama-3-8B at full width and depth, bf16 weights drawn
+from the seed on the card), after the CL state is freed:
+
+6a. ``flash_attention`` held against its plain version on the card at
+    the main path's shape (B = 1, S = 4096, H = 32, K = 8, hd = 128,
+    bf16), at StarCoder2-15B's window (S = 8192, H = 48, K = 4, window
+    4096) and on a small float32 case; kernel, plain, SDPA and bound ms;
+6b. ``Engine(ServeConfig(batch_size=4, cache_len=8192, max_new_tokens=32))``
+    serving six prompts (512 to 4096 tokens) through four slots with
+    ``attn_impl="flash"``: every request finishes with 32 tokens in the
+    vocab, ``flash_attention`` launched 32 layers x 6 prefills; prefill
+    and decode tokens/s, wall seconds, peak device memory; then profiler
+    readings of ``PROFILE_TICKS`` decode ticks and one 4096-token prefill;
+6c. one 2048-token prompt prefilled through the ``attention`` op's
+    ``cuda`` and ``reference`` implementations with the same weights:
+    last-position logits within ``LM_LOGIT_RTOL`` (relative L2), and the
+    share of 16 greedy tokens on which the two agree.
+
+Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all six
 kernels, with their launches on their paths), the card's name and power
 limit as nvidia-smi reports them, and last ``{"ok": true, "device":
 {...}}``.
@@ -52,6 +70,7 @@ limit as nvidia-smi reports them, and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -64,6 +83,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense, no sparsity) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12            # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # bf16 tensor cores
 
 N_AGENTS, K_NN, P = 1_000_000, 8, 32
 BATCH, ROUNDS, RECORD = N_AGENTS // 10, 200, 50
@@ -75,6 +95,23 @@ ALPHA, SEED = 0.9, 0
 MU, RHO = 0.1, 1.0          # CL-ADMM (the JAX benchmark's CL configuration)
 DEVICE = "cuda"
 
+# LM serving: Llama-3-8B at full width and depth
+LM_ARCH = "llama3-8b"
+LM_PROMPTS = (512, 1024, 2048, 4096, 1536, 3072)   # multiples of attn_chunk
+LM_SLOTS, LM_CACHE, LM_NEW = 4, 8192, 32
+LM_CHECK_PROMPT, LM_AGREE = 2048, 16
+PROFILE_TICKS = 5
+# Kernel and reference attention differ only in float32 summation order,
+# so their bf16 outputs differ by an ulp here and there; through 32 bf16
+# layers such a perturbation grows to the chaos floor of bf16 arithmetic,
+# about 2^-8 * sqrt(32) = 2 % of the logits' norm.  A wrong kernel (a
+# wrong head, mask or tile) moves them by O(1).  So: relative L2 <= 0.1.
+LM_LOGIT_RTOL = 0.1
+# flash_attention cases: (B, S, H, K, hd, window, dtype name)
+FA_CASES = ((1, 4096, 32, 8, 128, None, "bfloat16"),    # Llama-3-8B prefill
+            (1, 8192, 48, 4, 128, 4096, "bfloat16"),    # StarCoder2 window
+            (2, 512, 8, 2, 64, None, "float32"))
+
 
 def log(*a):
     print(*a, flush=True)
@@ -85,9 +122,9 @@ def fail(msg: str) -> int:
     return 1
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / FP32_FLOP_PER_S
+    t_ops = n_ops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -307,7 +344,63 @@ def check_admm_edge(torch, au, slabs, rho):
         bound_ms=bms, bound_by=by, library_ms=None, library_call=None)
 
 
-def profile_cl(torch, run):
+def check_flash(torch, fa, case, seed):
+    """flash_attention against its plain version on one case of
+    ``FA_CASES`` (standard-normal q, k, v from the seed, on the card):
+    bf16 within 1e-2 abs and rel (both compute in float32; only the
+    output's rounding and the summation order differ), float32 within
+    1e-5.  The library call is SDPA on the kv heads repeated to H (a
+    boolean mask for the window)."""
+    import torch.nn.functional as F
+    B, S, H, K, hd, window, dname = case
+    dtype = getattr(torch, dname)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+               for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    got = fa.flash_attention(q, k, v, window=window)
+    want = fa.flash_attention_plain(q, k, v, window=window)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    diff = (got.float() - want.float()).abs()
+    excess = (diff - tol * want.float().abs()).max().item()
+    err = diff.max().item()
+    del got, want, diff
+    W = S if window is None else min(window, S)
+    pairs = W * (W + 1) // 2 + (S - W) * W      # live (query, key) pairs
+    esize = q.element_size()
+    bms, by = bound_ms(esize * 2 * B * S * hd * (H + K),
+                       4 * B * H * hd * pairs,
+                       BF16_FLOP_PER_S if dtype == torch.bfloat16
+                       else FP32_FLOP_PER_S)
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(H // K, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(H // K, dim=2).transpose(1, 2)
+    mask = None
+    if window is not None:
+        pos = torch.arange(S, device=DEVICE)
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None)
+
+    plain_iters = 2 if S * H > 100_000 else 10
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:31",
+        shape=f"B={B} S={S} H={H} K={K} hd={hd} window={window} {dname}",
+        max_abs_err=err, tol=tol, ok=excess <= tol,
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, window=window),
+                   10),
+        plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, window=window), plain_iters, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, sdpa, 10),
+        library_call="F.scaled_dot_product_attention (kv heads repeated)")
+
+
+def profile_device(torch, run):
     """Device time by kernel over ``run()``, and the device's busy share of
     its wall time, from ``torch.profiler`` (CPU and CUDA activity; only
     the device-side events are summed)."""
@@ -355,7 +448,9 @@ def main() -> int:
                                                     synchronous)
     from repro_torch.core.sparse import batched_model_update
     from repro_torch.kernels import _build, dispatch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import admm_update as au
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import graph_mix as gm
     from repro_torch.kernels import round_fuse as rf
     from repro_torch.kernels import sparse_mix as sm
@@ -363,6 +458,8 @@ def main() -> int:
                                       precompute_event_stream,
                                       random_geometric_topology,
                                       run_scenario, sparse_sync_mp)
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, ServeConfig
 
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
@@ -651,7 +748,7 @@ def main() -> int:
     del slabs, out, want
 
     # 5. where a CL round's time goes (a reading; nothing is checked) ----
-    wall_ms, busy_ms, rows = profile_cl(torch, lambda: run_scenario(
+    wall_ms, busy_ms, rows = profile_device(torch, lambda: run_scenario(
         ScenarioSpec(**spec_cl, rounds=PROFILE_ROUNDS,
                      record_every=PROFILE_ROUNDS)))
     if busy_ms > 0:
@@ -663,9 +760,157 @@ def main() -> int:
     else:
         log("[5] the profiler recorded no device time: not measured")
 
+    # LM serving: free the simulator's state first ------------------------
+    del ck, tr, ev, spec_cl, spec, data, x, sol_cl, stream, tabs, topo
+    del cond, g, sol_np, c_np
+    torch.cuda.empty_cache()
+
+    # 6a. flash_attention against its plain version -------------------------
+    fa_cases = []
+    for i, case in enumerate(FA_CASES):
+        kr = check_flash(torch, fa, case, SEED + i)
+        ok = kr.pop("ok")
+        log(json.dumps(kr))
+        if not ok:
+            return fail(f"flash_attention {kr['shape']}: outside "
+                        f"{kr['tol']} abs and rel (max abs err "
+                        f"{kr['max_abs_err']})")
+        fa_cases.append(kr)
+        torch.cuda.empty_cache()
+    kernels.append(fa_cases[0])               # the main path's shape
+    log("[6a] flash_attention agrees with its plain version on all "
+        f"{len(FA_CASES)} cases")
+
+    # 6b. Llama-3-8B serving through the Engine -----------------------------
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"[6b] {cfg.name}: {model.param_count()} parameters "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}), "
+        f"{model.embed.dtype}, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    lm_rng = np.random.default_rng(SEED + 2)
+    prompts = [lm_rng.integers(0, cfg.vocab_size, n) for n in LM_PROMPTS]
+    model.prefill({"tokens": torch.as_tensor(prompts[0][None], device=dev)},
+                  cache_len=LM_CACHE)                         # warm-up
+    eng = Engine(model, ServeConfig(batch_size=LM_SLOTS, cache_len=LM_CACHE,
+                                    max_new_tokens=LM_NEW, temperature=0.0))
+    st = dict(prefill_s=0.0, prefill_tok=0, decode_s=0.0, ticks=0)
+
+    def timed(fn, secs, count, n):
+        def run(arg):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(arg)
+            torch.cuda.synchronize()
+            st[secs] += time.perf_counter() - t
+            st[count] += n(arg)
+            return out
+        return run
+
+    eng._prefill_one = timed(eng._prefill_one, "prefill_s", "prefill_tok",
+                             lambda tokens: tokens.shape[1])
+    eng._decode = timed(eng._decode, "decode_s", "ticks", lambda tok: 1)
+    rids = [eng.submit(p) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["serve"] = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decoded = sum(len(results.get(r, [])) - 1 for r in rids)
+    serve = dict(
+        phase="6b", model=cfg.name, prompts=list(LM_PROMPTS),
+        slots=LM_SLOTS, cache_len=LM_CACHE, max_new_tokens=LM_NEW,
+        wall_s=wall, prefill_s=st["prefill_s"],
+        prefill_tokens=st["prefill_tok"],
+        prefill_tokens_per_s=st["prefill_tok"] / st["prefill_s"],
+        decode_s=st["decode_s"], decode_ticks=st["ticks"],
+        decode_tokens=decoded, decode_tokens_per_s=decoded / st["decode_s"],
+        max_memory_allocated=peak, launches=counts["serve"], device=smi)
+    log(json.dumps(serve))
+    want_launches = cfg.n_layers * len(LM_PROMPTS)
+    if eng.exhausted or sorted(results) != sorted(rids) \
+            or any(len(results[r]) != LM_NEW for r in rids):
+        return fail(f"serving: exhausted={eng.exhausted}, lengths "
+                    f"{[len(results.get(r, [])) for r in rids]}")
+    if not all(0 <= t < cfg.vocab_size for r in rids for t in results[r]):
+        return fail("serving: a token outside the vocab")
+    if counts["serve"]["flash_attention"] != want_launches:
+        return fail(f"serving launched flash_attention "
+                    f"{counts['serve']['flash_attention']} times, not "
+                    f"{cfg.n_layers} layers x {len(LM_PROMPTS)} prefills")
+    # where a decode tick and a prefill go (a reading; nothing is checked):
+    # PROFILE_TICKS ticks on the engine's full batch cache, then one
+    # prefill of the longest prompt
+    tok4 = torch.zeros(LM_SLOTS, dtype=torch.int32, device=dev)
+    longest = torch.as_tensor(prompts[LM_PROMPTS.index(max(LM_PROMPTS))][None],
+                              device=dev)
+    for what, run in (
+            (f"{PROFILE_TICKS} decode ticks", lambda: [
+                model.decode_step(eng.cache, {"token": tok4})
+                for _ in range(PROFILE_TICKS)]),
+            (f"one {max(LM_PROMPTS)}-token prefill", lambda: model.prefill(
+                {"tokens": longest}, cache_len=LM_CACHE))):
+        wall_ms, busy_ms, rows = profile_device(torch, run)
+        if busy_ms > 0:
+            log(f"[6b] {what} under the profiler: wall {wall_ms:.3f} ms, "
+                f"device busy {busy_ms:.3f} ms "
+                f"({100 * busy_ms / wall_ms:.1f} %)")
+            for ms, key, count in rows[:10]:
+                log(f"[6b]   {ms:9.3f} ms  {count:6d} x  {key[:100]}")
+        else:
+            log(f"[6b] {what}: the profiler recorded no device time: "
+                f"not measured")
+    del eng, results
+
+    # 6c. the kernel path against the reference path ------------------------
+    check = lm_rng.integers(0, cfg.vocab_size, LM_CHECK_PROMPT)
+    tok = torch.as_tensor(check[None], device=dev)
+    paths = {}
+    for name, backend in (("cuda", None), ("reference",
+                                           dispatch.ReproBackend.using(
+                                               attention="reference"))):
+        model.backend = backend
+        dispatch.reset_launch_counts()
+        logits, _ = model.prefill({"tokens": tok},
+                                  cache_len=LM_CHECK_PROMPT + LM_AGREE)
+        launched = dispatch.launch_counts()["flash_attention"]
+        e1 = Engine(model, ServeConfig(batch_size=1,
+                                       cache_len=LM_CHECK_PROMPT + LM_AGREE,
+                                       max_new_tokens=LM_AGREE))
+        rid = e1.submit(check)
+        paths[name] = (logits[0, 0], launched, e1.run()[rid])
+    model.backend = None
+    lk, lr = paths["cuda"][0], paths["reference"][0]
+    rel = ((lk - lr).norm() / lr.norm()).item()
+    same = np.array(paths["cuda"][2]) == np.array(paths["reference"][2])
+    agree = float(same.mean())
+    first_diff = int(np.argmin(same)) if not same.all() else None
+    log(json.dumps(dict(
+        phase="6c", prompt=LM_CHECK_PROMPT, logits_rel_l2=rel,
+        tol=LM_LOGIT_RTOL, logits_max_abs_diff=(lk - lr).abs().max().item(),
+        logits_max_abs=lr.abs().max().item(),
+        greedy_agreement=agree, greedy_tokens=LM_AGREE,
+        first_differing_token=first_diff,
+        launches={k: v[1] for k, v in paths.items()})))
+    if paths["cuda"][1] != cfg.n_layers or paths["reference"][1] != 0:
+        return fail(f"6c launches {[v[1] for v in paths.values()]}")
+    if lk.shape != (cfg.vocab_size,) or not torch.isfinite(lk).all() \
+            or not rel <= LM_LOGIT_RTOL:
+        return fail(f"kernel path logits {tuple(lk.shape)} off the "
+                    f"reference path's by {rel} (relative L2 > "
+                    f"{LM_LOGIT_RTOL}) or not finite")
+    del model, paths, lk, lr
+
     path_of = {"round_step": "fused", "sparse_gather_mix": "sparse_sync_mp",
                "graph_mix": "synchronous", "cl_edge_step": "cl-kernel",
-               "admm_edge_update": "admm_edge"}
+               "admm_edge_update": "admm_edge", "flash_attention": "serve"}
     summary = []
     for kr in kernels:
         kr["launches"] = counts[path_of[kr["name"]]][kr["name"]]

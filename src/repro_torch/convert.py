@@ -2,7 +2,8 @@
 
 Each function takes the JAX side's arrays (anything ``np.asarray`` reads:
 numpy arrays, or JAX arrays, which convert to numpy) and returns the
-port's tensors on a given device (CUDA when None).  Objects are read by
+port's tensors on a given device (CUDA when None): the simulator's tables,
+streams, models and states, and an LM's parameter tree.  Objects are read by
 field name only, so this module imports nothing of ``repro``.
 """
 
@@ -81,3 +82,37 @@ def admm_state_from_arrays(state, device=None):
     cls = ADMMState if hasattr(state, "T") else SparseADMMState
     return cls(*(_f32(getattr(state, f.name), device)
                  for f in dataclasses.fields(cls)))
+
+
+def _flat(tree, prefix=""):
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _flat(val, name + ".")
+        else:
+            yield name, val
+
+
+def model_params_from_arrays(cfg, params, device=None, dtype=None):
+    """The JAX package's model parameters (its ``Model.init`` tree, with
+    each group's leaves stacked over repetitions) as a state dict of the
+    port's ``Model(cfg)``: layer ``offset + r * len(unit) + i`` takes
+    ``groups[g]["b{i}"][...][r]``.  Tensors in ``dtype`` (by default
+    ``cfg.compute_dtype``), for ``Model.load_state_dict``."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.compute_dtype
+
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32),
+                               device=device).to(dtype)
+
+    state = {name: t(params[name])
+             for name in ("embed", "unembed", "final_norm")}
+    layer = 0
+    for (unit, reps), group in zip(cfg.scan_groups(), params["groups"]):
+        for r in range(reps):
+            for i in range(len(unit)):
+                for name, leaf in _flat(group[f"b{i}"]):
+                    state[f"layers.{layer}.{name}"] = t(np.asarray(leaf)[r])
+                layer += 1
+    return state

@@ -53,6 +53,8 @@ SIGNATURES = {
     # t_ii, t_ji, t_jj, t_ij, l_own_i, l_nbr_j_of_i, l_own_j, l_nbr_i_of_j,
     # z_i, z_j and the four dual outputs, E, p, rho, stream
     "repro_admm_edge": (P,) * 14 + (I, I, F, P),
+    # q, k, v, o, B, S, H, KH, hd, window, is_bf16, scale, stream
+    "repro_flash_attention": (P,) * 4 + (I,) * 7 + (F, P),
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,11 @@
-"""Backend dispatch for the model-propagation and CL-ADMM hot paths
-(counterpart of ``repro.kernels.dispatch``, slimmed to this port's ops and
-impls).
+"""Backend dispatch for the model-propagation, CL-ADMM and LM serving hot
+paths (counterpart of ``repro.kernels.dispatch``, slimmed to this port's
+ops and impls).
 
 A registry keyed by
 
     op   ∈ {mix, sparse_mix, round_step, neighbor_aggregate, admm_primal,
-            admm_edge, cl_edge_step}
+            admm_edge, cl_edge_step, attention}
     impl ∈ {reference, cuda}
 
 maps to callables; ``resolve(op, backend, device)`` returns the one a call
@@ -46,6 +46,9 @@ Canonical signatures (shared by every impl of an op):
                    oth_s (E,) int32, stale, got (E,) bool, *, rho)
                   -> (Z_own, Z_nbr, L_own, L_nbr); both impls update the
                   four arrays in place and return them
+    attention:  (q (B,S,H,hd), k (B,S,K,hd), v (B,S,K,hd), *, window=None)
+                -> (B,S,H,hd), causal; K | H and query head h reads kv
+                head h // (H // K) (``jnp.repeat`` of the kv heads)
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from . import admm_update as _au
+from . import flash_attention as _fa
 from . import graph_mix as _gm
 from . import ref
 from . import round_fuse as _rf
@@ -147,13 +151,14 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, per kernel wrapper."""
     return {"graph_mix": _gm.launches, "sparse_gather_mix": _sm.launches,
             "round_step": _rf.launches, "cl_edge_step": _rf.cl_edge_launches,
-            "admm_edge_update": _au.launches}
+            "admm_edge_update": _au.launches,
+            "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     _gm.launches = _sm.launches = _rf.launches = 0
-    _rf.cl_edge_launches = _au.launches = 0
+    _rf.cl_edge_launches = _au.launches = _fa.launches = 0
 
 
 register("mix", "reference")(ref.graph_mix)
@@ -168,3 +173,5 @@ register("admm_edge", "reference")(ref.admm_edge_update)
 register("admm_edge", "cuda")(_au.admm_edge_update)
 register("cl_edge_step", "reference")(ref.cl_edge_step)
 register("cl_edge_step", "cuda")(_rf.cl_edge_step)
+register("attention", "reference")(ref.flash_attention)
+register("attention", "cuda")(_fa.flash_attention)

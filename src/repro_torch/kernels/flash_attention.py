@@ -1,0 +1,89 @@
+"""``flash_attention``: causal, optionally sliding-window attention with
+grouped kv heads, ``(q (B, S, H, hd), k, v (B, S, K, hd), *, window) ->
+(B, S, H, hd)``.
+
+The CUDA kernel (``csrc/flash_attention.cu``: one block per (batch * head,
+64-query tile), the kv loop inside the block with the online softmax in
+registers, kv heads read in place) replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention``; the source note
+there says what bounds it on the H100 and how the design answers that.
+Beside it sits the plain PyTorch version (``kernels.ref.flash_attention``),
+which runs for tensors on the CPU only: for CUDA tensors the wrapper
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import flash_attention as flash_attention_plain
+
+#: Kernel launches made by :func:`flash_attention` in this process.
+launches = 0
+
+#: Query-tile rows of the kernel; S must be a multiple.
+BLOCK = 64
+HEAD_DIMS = (64, 128)
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q and k must be (B, S, H, hd), "
+                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    if tuple(k.shape) != (B, S, K, hd) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: k and v must be (B, S, K, hd) "
+                         f"= {(B, S, K, hd)}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if K < 1 or H % K:
+        raise ValueError(f"flash_attention: {K} kv heads do not divide "
+                         f"{H} query heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if S % BLOCK or S == 0:
+        raise ValueError(f"flash_attention: S = {S} is not a positive "
+                         f"multiple of {BLOCK}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: B * H = {B * H} > 65535")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}; q, k "
+                            f"and v must share one of {DTYPES}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned")
+
+
+def flash_attention(q, k, v, *, window=None):
+    """q: (B, S, H, hd); k, v: (B, S, K, hd) with K | H -> (B, S, H, hd)
+    in q's dtype (``kernels.ref.flash_attention``).
+
+    CUDA tensors launch the kernel (bf16 or float32, hd in {64, 128},
+    S % 64 == 0, else it raises); CPU tensors take the plain version.
+    """
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    _check(q, k, v, window)
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    _build.launch("repro_flash_attention", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], hd,
+                  0 if window is None else int(window),
+                  int(q.dtype == torch.bfloat16), float(hd ** -0.5),
+                  device=q.device)
+    launches += 1
+    return out

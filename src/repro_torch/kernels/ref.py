@@ -2,7 +2,8 @@
 for the ops of the model-propagation path (``graph_mix``,
 ``sparse_gather_mix``, ``neighbor_aggregate``, ``gossip_round_step``) and
 of the CL-ADMM path (``quadratic_primal``, ``admm_edge_halfstep``,
-``admm_edge_update``, ``cl_edge_step``).
+``admm_edge_update``, ``cl_edge_step``), and ``flash_attention`` for the
+LM serving path.
 
 They are the ``reference`` implementations of ``kernels.dispatch`` and the
 one plain version of each CUDA kernel (the kernel modules import them as
@@ -234,3 +235,37 @@ def cl_edge_step(theta, K, Z_own, Z_nbr, L_own, L_nbr,
         # a target no side got writes its own value back
         flat[tgt] = torch.where(hit, val, flat[tgt])
     return Z_own, Z_nbr, L_own, L_nbr
+
+
+#: Logit of a masked (query, key) pair, as in the JAX package.
+NEG_INF = -1e30
+
+
+def flash_attention(q, k, v, *, window=None):
+    """Causal (optionally sliding-window) attention: what the Pallas
+    ``flash_attention`` kernel computes (the ``attention`` op).
+
+    q: (B, S, H, hd); k, v: (B, S, K, hd) with K | H — query head h reads
+    kv head ``h // (H // K)`` (``jnp.repeat`` of the kv heads).  Logits in
+    float32 scaled by ``hd ** -0.5``; a key attends where ``kpos <= qpos``
+    and, with a window, ``kpos > qpos - window`` (else ``NEG_INF``); the
+    float32 softmax weights multiply v in float32 (the Pallas kernel keeps
+    them in float32; ``repro.kernels.ref.flash_attention`` rounds them to
+    v's dtype first); the output is cast to q's dtype.
+    """
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    if K != H:
+        k = k.repeat_interleave(H // K, dim=2)
+        v = v.repeat_interleave(H // K, dim=2)
+    f = torch.float32
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f), k.to(f))
+    logits.mul_(hd ** -0.5)
+    pos = torch.arange(S, device=q.device)
+    keep = pos[None, :] <= pos[:, None]
+    if window is not None:
+        keep &= pos[None, :] > pos[:, None] - window
+    logits.masked_fill_(~keep, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    del logits
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.to(f)).to(q.dtype)

@@ -1,0 +1,158 @@
+"""Shared model machinery: the config and the basic layers
+(counterpart of ``repro.models.common``).
+
+``ModelConfig`` is a copy of the JAX package's, field for field and default
+for default, with torch dtypes in place of ``jnp`` ones.  The layers are
+plain functions on tensors and compute what their JAX namesakes compute:
+``rms_norm`` and ``apply_rope`` in float32, cast back to the input's dtype.
+``apply_mrope`` and ``cross_entropy`` wait for the VLM family and for
+training (ROADMAP queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    rope_theta: float = 10000.0
+    # attention windowing: None = full causal
+    window: Optional[int] = None
+    long_ctx_window: int = 4096
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_seq_shard: bool = False
+    moe_impl: str = "scatter"
+    # hybrid (recurrentgemma / griffin)
+    pattern: Tuple[str, ...] = ()    # per-layer mixer kinds; () -> all "attn"
+    local_window: int = 2048
+    conv_width: int = 4
+    lru_dim: Optional[int] = None
+    # ssm (xlstm)
+    mlstm_proj_factor: float = 2.0
+    slstm_ff: int = 0
+    mlstm_impl: str = "scan"
+    # vlm
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    n_media_tokens: int = 0
+    # audio
+    n_codebooks: int = 1
+    n_cond_tokens: int = 0
+    # ffn
+    ffn_kind: str = "swiglu"         # swiglu | geglu | gelu
+    # numerics / implementation
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    attn_impl: str = "chunked"       # ref | chunked | flash
+    attn_chunk: int = 512
+    remat: bool = True
+    scan_layers: bool = True
+    seq_shard: bool = True
+    kv_shard: str = "seq"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None \
+            else self.d_model // self.n_heads
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        if self.pattern:
+            assert len(self.pattern) == self.n_layers
+            return self.pattern
+        return ("attn",) * self.n_layers
+
+    @property
+    def r_dim(self) -> int:
+        return self.lru_dim if self.lru_dim is not None else self.d_model
+
+    @property
+    def mlstm_inner(self) -> int:
+        return int(self.mlstm_proj_factor * self.d_model)
+
+    @property
+    def slstm_hidden(self) -> int:
+        if self.slstm_ff:
+            return self.slstm_ff
+        return int(math.ceil(self.d_model * 4 / 3 / 128) * 128)
+
+    def scan_groups(self) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
+        """Decompose the layer stack into (unit, repetitions) groups: the
+        shortest repeating unit, and a non-multiple tail as its own group
+        (the JAX package stacks each group's weights over repetitions)."""
+        kinds = self.layer_kinds
+        L = len(kinds)
+        for ulen in range(1, L + 1):
+            unit = kinds[:ulen]
+            reps = L // ulen
+            if kinds[:ulen * reps] == unit * reps:
+                tail = kinds[ulen * reps:]
+                groups = [(unit, reps)]
+                if tail:
+                    groups.append((tail, 1))
+                return tuple(groups)
+        return ((kinds, 1),)
+
+
+# ---------------------------------------------------------------------------
+# Basic layers
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, gamma, eps: float = 1e-6):
+    """RMS norm in float32 with scale ``1 + gamma``, cast back to x's
+    dtype."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps))
+            * (1.0 + gamma.float())).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_glu(x, w_gate, w_up, w_down):
+    return (gelu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def rope_freqs(hd: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x, positions, theta: float):
+    """Rotary embedding, rotate-half split form, in float32.
+
+    x: (..., S, H, hd); positions: broadcastable to (..., S).
+    """
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
+    ang = positions[..., None].float() * freqs                 # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

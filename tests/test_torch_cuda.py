@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs (the tolerances of
 tests/test_torch_kernels.py; ``cl_edge_step`` and ``admm_edge_update``
-bit for bit, repeated targets included).  The kernels have no CPU mode:
-on a host without a CUDA card every test here skips.
+bit for bit, repeated targets included; ``flash_attention`` 1e-2 abs and
+rel in bf16, 1e-5 in float32), and a small model's prefill through the
+``flash_attention`` kernel against the reference attention.  The kernels
+have no CPU mode: on a host without a CUDA card every test here skips.
 
 Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -14,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import admm_update as au  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import graph_mix as gm  # noqa: E402
 from repro_torch.kernels import round_fuse as rf  # noqa: E402
 from repro_torch.kernels import sparse_mix as sm  # noqa: E402
@@ -170,6 +173,75 @@ def test_cl_edge_step_nothing_got_is_identity(cuda):
 
 def test_dispatch_auto_picks_kernels(cuda):
     for op in ("mix", "sparse_mix", "round_step", "admm_edge",
-               "cl_edge_step"):
+               "cl_edge_step", "attention"):
         assert dispatch.resolve(op, None, cuda) \
             is dispatch._REGISTRY[op]["cuda"]
+
+
+def randn(dev, shape, dtype, g):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,B,S,H,K,hd,window", [
+    (torch.bfloat16, 1, 256, 8, 2, 128, None),
+    (torch.bfloat16, 2, 192, 4, 4, 64, 100),
+    (torch.bfloat16, 1, 512, 4, 2, 128, 1),     # only the diagonal key
+    (torch.float32, 1, 128, 4, 1, 64, None),
+    (torch.float32, 2, 256, 6, 3, 128, 64),
+    (torch.float32, 1, 320, 2, 2, 64, 1000)])   # window beyond S
+def test_flash_attention_kernel(cuda, dtype, B, S, H, K, hd, window):
+    """bf16: both compute in float32, only the output rounding and the
+    summation order differ (1e-2 abs and rel); float32: 1e-5."""
+    g = torch.Generator(device=cuda).manual_seed(S + H + K)
+    q = randn(cuda, (B, S, H, hd), dtype, g)
+    k = randn(cuda, (B, S, K, hd), dtype, g)
+    v = randn(cuda, (B, S, K, hd), dtype, g)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, window=window)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol), \
+        (got.float() - want.float()).abs().max().item()
+
+
+def test_flash_attention_kernel_rejects_out_of_contract(cuda):
+    ok = torch.zeros(1, 128, 4, 64, device=cuda)
+    before = fa.launches
+    for q, k, err in (
+            (torch.zeros(1, 100, 4, 64, device=cuda),
+             torch.zeros(1, 100, 2, 64, device=cuda), ValueError),
+            (torch.zeros(1, 128, 4, 96, device=cuda),
+             torch.zeros(1, 128, 4, 96, device=cuda), ValueError),
+            (ok.half(), ok.half(), TypeError),
+            (ok, ok.transpose(1, 2).contiguous().transpose(1, 2),
+             ValueError)):
+        with pytest.raises(err):
+            fa.flash_attention(q, k, k)
+    assert fa.launches == before
+
+
+def test_model_prefill_through_the_kernel(cuda):
+    """A small float32 model (hd = 64): the flash route through the kernel
+    against the same model through the reference implementation."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("llama3-8b", "reduced"),
+                              d_model=512, attn_impl="flash", attn_chunk=64,
+                              compute_dtype=torch.float32)
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    dispatch.reset_launch_counts()
+    got, cache = model.prefill({"tokens": tok}, cache_len=160)
+    assert dispatch.launch_counts()["flash_attention"] == cfg.n_layers
+    model.backend = dispatch.ReproBackend.using(attention="reference")
+    want, cache_ref = model.prefill({"tokens": tok}, cache_len=160)
+    assert torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.allclose(cache["layers"][1]["k"],
+                          cache_ref["layers"][1]["k"], atol=1e-4)

@@ -49,6 +49,15 @@ def test_imports_with_jax_blocked():
         "import repro_torch.core.collaborative, repro_torch.core.consensus, "
         "repro_torch.core.primal, repro_torch.kernels.admm_update, "
         "repro_torch.kernels.round_fuse\n"
+        "import repro_torch.configs, repro_torch.configs.llama3_8b, "
+        "repro_torch.configs.deepseek_7b, "
+        "repro_torch.configs.starcoder2_15b, "
+        "repro_torch.configs.minitron_8b, "
+        "repro_torch.kernels.flash_attention, "
+        "repro_torch.models, repro_torch.models.attention, "
+        "repro_torch.models.blocks, repro_torch.models.common, "
+        "repro_torch.models.model, repro_torch.serve, "
+        "repro_torch.serve.engine\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -63,6 +72,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     import numpy as np
 
     from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.convert import model_params_from_arrays
+    from repro_torch.models import Model
     from repro_torch.core import collaborative, graph, model_propagation
     from repro_torch.core.losses import pad_datasets
     from repro_torch.data import linear_classification_problem
@@ -101,6 +113,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: model_propagation.synchronous(g, sol, c, 0.9, 2),
         lambda: model_propagation.closed_form(g, sol, c, 0.9),
         lambda: topo.device_tables(),
+        lambda: Model(get_config("llama3-8b", "reduced")),
+        lambda: model_params_from_arrays(get_config("llama3-8b", "reduced"),
+                                         {}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

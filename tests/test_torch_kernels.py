@@ -25,6 +25,7 @@ from repro.kernels.sparse_mix import \
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from repro_torch.kernels import dispatch, ref as tref  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import graph_mix as tgm  # noqa: E402
 from repro_torch.kernels import round_fuse as trf  # noqa: E402
 from repro_torch.kernels import sparse_mix as tsm  # noqa: E402
@@ -272,8 +273,11 @@ def test_dispatch_auto_and_explicit():
     with pytest.raises(KeyError):
         dispatch.resolve("neighbor_aggregate",
                          dispatch.ReproBackend(default="cuda"), "cuda")
-    with pytest.raises(KeyError):
-        dispatch.resolve("attention", None, cpu)
+    assert dispatch.implementations("attention") == ("reference", "cuda")
+    assert dispatch.resolve("attention", None, cpu) \
+        is dispatch._REGISTRY["attention"]["reference"]
+    assert dispatch.resolve("attention", None, "cuda") \
+        is dispatch._REGISTRY["attention"]["cuda"]
     be = dispatch.ReproBackend.using(default="reference", mix="cuda")
     assert be.impl_for("mix") == "cuda"
     assert be.impl_for("round_step") == "reference"
@@ -282,7 +286,8 @@ def test_dispatch_auto_and_explicit():
 @pytest.mark.parametrize("op,plain", [
     ("mix", tgm.graph_mix_plain),
     ("sparse_mix", tsm.sparse_gather_mix_plain),
-    ("round_step", trf.round_step_plain)])
+    ("round_step", trf.round_step_plain),
+    ("attention", tfa.flash_attention_plain)])
 def test_one_plain_version_per_op(op, plain):
     """Each kernel's plain version is the op's dispatch reference, so the
     card is held against the function that the CPU tests hold against JAX."""
@@ -296,7 +301,8 @@ def test_launch_counters_reset():
                                         "sparse_gather_mix": 0,
                                         "round_step": 0,
                                         "cl_edge_step": 0,
-                                        "admm_edge_update": 0}
+                                        "admm_edge_update": 0,
+                                        "flash_attention": 0}
 
 
 def test_wrappers_check_inputs():
@@ -340,5 +346,5 @@ def test_build_is_lazy_and_needs_nvcc(monkeypatch, tmp_path):
     srcs, key = _build._sources()
     assert {p.name for p in srcs} == {"graph_mix.cu", "sparse_mix.cu",
                                       "round_step.cu", "cl_edge_step.cu",
-                                      "admm_edge.cu"}
+                                      "admm_edge.cu", "flash_attention.cu"}
     assert len(key) == 16
