@@ -3,52 +3,100 @@
 //   q (B, S, H, hd), k and v (B, S, KH, hd) with KH | H, o like q; query
 //   head h reads kv head h / (H / KH).  Per query row, over the keys with
 //   kpos <= qpos (and kpos > qpos - window when window > 0):
-//   o = softmax(scale * q . k) @ v, logits, softmax and the weighted sum
-//   in float32, the output rounded to the input type.
+//   o = softmax(scale * q . k) @ v, logits and softmax in float32, the
+//   output rounded to the input type.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (_kernel).  There the kv blocks are the sequential last
 // grid axis and carry m, l and the accumulator in VMEM scratch from one
-// grid step to the next.  Hopper blocks run in no order, so one block owns
-// one (batch * head, 64-query tile) and walks its kv tiles in a loop:
-//   - the loop runs from the first tile the window reaches to the tile of
-//     the tile's last query (the causal limit); fully masked tiles are
-//     never loaded, as the TPU kernel skips them;
-//   - q, k and v are read as 16-byte vectors (8 bf16 or 4 float) and kept
-//     in shared memory as float32 (q and k transposed, so a thread reads
-//     four rows or four keys as one float4);
-//   - 256 threads as a 16 x 16 grid: thread (ty, tx) owns queries
-//     4 ty .. 4 ty + 3 and, of the 64 x 64 logit tile, keys 4 tx .. +3;
-//     the row max and row sum are reduced over the 16 threads of a row by
-//     warp shuffles; m, l and the thread's 4 x (hd / 16) accumulator
-//     (columns 64 g + 4 tx .. +3, so a quarter-warp reads 8 neighbouring
-//     float4 of a V row) stay in registers for the whole loop;
-//   - the weights go through shared memory (transposed) for P @ V;
-//   - the heaviest causal tiles (the last queries) are scheduled first.
-// A masked logit is -1e30, as in the TPU kernel: a row with no live key in
-// an early tile accumulates garbage with m = -1e30 and is wiped (alpha =
-// exp(-1e30 - m) = 0) by its first live tile, which always comes (the
-// diagonal key).  The output is acc / max(l, 1e-20).
+// grid step to the next.  Hopper blocks run in no order, so a block owns
+// one (batch * head, query tile) and walks its kv tiles in a loop, from the
+// first tile the window reaches to the tile of the tile's last query (the
+// causal limit): fully masked tiles are never loaded, as the TPU kernel
+// skips them.  The heaviest causal tiles (the last queries) go first.
 //
 // Bound on an H100: operations.  The causal work is 4 B H hd sum_q n(q)
-// (n(q) = min(q + 1, window) live keys; 2 B H S^2 hd without a window),
+// (n(q) = min(q + 1, window) live keys; 2 B H S^2 hd without a window)
 // against 989 TFLOP/s dense bf16; the bytes (q, o and the un-expanded k
-// and v) take far less.  This kernel is plain FMA on float32 tiles
-// (67 TFLOP/s at most), so it cannot come near that bound: tensor-core
-// tiles (mma / wgmma) are a later step.
+// and v) take far less.  So bf16 runs on the tensor cores:
+//
+// bf16: wgmma + TMA (flash_fwd_wgmma).  One block of two warpgroups per
+//   (batch * head, 128-query tile); each warpgroup owns 64 query rows,
+//   wgmma's M.  kv tiles are BK = 128 keys.
+//   - Copies by TMA, with 4-D tensor maps (hd, heads, S, B) built on the
+//     host per call, 64-element (128-byte) boxes and 128-byte swizzle, so
+//     tiles land in the layout the wgmma descriptors read.  Q is loaded
+//     once; K and V run through a 2-stage ring whose stages complete on
+//     mbarriers.  The last of the 8 warps to finish with tile i (a counter
+//     per stage) issues tile i + 2 into its stage, so no warp waits for
+//     another and the next tile is in flight while a tile is computed.
+//     The maps address kv head h / (H / KH) in place; reads past S are
+//     zero-filled (S % 64 == 0, so a 128-query tile may be half full; its
+//     rows >= S are never stored).
+//   - The grid is (B * H, query tiles) with the heaviest causal tiles (the
+//     last queries) of every head launched first, so the short tiles fill
+//     the end of the run.
+//   - Shared memory at hd = 128: Q 32 KB, K and V 2 x 32 KB each: 160 KB
+//     (80 KB at hd = 64), above 48 KB by cudaFuncSetAttribute.
+//   - S = Q K^T: hd / 16 wgmma.m64n128k16, A and B from shared memory,
+//     both K-major (hd is contiguous in q and k).
+//   - Online softmax in registers, in the log2 domain (scale * log2 e is
+//     folded into one multiply, exp2): masks only on the diagonal tile and
+//     the window's edge tiles; m and l in float32, a row's max over the 4
+//     threads that share it in the accumulator layout (l is summed per
+//     thread and reduced once at the end).  A masked logit is -1e30, as in
+//     the TPU kernel: a row with no live key in an early tile accumulates
+//     garbage with m = -1e30 and is wiped (alpha = exp2(-1e30 - m) = 0) by
+//     its first live tile, which always comes (the diagonal key).
+//   - O += P V: P is rounded to bf16 once, in registers, and fed as
+//     wgmma's A operand from registers (for 16-bit types the accumulator
+//     layout of S is the A-fragment layout, so no shuffle is needed); V is
+//     read from shared memory as an MN-major B (the transposed-B form);
+//     O accumulates in float32.  The output is O / max(l, 1e-20), l summed
+//     from the unrounded weights, rounded to bf16 and stored from
+//     registers (rows < S only).
+//   - Rounding P to bf16 per 128-key tile against the running max is what
+//     the JAX oracle repro.kernels.ref.flash_attention does too (it rounds
+//     the weights to v's dtype before P V).  Emulated on the CPU against
+//     the float32-weight plain version it stays within one bf16 ulp of the
+//     output, inside the 1e-2 abs/rel bar
+//     (tests/test_torch_tc_numerics.py).
+//   - What holds it below the tensor-core peak is issue, not the copies:
+//     a warpgroup's softmax does not overlap its own MMAs, and the two
+//     warpgroups are not scheduled against each other.  Next steps: a
+//     producer warp(group) with setmaxnreg handing registers to the
+//     consumers, ping-pong of softmax and wgmma between the two
+//     warpgroups, persistent blocks (a block's loads and epilogue now
+//     idle the SM's tensor cores), and a TMA-store epilogue.
+//
+// float32: FFMA (flash_fwd_kernel<float, HD>).  One block per (batch *
+//   head, 64-query tile), 256 threads as a 16 x 16 grid; q and k kept in
+//   shared memory transposed, v as rows; thread (ty, tx) owns queries
+//   4 ty .. +3 and, of the 64 x 64 logit tile, keys 4 tx .. +3; the row
+//   max and sum are reduced over the 16 threads of a row by warp shuffles;
+//   the weights go through shared memory for P @ V, all in float32 (the
+//   1e-5 bar).  Only the card tests and a float32 model run it.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+// ---- float32: FFMA --------------------------------------------------------
+
+namespace ffma {
 
 constexpr int BQ = 64;        // queries per block
 constexpr int BK = 64;        // keys per kv tile
 constexpr int THREADS = 256;  // 16 x 16
-constexpr float NEG_INF = -1e30f;
 
-// 16 bytes of T from global memory, as floats (4 float or 8 bf16)
+// 16 bytes of float32 from global memory
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   out[0] = v.x;
@@ -57,21 +105,7 @@ __device__ __forceinline__ void load16(const float* p, float* out) {
   out[3] = v.w;
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
@@ -243,27 +277,350 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   return (int)cudaGetLastError();
 }
 
+}  // namespace ffma
+
+// ---- bf16: wgmma + TMA ------------------------------------------------------
+
+namespace tc {
+
+using hopper::desc_sw128;
+
+constexpr int BQ = 128;                 // queries per block: 2 x wgmma M
+constexpr int BK = 128;                 // keys per kv tile: wgmma N of S
+constexpr int THREADS = 256;            // two warpgroups
+constexpr int BOX = 64;                 // bf16 per 128-byte swizzle row
+constexpr uint32_t ATOM_ROWS_BYTES = 1024;   // 8 rows x 128 bytes
+
+template <int HD>
+struct Smem {
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;      // one stage of K or V
+  static constexpr int BARS = 4;           // q, full x 2, 2 warp counters
+  static constexpr int BYTES = Q_BYTES + 4 * KV_BYTES + 8 * BARS
+                               + 1024;              // 1024-byte alignment
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// A tile of R rows x HD bf16 lands as HD / 64 column blocks, each R rows
+// of 128 bytes (swizzled), the block c at c * R * 128 bytes.
+template <int HD>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int rows, int head,
+                                          int pos, int b) {
+#pragma unroll
+  for (int c = 0; c < HD / BOX; ++c)
+    hopper::tma_load_4d(dst + c * rows * 128, map, bar, c * BOX, head, pos,
+                        b);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                __nv_bfloat16* __restrict__ o, int S, int H, int KH,
+                int window, float scale_log2) {
+  using L = Smem<HD>;
+  constexpr int NO = HD / 2;            // O accumulator floats per thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sK = sQ + L::Q_BYTES;        // 2 stages
+  uint8_t* sV = sK + 2 * L::KV_BYTES;   // 2 stages
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + 2 * L::KV_BYTES);
+  uint64_t* bar_q = bars;
+  uint64_t* full = bars + 1;            // K and V of a stage landed
+  int* done = reinterpret_cast<int*>(bars + 3);   // warps done, per stage
+
+  const int qi = gridDim.y - 1 - blockIdx.y;    // heaviest tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kh = h / (H / KH);
+  const int q0 = qi * BQ;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, quad = lane & 3;
+
+  const int kt_end = (q0 + BQ - 1) / BK;        // causal limit, inclusive
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int n_tiles = kt_end - kt_begin + 1;
+
+  auto load_kv = [&](int stage, int kt) {
+    hopper::mbar_expect_tx(&full[stage], 2 * L::KV_BYTES);
+    load_tile<HD>(sK + stage * L::KV_BYTES, &tm_k, &full[stage], BK, kh,
+                  kt * BK, b);
+    load_tile<HD>(sV + stage * L::KV_BYTES, &tm_v, &full[stage], BK, kh,
+                  kt * BK, b);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(bar_q, 1);
+    hopper::mbar_init(&full[0], 1);
+    hopper::mbar_init(&full[1], 1);
+    done[0] = done[1] = 0;
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar_q, L::Q_BYTES);
+    load_tile<HD>(sQ, &tm_q, bar_q, BQ, h, q0, b);
+    load_kv(0, kt_begin);
+    if (n_tiles > 1) load_kv(1, kt_begin + 1);
+  }
+  __syncwarp();
+
+  // this thread's two query rows (of the block's 128) in the accumulator
+  // layout: warpgroup wg rows 64 wg .. +63, warp rows 16 warp .. +15
+  const int r0 = 64 * wg + 16 * warp + (lane >> 2);
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  float o_acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  const uint32_t q_addr = hopper::smem_addr(sQ) + wg * 64 * 128;
+  hopper::mbar_wait(bar_q, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    const int kt = kt_begin + i, k0 = kt * BK;
+    hopper::mbar_wait(&full[stage], parity);
+    __syncwarp();          // wgmma is .aligned: the warp must be converged
+
+    // S = Q K^T (64 x 128 per warpgroup), K-major operands; a k-step of
+    // 16 bf16 is 32 bytes inside a 128-byte swizzle row
+    const uint32_t k_addr = hopper::smem_addr(sK + stage * L::KV_BYTES);
+    float s[64];
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      const uint64_t da = desc_sw128(
+          q_addr + (kk / 4) * BQ * 128 + off, 0, ATOM_ROWS_BYTES);
+      const uint64_t db = desc_sw128(
+          k_addr + (kk / 4) * BK * 128 + off, 0, ATOM_ROWS_BYTES);
+      hopper::wgmma_m64n128k16_ss(s, da, db, kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    // online softmax, log2 domain.  s[4j + e]: row row0 (e < 2) or row1,
+    // key k0 + 8 j + 2 quad + (e & 1)
+    const bool masked = kt == kt_end ||
+                        (window > 0 && k0 <= q0 + BQ - 1 - window);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * scale_log2;
+        if (masked) {
+          const int kp = k0 + 8 * j + 2 * quad + (e & 1);
+          const int qp = e < 2 ? row0 : row1;
+          const bool live = kp <= qp && (window <= 0 || kp > qp - window);
+          x = live ? x : NEG_INF;
+        }
+        s[4 * j + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[4 * j + e] - (e < 2 ? mn0 : mn1));
+        s[4 * j + e] = p;
+        if (e < 2) rs0 += p;
+        else rs1 += p;
+      }
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      o_acc[4 * j] *= alpha0;
+      o_acc[4 * j + 1] *= alpha0;
+      o_acc[4 * j + 2] *= alpha1;
+      o_acc[4 * j + 3] *= alpha1;
+    }
+
+    // P in bf16 as wgmma A fragments: keys 16 kk .. +15 are the
+    // accumulator's column blocks 2 kk and 2 kk + 1
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O += P V: V MN-major (hd contiguous), 16 keys = 2 x 8 rows of
+    // 128 bytes per k-step; at hd = 128 the second 64-column block of V
+    // lies BK * 128 bytes further (the descriptor's leading offset)
+    const uint32_t v_addr = hopper::smem_addr(sV + stage * L::KV_BYTES);
+    hopper::fence_regs(o_acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = desc_sw128(v_addr + kk * 16 * 128, BK * 128,
+                                     ATOM_ROWS_BYTES);
+      if constexpr (HD == 128)
+        hopper::wgmma_m64n128k16_rs_tb(o_acc, pa[kk], db);
+      else
+        hopper::wgmma_m64n64k16_rs_tb(o_acc, pa[kk], db);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o_acc);
+
+    // release the stage: the warp that finishes it last refills it with
+    // tile i + 2 (its wgmma reads are complete: wait_group 0 above)
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&done[stage], 1) == THREADS / 32 - 1) {
+        done[stage] = 0;
+        __threadfence_block();
+        if (i + 2 < n_tiles) load_kv(stage, kt + 2);
+      }
+    }
+    __syncwarp();
+  }
+
+  // epilogue: reduce l over the row's 4 threads, normalise, store bf16
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+  const size_t q_stride = (size_t)H * HD;
+  __nv_bfloat16* ob = o + (size_t)b * S * q_stride + (size_t)h * HD +
+                      2 * quad;
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + 8 * j) =
+          __floats2bfloat162_rn(o_acc[4 * j] * inv0, o_acc[4 * j + 1] * inv0);
+    if (row1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + 8 * j) =
+          __floats2bfloat162_rn(o_acc[4 * j + 2] * inv1,
+                                o_acc[4 * j + 3] * inv1);
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver function, reached through the runtime
+// so that the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found =
+        cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a (B, S, heads, hd) bf16 tensor as a 4-D map (hd, heads, S, B), boxes of
+// 64 x 1 x rows x 1 with 128-byte swizzle; reads past S are zero-filled
+CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* base,
+                  int B, int S, int heads, int hd, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// error codes past the runtime's: no driver entry point, or the driver's
+// CUresult (added to the base) for a map it refused
+constexpr int ERR_NO_ENCODE = 10000;
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int H, int KH, int window, float scale, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return ERR_NO_ENCODE;
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(&tq, encode, q, B, S, H, HD, BQ);
+  if (r == CUDA_SUCCESS) r = make_map(&tk, encode, k, B, S, KH, HD, BK);
+  if (r == CUDA_SUCCESS) r = make_map(&tv, encode, v, B, S, KH, HD, BK);
+  if (r != CUDA_SUCCESS) return ERR_NO_ENCODE + (int)r;
+  auto kernel = flash_fwd_wgmma<HD>;
+  const int smem = Smem<HD>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, KH, window,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// q, o (B, S, H, hd) and k, v (B, S, KH, hd), contiguous, all float32
-// (is_bf16 = 0) or all bfloat16 (is_bf16 = 1); hd in {64, 128},
-// S % 64 == 0, KH | H; window <= 0 means none; scale multiplies q . k.
-// Returns 1 (cudaErrorInvalidValue) for a shape outside that contract.
+// q, o (B, S, H, hd) and k, v (B, S, KH, hd), contiguous and 16-byte
+// aligned, all float32 (is_bf16 = 0, the FFMA kernel) or all bfloat16
+// (is_bf16 = 1, the wgmma kernel); hd in {64, 128}, S % 64 == 0, KH | H;
+// window <= 0 means none; scale multiplies q . k.  Returns 1
+// (cudaErrorInvalidValue) for a shape outside that contract, 10000 when the
+// driver has no cuTensorMapEncodeTiled and 10000 + its CUresult when it
+// refuses a tensor map, else cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int S,
                                      int H, int KH, int hd, int window,
                                      int is_bf16, float scale,
                                      cudaStream_t stream) {
-  if (S <= 0 || S % BQ || KH <= 0 || H % KH || B <= 0) return 1;
+  if (S <= 0 || S % ffma::BQ || KH <= 0 || H % KH || B <= 0) return 1;
   if (hd == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, B, S, H, KH,
-                                                window, scale, stream)
-                   : launch<float, 128>(q, k, v, o, B, S, H, KH, window,
-                                        scale, stream);
+    return is_bf16 ? tc::launch<128>(q, k, v, o, B, S, H, KH, window, scale,
+                                     stream)
+                   : ffma::launch<float, 128>(q, k, v, o, B, S, H, KH,
+                                              window, scale, stream);
   if (hd == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, B, S, H, KH,
-                                               window, scale, stream)
-                   : launch<float, 64>(q, k, v, o, B, S, H, KH, window,
-                                       scale, stream);
+    return is_bf16 ? tc::launch<64>(q, k, v, o, B, S, H, KH, window, scale,
+                                    stream)
+                   : ffma::launch<float, 64>(q, k, v, o, B, S, H, KH, window,
+                                             scale, stream);
   return 1;
 }

@@ -7,103 +7,214 @@
 // tiles to the MXU.
 //
 // Bound on an H100: 2 n^2 D floating-point operations on (2 n D + n^2 + n)
-// floats moved.  At the main path's n = 2048, D = 4096 that is 34.4 GFLOP
-// on 84 MB — compute bound, against the 67 TFLOP/s float32 rate outside
-// the tensor cores (no TF32: the port's parity bar is 1e-5, which TF32's
-// 10-bit mantissa cannot meet).
+// floats moved: compute bound.  At the main path's n = 2048, D = 4096 that
+// is 34.4 GFLOP on 84 MB (0.033 ms of bytes at 3.35 TB/s).  The port's bar
+// is 1e-5 against float32, which one TF32 pass (10-bit mantissa) misses by
+// far; three TF32 passes meet it (3xTF32: x = hi + lo with hi = tf32(x),
+// lo = x - hi read as TF32, and a . b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi;
+// the dropped a_lo b_lo is below 2^-22 |a b|).  So the least time at that bar is
+// three TF32 passes at 495 TFLOP/s, 3 * 2 n^2 D / 495e12 = 0.208 ms; the
+// float32 FFMA floor (67 TFLOP/s) is 0.513 ms.
 //
-// Design: a classic shared-memory SGEMM.  Each block computes a 128 x 128
-// output tile with 256 threads, 8 x 8 outputs per thread held in
-// registers; A and theta are staged through shared memory 8 columns of
-// the reduction at a time.  A thread's outputs are strided by 16 rows and
-// 16 columns, so a warp's shared-memory reads hit distinct banks (or
-// broadcast).  Ragged n and D are masked on load (zero fill) and on store:
-// nothing is padded.  The anchor term b[i] * sol[i, d] is fused into the
-// epilogue, so theta_sol is read once and out written once.
+// Design: 3xTF32 on the tensor cores with mma.sync.m16n8k8 (not wgmma:
+// TF32 wgmma reads shared-memory operands only K-major, and theta's tile,
+// (k, D) with the reduction on its rows, is MN-major; mma.sync fragments
+// are loaded by the threads in any layout, and the split happens on that
+// load).
+//   - Each block computes a 128 x 128 output tile with 256 threads, 8 warps
+//     as 2 x 4, each warp 64 x 32 (4 x 4 mma tiles, 64 accumulators a
+//     thread), over k-steps of 32; two blocks share an SM (at most 128
+//     registers a thread), so four warps of each scheduler hide latency.
+//   - A 3-stage cp.async pipeline brings A (128 x 32) and theta (32 x 128)
+//     tiles into shared memory, padded (rows of 36 and 136 floats) so that
+//     the fragment loads of a warp hit 32 distinct banks.  Rows whose
+//     global address is 16-byte aligned (n, D % 4 == 0) take 16-byte
+//     copies, others 4-byte ones; ragged edges are zero-filled by the
+//     copies (source size 0), so nothing is padded in device memory.
+//   - Each fragment element is split into TF32 hi and lo in registers as it
+//     is read from shared memory (A's by ldmatrix), hi rounded to nearest
+//     by two integer instructions and lo = x - hi (hopper::split_tf32), and
+//     each 16 x 8 tile takes three mma (a_lo b_hi, a_hi b_lo, a_hi b_hi,
+//     the small terms first) into one float32 accumulator.
+//   - The anchor b[i] * sol[i, d] is added in the epilogue, so theta_sol is
+//     read once and out written once.
+//   - No atomics: a replay is bit-identical.
+//   - mma.sync issues TF32 well below wgmma's rate on Hopper, and the split
+//     sits on each fragment's path from shared memory to the tensor core,
+//     so the kernel is bound by mma.sync latency and issue, not by the
+//     495 TFLOP/s above.  Next steps: wgmma with theta's tile transposed
+//     to K-major (and split) in shared memory, or more independent work per
+//     warp to hide the split's latency.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int BM = 128;             // output rows per block
 constexpr int BN = 128;             // output columns per block
-constexpr int BK = 8;               // reduction depth per shared tile
-constexpr int TM = 8;               // rows per thread
-constexpr int TN = 8;               // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
+constexpr int BK = 32;              // reduction depth per stage
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;        // 8 warps: 2 (rows) x 4 (columns)
+constexpr int WM = 64, WN = 32;     // warp tile
+constexpr int MT = WM / 16, NT = WN / 8;   // mma tiles per warp tile
+constexpr int A_LD = BK + 4;        // padded row of the A tile (floats)
+constexpr int X_LD = BN + 8;        // padded row of the theta tile
+constexpr int A_STAGE = BM * A_LD, X_STAGE = BK * X_LD;
+constexpr int SMEM_BYTES = STAGES * (A_STAGE + X_STAGE) * 4;
 
-__global__ void __launch_bounds__(THREADS)
+// A[row0.., k0..] and theta[k0.., col0..] into stage buffers; zero fill
+// outside (n, n) and (n, D)
+__device__ __forceinline__ void load_stage(float* As, float* Xs,
+                                           const float* __restrict__ A,
+                                           const float* __restrict__ X,
+                                           int n, int D, int row0, int col0,
+                                           int k0, bool a_vec, bool x_vec) {
+  const int tid = threadIdx.x;
+  if (a_vec) {
+#pragma unroll
+    for (int i = 0; i < BM * BK / 4 / THREADS; ++i) {
+      const int c = tid + i * THREADS, r = c / (BK / 4), kc = (c % (BK / 4)) * 4;
+      const bool ok = row0 + r < n && k0 + kc < n;
+      hopper::cp_async16(As + r * A_LD + kc,
+                         ok ? A + (size_t)(row0 + r) * n + k0 + kc : A,
+                         ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < BM * BK / THREADS; ++i) {
+      const int e = tid + i * THREADS, r = e / BK, kc = e % BK;
+      const bool ok = row0 + r < n && k0 + kc < n;
+      hopper::cp_async4(As + r * A_LD + kc,
+                        ok ? A + (size_t)(row0 + r) * n + k0 + kc : A,
+                        ok ? 4 : 0);
+    }
+  }
+  if (x_vec) {
+#pragma unroll
+    for (int i = 0; i < BK * BN / 4 / THREADS; ++i) {
+      const int c = tid + i * THREADS, r = c / (BN / 4), dc = (c % (BN / 4)) * 4;
+      const bool ok = k0 + r < n && col0 + dc < D;
+      hopper::cp_async16(Xs + r * X_LD + dc,
+                         ok ? X + (size_t)(k0 + r) * D + col0 + dc : X,
+                         ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < BK * BN / THREADS; ++i) {
+      const int e = tid + i * THREADS, r = e / BN, dc = e % BN;
+      const bool ok = k0 + r < n && col0 + dc < D;
+      hopper::cp_async4(Xs + r * X_LD + dc,
+                        ok ? X + (size_t)(k0 + r) * D + col0 + dc : X,
+                        ok ? 4 : 0);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 graph_mix_kernel(const float* __restrict__ A, const float* __restrict__ X,
                  const float* __restrict__ S, const float* __restrict__ b,
-                 float* __restrict__ out, int n, int D) {
-  __shared__ float As[BK][BM];      // A tile, reduction-major
-  __shared__ float Xs[BK][BN];      // theta tile
+                 float* __restrict__ out, int n, int D, int a_vec, int x_vec,
+                 int out_vec) {
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);   // STAGES x [BM][A_LD]
+  float* Xs = As + STAGES * A_STAGE;             // STAGES x [BK][X_LD]
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int tr = tid / (BN / TN);   // 0..15: rows tr, tr + 16, ...
-  const int tc = tid % (BN / TN);   // 0..15: cols tc, tc + 16, ...
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp / (BN / WN)) * WM;        // warp's rows in the tile
+  const int wn = (warp % (BN / WN)) * WN;        // and columns
+  const int g = lane >> 2, t = lane & 3;         // mma fragment coordinates
 
-  // load assignment: A tile (BM x BK) 4 consecutive k per thread,
-  // theta tile (BK x BN) 4 consecutive columns per thread
-  const int a_r = tid / 2;
-  const int a_c = (tid % 2) * 4;
-  const int x_r = tid / 32;
-  const int x_c = (tid % 32) * 4;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  float acc[TM][TN];
+  const int k_tiles = (n + BK - 1) / BK;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    const int ar = row0 + a_r;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ak = k0 + a_c + q;
-      As[a_c + q][a_r] =
-          (ar < n && ak < n) ? A[(size_t)ar * n + ak] : 0.0f;
-    }
-    const int xk = k0 + x_r;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int xc = col0 + x_c + q;
-      Xs[x_r][x_c + q] =
-          (xk < n && xc < D) ? X[(size_t)xk * D + xc] : 0.0f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float af[TM], xf[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) af[i] = As[kk][tr + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) xf[j] = Xs[kk][tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(af[i], xf[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < k_tiles)
+      load_stage(As + s * A_STAGE, Xs + s * X_STAGE, A, X, n, D, row0, col0,
+                 s * BK, a_vec, x_vec);
+    hopper::cp_async_commit();
   }
 
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    hopper::cp_async_wait<STAGES - 2>();   // tile kt has landed
+    __syncthreads();                       // and tile kt - 1 is consumed
+    const int next = kt + STAGES - 1;
+    if (next < k_tiles) {
+      const int s = next % STAGES;
+      load_stage(As + s * A_STAGE, Xs + s * X_STAGE, A, X, n, D, row0, col0,
+                 next * BK, a_vec, x_vec);
+    }
+    hopper::cp_async_commit();             // possibly empty: keeps the count
+
+    const float* as = As + (kt % STAGES) * A_STAGE + wm * A_LD;
+    const float* xs = Xs + (kt % STAGES) * X_STAGE + wn;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + tr + 16 * i;
-    if (r >= n) continue;
-    const float br = b[r];
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tc + 16 * j;
-      if (c < D) {
-        const size_t o = (size_t)r * D + c;
-        out[o] = acc[i][j] + br * S[o];
+      for (int j = 0; j < NT; ++j) {
+        const float* p = xs + (kk + t) * X_LD + j * 8 + g;
+        hopper::split_tf32(p[0], bh[j][0], bl[j][0]);
+        hopper::split_tf32(p[4 * X_LD], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        // the A fragment's four 8 x 4 blocks in its register order: rows
+        // 16 i .. +7 and +8 .. +15 of columns kk .. +3, then of kk + 4 .. +7
+        const int ar = i * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+        uint32_t a[4], ah[4], al[4];
+        hopper::ldmatrix_x4(a, as + ar * A_LD + kk + 4 * (lane >> 4));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          hopper::split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          hopper::mma_tf32(acc[i][j], al, bh[j]);
+          hopper::mma_tf32(acc[i][j], ah, bl[j]);
+          hopper::mma_tf32(acc[i][j], ah, bh[j]);
+        }
       }
     }
   }
+
+  // epilogue: acc[i][j] holds rows wm + 16 i + g (+ 8 for e >= 2) and
+  // columns wn + 8 j + 2 t (+ 1 for odd e)
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm + 16 * i + g + 8 * h;
+      if (r >= n) continue;
+      const float br = b[r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = col0 + wn + 8 * j + 2 * t;
+        const size_t o = (size_t)r * D + c;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (out_vec && c + 1 < D) {
+          const float2 s2 = *reinterpret_cast<const float2*>(S + o);
+          *reinterpret_cast<float2*>(out + o) =
+              make_float2(v0 + br * s2.x, v1 + br * s2.y);
+        } else {
+          if (c < D) out[o] = v0 + br * S[o];
+          if (c + 1 < D) out[o + 1] = v1 + br * S[o + 1];
+        }
+      }
+    }
+}
+
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
@@ -114,9 +225,16 @@ extern "C" int repro_graph_mix(const float* A, const float* theta,
                                const float* sol, const float* b, float* out,
                                int n, int D, cudaStream_t stream) {
   if (n > 0 && D > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        graph_mix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const int a_vec = n % 4 == 0 && aligned(A, 16);
+    const int x_vec = D % 4 == 0 && aligned(theta, 16);
+    const int out_vec = D % 2 == 0 && aligned(sol, 8) && aligned(out, 8);
     dim3 grid((D + BN - 1) / BN, (n + BM - 1) / BM);
-    graph_mix_kernel<<<grid, THREADS, 0, stream>>>(A, theta, sol, b, out,
-                                                   n, D);
+    graph_mix_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+        A, theta, sol, b, out, n, D, a_vec, x_vec, out_vec);
   }
   return (int)cudaGetLastError();
 }

@@ -2,14 +2,19 @@
 grouped kv heads, ``(q (B, S, H, hd), k, v (B, S, K, hd), *, window) ->
 (B, S, H, hd)``.
 
-The CUDA kernel (``csrc/flash_attention.cu``: one block per (batch * head,
-64-query tile), the kv loop inside the block with the online softmax in
-registers, kv heads read in place) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention``; the source note
-there says what bounds it on the H100 and how the design answers that.
-Beside it sits the plain PyTorch version (``kernels.ref.flash_attention``),
-which runs for tensors on the CPU only: for CUDA tensors the wrapper
-launches the kernel or raises.
+The CUDA kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU
+kernel ``repro/kernels/flash_attention.py::flash_attention``.  In bf16 it
+runs on the tensor cores: one block of two warpgroups per (batch * head,
+128-query tile), Q once and K, V through a 2-stage ring brought in by TMA,
+S = Q K^T and O += P V by ``wgmma`` with the online softmax in registers
+and the weights P rounded to bf16 once per 128-key tile (as the JAX oracle
+``repro.kernels.ref.flash_attention`` rounds them).  In float32 it is the
+FFMA kernel (64-query tiles, all in float32).  Both read the kv heads in
+place and never load a fully masked kv tile; the source note says what
+bounds the kernel on the H100 and how the design answers that.  Beside it
+sits the plain PyTorch version (``kernels.ref.flash_attention``), which
+runs for tensors on the CPU only: for CUDA tensors the wrapper launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from .ref import flash_attention as flash_attention_plain
 #: Kernel launches made by :func:`flash_attention` in this process.
 launches = 0
 
-#: Query-tile rows of the kernel; S must be a multiple.
+#: S must be a multiple (the float32 kernel's query tile; the bf16
+#: kernel's 128-query tiles may end half full).
 BLOCK = 64
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.bfloat16, torch.float32)

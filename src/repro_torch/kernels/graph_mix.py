@@ -1,8 +1,10 @@
 """``graph_mix``: the dense model-propagation step (paper Eq. 5),
 ``out = A @ theta + b[:, None] * theta_sol``.
 
-The CUDA kernel (``csrc/graph_mix.cu``, a tiled float32 SGEMM with the
-anchor fused into its epilogue) replaces the Pallas TPU kernel
+The CUDA kernel (``csrc/graph_mix.cu``: 3xTF32 on the tensor cores with
+``mma.sync``, operands split into TF32 hi and lo in registers so that the
+result keeps float32 accuracy, a 3-stage ``cp.async`` pipeline, the anchor
+fused into the epilogue) replaces the Pallas TPU kernel
 ``repro/kernels/graph_mix.py::graph_mix``; the source note there says what
 bounds it on the H100 and how the design answers that.  Beside it sits the
 plain PyTorch version (``kernels.ref.graph_mix``), which runs for tensors

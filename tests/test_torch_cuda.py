@@ -34,8 +34,11 @@ def on(dev, *arrays, dtype=torch.float32):
     return [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
 
 
-@pytest.mark.parametrize("n,D", [(1, 1), (129, 300), (256, 512)])
+@pytest.mark.parametrize("n,D", [(1, 1), (129, 300), (256, 512),
+                                 (257, 301),        # 4-byte copies
+                                 (2048, 4096)])     # chip_smoke's 4c
 def test_graph_mix_kernel(cuda, n, D):
+    """3xTF32 on the tensor cores against the float32 plain version."""
     rng = np.random.default_rng(n + D)
     args = on(cuda, rng.standard_normal((n, D)), rng.standard_normal((n, D)),
               rng.uniform(size=(n, n)) / n, rng.uniform(size=n))
@@ -43,6 +46,14 @@ def test_graph_mix_kernel(cuda, n, D):
     got = gm.graph_mix(*args)
     assert gm.launches == before + 1
     assert (got - gm.graph_mix_plain(*args)).abs().max().item() <= 1e-5
+
+
+def test_graph_mix_kernel_replay_is_bit_identical(cuda):
+    rng = np.random.default_rng(5)
+    n, D = 300, 301
+    args = on(cuda, rng.standard_normal((n, D)), rng.standard_normal((n, D)),
+              rng.uniform(size=(n, n)) / n, rng.uniform(size=n))
+    assert torch.equal(gm.graph_mix(*args), gm.graph_mix(*args))
 
 
 @pytest.mark.parametrize("N,n,k,p", [(300, 200, 7, 40), (64, 64, 3, 32),
@@ -184,14 +195,23 @@ def randn(dev, shape, dtype, g):
 
 @pytest.mark.parametrize("dtype,B,S,H,K,hd,window", [
     (torch.bfloat16, 1, 256, 8, 2, 128, None),
-    (torch.bfloat16, 2, 192, 4, 4, 64, 100),
+    (torch.bfloat16, 2, 192, 4, 4, 64, 100),    # a half-full query tile
     (torch.bfloat16, 1, 512, 4, 2, 128, 1),     # only the diagonal key
+    (torch.bfloat16, 1, 64, 8, 2, 128, None),   # less than one query tile
+    (torch.bfloat16, 2, 64, 4, 4, 64, None),
+    (torch.bfloat16, 2, 320, 8, 1, 64, 63),     # GQA 8:1
+    (torch.bfloat16, 1, 448, 16, 2, 128, 200),  # windows not a multiple
+    (torch.bfloat16, 2, 384, 8, 2, 64, 200),    # of the 128-key tile
+    (torch.bfloat16, 1, 384, 8, 1, 128, 63),
     (torch.float32, 1, 128, 4, 1, 64, None),
     (torch.float32, 2, 256, 6, 3, 128, 64),
     (torch.float32, 1, 320, 2, 2, 64, 1000)])   # window beyond S
 def test_flash_attention_kernel(cuda, dtype, B, S, H, K, hd, window):
-    """bf16: both compute in float32, only the output rounding and the
-    summation order differ (1e-2 abs and rel); float32: 1e-5."""
+    """bf16 (wgmma): the kernel rounds the softmax weights to bf16 once
+    per 128-key tile before P @ V, as the JAX oracle does; the plain
+    version keeps them in float32.  That moves the output by about one
+    bf16 ulp (tests/test_torch_tc_numerics.py), inside the bar of 1e-2
+    abs and rel.  float32 (FFMA): only the summation order differs, 1e-5."""
     g = torch.Generator(device=cuda).manual_seed(S + H + K)
     q = randn(cuda, (B, S, H, hd), dtype, g)
     k = randn(cuda, (B, S, K, hd), dtype, g)
@@ -205,6 +225,19 @@ def test_flash_attention_kernel(cuda, dtype, B, S, H, K, hd, window):
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol), \
         (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,hd,window", [(torch.bfloat16, 128, None),
+                                              (torch.bfloat16, 64, 63),
+                                              (torch.float32, 64, None)])
+def test_flash_attention_kernel_replay_is_bit_identical(cuda, dtype, hd,
+                                                        window):
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = randn(cuda, (2, 320, 8, hd), dtype, g)
+    k = randn(cuda, (2, 320, 2, hd), dtype, g)
+    v = randn(cuda, (2, 320, 2, hd), dtype, g)
+    assert torch.equal(fa.flash_attention(q, k, v, window=window),
+                       fa.flash_attention(q, k, v, window=window))
 
 
 def test_flash_attention_kernel_rejects_out_of_contract(cuda):

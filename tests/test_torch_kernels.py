@@ -9,6 +9,8 @@ tests/test_round_fuse.py); the round helpers exactly; the dispatch rules.
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -348,3 +350,9 @@ def test_build_is_lazy_and_needs_nvcc(monkeypatch, tmp_path):
                                       "round_step.cu", "cl_edge_step.cu",
                                       "admm_edge.cu", "flash_attention.cu"}
     assert len(key) == 16
+    # the shared header is not compiled alone but is part of the key
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"hopper.cuh"}
+    read = pathlib.Path.read_bytes
+    monkeypatch.setattr(pathlib.Path, "read_bytes", lambda self: read(self)
+                        + (b"//" if self.name == "hopper.cuh" else b""))
+    assert _build._sources()[1] != key

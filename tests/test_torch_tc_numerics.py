@@ -1,0 +1,203 @@
+"""The tensor-core kernels' rounding, emulated on the CPU and held against
+the JAX package before any card runs them.
+
+* ``graph_mix`` runs 3xTF32 on the tensor cores: each operand is split
+  into a round-to-nearest TF32 ``hi`` and ``lo = x - hi``, which the
+  tensor core reads as TF32 (its low 13 bits dropped), and
+  ``a . b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi`` accumulates in float32.
+  The emulation (TF32 rounding by integer masking, as the kernel rounds)
+  stays within 1e-5 of ``repro.kernels.ref.graph_mix`` for one step
+  and over 100 ``synchronous`` steps; one TF32 pass does not, which is why
+  the kernel takes three.
+* ``flash_attention`` in bf16 rounds the softmax weights to bf16 once per
+  128-key tile against the running max before P @ V (wgmma's A operand in
+  bf16).  The emulation of that tile-wise online softmax stays within the
+  1e-2 abs/rel bar of the port's plain version (float32 weights) and of
+  ``repro.kernels.ref.flash_attention`` (weights rounded to v's dtype).
+
+The emulations live here, not in the package: the package's CPU path is
+the plain version.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import graph as jgraph  # noqa: E402
+from repro.core import model_propagation as jmp  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+
+from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+# --------------------------------------------------------------------------
+# graph_mix: 3xTF32
+# --------------------------------------------------------------------------
+
+
+def tf32(x):
+    """float32 -> nearest TF32 (10-bit mantissa), ties away from zero: add
+    half of the 13 dropped bits to the magnitude, then clear them (what
+    the kernel does to make hi)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_read(x):
+    """A float32 register read as a TF32 operand: the tensor core uses its
+    top 19 bits (the low 13 are dropped, not rounded)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x):
+    """The kernel's split: hi = tf32(x); lo = x - hi (exact in float32),
+    passed to the tensor core as it is."""
+    hi = tf32(x)
+    return hi, tf32_read(x - hi)
+
+
+def mix_3xtf32(theta, sol, A, b):
+    """The kernel's arithmetic: three TF32 products (small terms first)
+    summed in float32, then the anchor."""
+    a_hi, a_lo = split(A)
+    t_hi, t_lo = split(theta)
+    acc = a_lo @ t_hi
+    acc += a_hi @ t_lo
+    acc += a_hi @ t_hi
+    return acc + b[:, None] * sol
+
+
+def mix_1xtf32(theta, sol, A, b):
+    return tf32(A) @ tf32(theta) + b[:, None] * sol
+
+
+def mp_problem(n, D, seed=0, k=8, alpha=0.9):
+    """chip_smoke.py phase 4c's operator at a smaller n: a random
+    geometric graph, c ~ U(0.05, 1), standard-normal sol."""
+    g = jgraph.random_geometric_graph(n, k=k, seed=seed)
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    sol = rng.standard_normal((n, D)).astype(np.float32)
+    A, b = jmp.mp_mix_operator(jnp.asarray(g.P, jnp.float32),
+                               jnp.asarray(c), alpha)
+    return sol, np.asarray(A, np.float32), np.asarray(b, np.float32)
+
+
+def test_tf32_rounding_matches_round_to_nearest():
+    x = np.array([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                  -(1.0 + 2.0 ** -11), 3.0e-5, 0.0], np.float32)
+    got = tf32(x)
+    # ties away from zero; a result with more than 10 mantissa bits is
+    # not TF32
+    np.testing.assert_array_equal(
+        got, np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                       -(1.0 + 2.0 ** -10), got[4], 0.0], np.float32))
+    assert (got.view(np.uint32) & np.uint32(0x1FFF) == 0).all()
+    assert abs(got[4] - 3.0e-5) <= 3.0e-5 * 2.0 ** -11
+    x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    hi, lo = split(x)
+    assert (np.abs(lo) <= np.abs(hi) * 2.0 ** -11).all()
+    assert (np.abs(hi + lo - x) <= np.abs(x) * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("n,D", [(2048, 64), (129, 300)])
+def test_3xtf32_graph_mix_one_step(n, D):
+    rng = np.random.default_rng(n + D)
+    theta = rng.standard_normal((n, D)).astype(np.float32)
+    sol = rng.standard_normal((n, D)).astype(np.float32)
+    A = (rng.uniform(size=(n, n)) / n).astype(np.float32)
+    b = rng.uniform(size=n).astype(np.float32)
+    want = np.asarray(jref.graph_mix(jnp.asarray(theta), jnp.asarray(sol),
+                                     jnp.asarray(A), jnp.asarray(b)))
+    assert np.abs(mix_3xtf32(theta, sol, A, b) - want).max() <= 1e-5
+    assert np.abs(mix_1xtf32(theta, sol, A, b) - want).max() > 1e-5
+
+
+def test_3xtf32_graph_mix_100_synchronous_steps():
+    """The 1e-5 bar of chip_smoke.py's 4c, on a 512-agent graph."""
+    sol, A, b = mp_problem(512, 256)
+    step = jax.jit(jref.graph_mix)
+    jA, jb, jsol = jnp.asarray(A), jnp.asarray(b), jnp.asarray(sol)
+    want = jsol
+    three = one = sol
+    for _ in range(100):
+        want = step(want, jsol, jA, jb)
+        three = mix_3xtf32(three, sol, A, b)
+        one = mix_1xtf32(one, sol, A, b)
+    want = np.asarray(want)
+    assert np.abs(three - want).max() <= 1e-5
+    assert np.abs(one - want).max() > 1e-5      # one TF32 pass misses
+
+
+# --------------------------------------------------------------------------
+# flash_attention: P in bf16 per 128-key tile
+# --------------------------------------------------------------------------
+
+BQ = BK = 128
+NEG_INF = -1e30
+
+
+def flash_bf16_p(q, k, v, window=None):
+    """The bf16 kernel's arithmetic: per 128-query tile, kv tiles from the
+    window's first to the causal limit; logits in float32 in the log2
+    domain, -1e30 where masked; online softmax with m and l in float32 (l
+    from the unrounded weights); P rounded to bf16 before P @ V; float32
+    accumulator; output acc / max(l, 1e-20) rounded to bf16."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    f = torch.float32
+    qf = q.to(f).transpose(1, 2)                       # (B, H, S, hd)
+    kf = k.to(f).repeat_interleave(H // K, 2).transpose(1, 2)
+    vf = v.to(f).repeat_interleave(H // K, 2).transpose(1, 2)
+    c = hd ** -0.5 * 1.4426950408889634
+    out = torch.empty(B, H, S, hd, dtype=f)
+    pos = torch.arange(S + BK)
+    for q0 in range(0, S, BQ):
+        rows = pos[q0:min(q0 + BQ, S)]
+        kt_begin = 0
+        if window is not None and q0 - window + 1 > 0:
+            kt_begin = (q0 - window + 1) // BK
+        m = torch.full((B, H, len(rows), 1), NEG_INF)
+        l = torch.zeros(B, H, len(rows), 1)
+        acc = torch.zeros(B, H, len(rows), hd)
+        for kt in range(kt_begin, (q0 + BQ - 1) // BK + 1):
+            keys = pos[kt * BK:(kt + 1) * BK]
+            keys = keys[keys < S]     # past S: zero-filled and masked
+            s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2) * c
+            live = keys[None, :] <= rows[:, None]
+            if window is not None:
+                live &= keys[None, :] > rows[:, None] - window
+            s = torch.where(live, s, torch.tensor(NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p.to(torch.bfloat16).to(f) @ vf[:, :, keys]
+            m = m_new
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-20)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [None, 1, 63, 200])
+def test_bf16_p_attention_within_bar(window):
+    """GQA 4:1, S = 320 (the last 128-query tile half full), hd = 64."""
+    B, S, H, K, hd = 1, 320, 8, 2, 64
+    rng = np.random.default_rng(S + (window or 0))
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+               .to(torch.bfloat16)
+               for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    got = flash_bf16_p(q, k, v, window=window).float()
+    plain = tref.flash_attention(q, k, v, window=window).float()
+    torch.testing.assert_close(got, plain, atol=1e-2, rtol=1e-2)
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (q, k, v))
+    oracle = jref.flash_attention(jq, jnp.repeat(jk, H // K, axis=2),
+                                  jnp.repeat(jv, H // K, axis=2),
+                                  window=window)
+    oracle = torch.as_tensor(np.array(oracle.astype(jnp.float32)))
+    torch.testing.assert_close(got, oracle, atol=1e-2, rtol=1e-2)
