@@ -15,13 +15,17 @@ JAX package.  Phases, in order — any failure exits non-zero:
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and time the kernel, the plain version and,
    where one exists, one library call of the same function;
+   ``sparse_gather_mix`` twice, bit for bit: with its rows in identity
+   order and in the topology's RCM locality order (built on the host
+   here, timed, and cached on the topology for 4b);
 4. drive the paths through the user entry points, each with the launch
    counts set to 0 just before and read just after:
    a. ``run_scenario(ScenarioSpec(algo="mp", ...))`` fused (``round_step``
       kernel, one launch per round) and per-op on the same stream: equal
       counters, theta_hist within 1e-5, the accounting invariant;
    b. ``sparse_sync_mp`` on the same topology, 50 sweeps through
-      ``sparse_gather_mix``, against the plain path;
+      ``sparse_gather_mix``, every launch given the RCM order, against
+      the plain path;
    c. ``synchronous`` on ``random_geometric_graph(2048, k=8)``, D = 4096,
       100 steps through ``graph_mix``, against the plain path.
 
@@ -33,7 +37,9 @@ state is freed:
 3cl. ``cl_edge_step`` held bit for bit against its plain version on round
      ``WARM`` of the CL run (its own inputs, captured after ``WARM`` rounds
      of the plain body; the round must have stale sides and repeated
-     targets), and ``admm_edge_update`` on every edge of that state;
+     targets), twice on the same state, with the kernel's election words
+     all zero after each call; and ``admm_edge_update`` on every edge of
+     that state;
 4d.  ``run_scenario(ScenarioSpec(algo="cl", ...))`` with the kernel (auto)
      and with the reference backend on the same stream: equal counters,
      the accounting invariant, theta_hist within 1e-5, ``cl_edge_step``
@@ -179,19 +185,23 @@ def check_graph_mix(torch, gm, graph_inputs):
         library_call="torch.addmm(b*sol, A, theta)")
 
 
-def check_sparse_mix(torch, sm, table, idx, w, b, sol):
+def check_sparse_mix(torch, sm, table, idx, w, b, sol, order, label):
     """sparse_gather_mix at the sparse_sync_mp path's shapes and inputs:
     a steady-state sweep, whose table (the previous sweep's output) is a
-    tensor apart from ``sol``, so each is counted once in the bound."""
+    tensor apart from ``sol``, so each is counted once in the bound.  The
+    kernel takes the rows in ``order`` (None: identity), held bit for bit
+    either way."""
     n, k = idx.shape
     p = table.shape[1]
     if table.data_ptr() == sol.data_ptr():
         raise ValueError("check_sparse_mix: give a table apart from sol")
-    got = sm.sparse_gather_mix(table, idx, w, b, sol)
+    got = sm.sparse_gather_mix(table, idx, w, b, sol, order=order)
     want = sm.sparse_gather_mix_plain(table, idx, w, b, sol)
     err = (got - want).abs().max().item()
     rows_read = torch.unique(idx).numel()
     n_bytes = 4 * (rows_read * p + 2 * n * k + n + 2 * n * p)
+    if order is not None:
+        n_bytes += 4 * n
     n_ops = 2 * n * k * p + 2 * n * p
     bms, by = bound_ms(n_bytes, n_ops)
     # one library call of the same function: a CSR sparse product
@@ -205,11 +215,11 @@ def check_sparse_mix(torch, sm, table, idx, w, b, sol):
         name="sparse_gather_mix", route="cuda",
         source="src/repro_torch/kernels/csrc/sparse_mix.cu",
         replaces="src/repro/kernels/sparse_mix.py:32",
-        design="warp per row, slot-order FFMA f32",
-        shape=f"N={table.shape[0]} n={n} k={k} p={p}", max_abs_err=err,
-        tol=1e-5,
-        ms=time_ms(torch, lambda: sm.sparse_gather_mix(table, idx, w, b,
-                                                       sol), 20),
+        design=f"warp per row, k gathers in flight, {label} row order",
+        shape=f"N={table.shape[0]} n={n} k={k} p={p} order={label}",
+        max_abs_err=err, tol=0.0,
+        ms=time_ms(torch, lambda: sm.sparse_gather_mix(
+            table, idx, w, b, sol, order=order), 20),
         plain_ms=time_ms(torch, lambda: sm.sparse_gather_mix_plain(
             table, idx, w, b, sol), 20),
         bound_ms=bms, bound_by=by,
@@ -273,13 +283,41 @@ def check_round_step(torch, rf, state, ops):
         bound_ms=bms, bound_by=by, library_ms=None, library_call=None)
 
 
+def cl_edge_bytes(upd, own_s, oth_a, oth_s, stale, got, k, p):
+    """Bytes ``cl_edge_step`` must move on one round's sides, each counted
+    once: every distinct theta row and every distinct (agent, slot) cell
+    of K, L_own and L_nbr that a delivered side reads (its own, and its
+    partner's where the payload is fresh), the four payload rows of every
+    distinct stale target, every distinct target written in Z_own, Z_nbr,
+    L_own and L_nbr; the four indices of each event (side b + B mirrors
+    side b), each side's stale and got bytes, and one 4-byte election word
+    written and read back per edge with a delivered side.  Returns
+    ``(bytes, distinct targets)``."""
+    import torch
+    B = upd.shape[0] // 2
+    u, o, a, s = upd.long(), own_s.long(), oth_a.long(), oth_s.long()
+    tgt, ptn = u * k + o, a * k + s
+    fresh = got & ~stale
+    rows = torch.unique(torch.cat([u[got], a[fresh]])).numel()
+    cells = torch.unique(torch.cat([tgt[got], ptn[fresh]])).numel()
+    T = torch.unique(tgt[got]).numel()
+    S = torch.unique(tgt[got & stale]).numel()
+    any_got = got[:B] | got[B:]
+    edges = torch.unique(torch.minimum(tgt[:B], ptn[:B])[any_got]).numel()
+    n_bytes = (4 * p * (rows + 3 * cells + 4 * S + 4 * T) + 16 * B
+               + 2 * upd.shape[0] + 8 * edges)
+    return n_bytes, T
+
+
 def check_cl_edge_step(torch, rf, args, rho):
     """cl_edge_step on round ``WARM`` of the CL run: the engine's own
     inputs (post-primal theta/K, round-start Z/L, the prefetched stale
-    payload and the round's 2B sides), held bit for bit."""
+    payload and the round's 2B sides), held bit for bit over two calls on
+    the same state (the second on the first's output), with the kernel's
+    election words all zero after each."""
     theta, K, *zl = args[:6]
     back = args[6:]
-    upd, own_s, stale, got = back[4], back[5], back[8], back[9]
+    upd, own_s, oth_a, oth_s, stale, got = back[4:]
     n, k, p = K.shape
     E = upd.shape[0]
     tgt = (upd.long() * k + own_s.long())[got]
@@ -292,32 +330,42 @@ def check_cl_edge_step(torch, rf, args, rho):
         raise AssertionError("cl_edge_step: the held round needs stale "
                              "sides and repeated targets")
 
-    def fresh():
-        return [a.clone() for a in zl]
-
-    za, zb = fresh(), fresh()
-    out = rf.cl_edge_step(theta, K, *za, *back, rho=rho)
-    want = rf.cl_edge_step_plain(theta, K, *zb, *back, rho=rho)
-    err = max((a - b).abs().max().item() for a, b in zip(out, want))
+    za, zb = [a.clone() for a in zl], [a.clone() for a in zl]
+    flags = rf.cl_edge_flags(n * k, theta.device)
+    err = 0.0
+    for call in (1, 2):
+        out = rf.cl_edge_step(theta, K, *za, *back, rho=rho)
+        want = rf.cl_edge_step_plain(theta, K, *zb, *back, rho=rho)
+        err = max([err] + [(a - b).abs().max().item()
+                           for a, b in zip(out, want)])
+        left = int(torch.count_nonzero(flags))
+        log(f"[3cl] cl_edge_step call {call}: max |kernel - plain| = "
+            f"{err:.3g}, election words left nonzero: {left}")
+        if left:
+            raise AssertionError(f"cl_edge_step: {left} election words "
+                                 f"nonzero after call {call}")
     del out, want
-    # per delivered side its own four cells and the payload's four read,
-    # four written; per side four int32 indices and two byte flags
-    n_bytes = G * 12 * p * 4 + E * 18
-    n_ops = 16 * G * p
-    bms, by = bound_ms(n_bytes, n_ops)
+    n_bytes, T = cl_edge_bytes(upd, own_s, oth_a, oth_s, stale, got, k, p)
+    bms, by = bound_ms(n_bytes, 16 * T * p)
+    # the per-side count, reported beside the bound: every delivered side
+    # charged its own four cells and the payload's four read and four
+    # written, and 18 index and flag bytes, so shared cells count twice
+    per_side_ms = bound_ms(G * 12 * p * 4 + E * 18, 16 * G * p)[0]
     return dict(
         name="cl_edge_step", route="cuda",
         source="src/repro_torch/kernels/csrc/cl_edge_step.cu",
         replaces="src/repro/kernels/round_fuse.py:419",
-        design="two launches: warp per side into scratch, then land",
+        design="warp per event, claim + atomicExch edge election, "
+               "no scratch",
         shape=f"n={n} k={k} p={p} sides={E} delivered={G} "
-              f"stale={n_stale} repeated={dup}",
+              f"stale={n_stale} repeated={dup} targets={T}",
         max_abs_err=err, tol=0.0,
         ms=time_ms(torch, lambda: rf.cl_edge_step(theta, K, *za, *back,
                                                   rho=rho), 50),
         plain_ms=time_ms(torch, lambda: rf.cl_edge_step_plain(
             theta, K, *zb, *back, rho=rho), 10),
-        bound_ms=bms, bound_by=by, library_ms=None, library_call=None)
+        bound_ms=bms, bound_by=by, bound_ms_per_side=per_side_ms,
+        library_ms=None, library_call=None)
 
 
 def edge_slabs(torch, tabs, st):
@@ -569,11 +617,20 @@ def main() -> int:
     graph_inputs = (sol_dense, sol_dense, A_mix.contiguous(),
                     b_dense.contiguous())
 
+    # the locality order sparse_sync_mp schedules its rows by, built on
+    # the host once per topology (cached there: 4b reuses it)
+    t0 = time.perf_counter()
+    order = torch.as_tensor(topo.locality_order, device=dev)
+    log(f"[3] RCM locality order built on the host in "
+        f"{time.perf_counter() - t0:.3f} s")
+    identity = check_sparse_mix(torch, sm, table, tabs.nbr_idx, w, b, sol,
+                                None, "identity")
     kernels = [check_round_step(torch, rf, state, ops),
-               check_sparse_mix(torch, sm, table, tabs.nbr_idx, w, b, sol),
+               check_sparse_mix(torch, sm, table, tabs.nbr_idx, w, b, sol,
+                                order, "RCM"),
                check_graph_mix(torch, gm, graph_inputs)]
-    del state, ops, table
-    for kr in kernels:
+    del state, ops, table, order
+    for kr in [identity] + kernels:
         log(json.dumps(kr))
         if not kr["max_abs_err"] <= kr["tol"]:
             return fail(f"{kr['name']}: max_abs_err {kr['max_abs_err']} "
@@ -630,14 +687,16 @@ def main() -> int:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts["sparse_sync_mp"] = dispatch.launch_counts()
+    ordered = sm.ordered_launches
     want = sparse_sync_mp(topo, sol, c, ALPHA, SWEEPS, device=dev,
                           backend=dispatch.ReproBackend(default="reference"))
     err = (got - want).abs().max().item()
     log(f"[4b] sparse_sync_mp: {SWEEPS} sweeps in {secs:.3f} s, "
-        f"launches {counts['sparse_sync_mp']}, max |kernel - plain| = "
-        f"{err:.3g} (tol 1e-5)")
+        f"launches {counts['sparse_sync_mp']} ({ordered} with the RCM "
+        f"order), max |kernel - plain| = {err:.3g} (tol 1e-5)")
     if counts["sparse_sync_mp"]["sparse_gather_mix"] != SWEEPS \
-            or not err <= 1e-5 or not torch.isfinite(got).all():
+            or ordered != SWEEPS or not err <= 1e-5 \
+            or not torch.isfinite(got).all():
         return fail("sparse_sync_mp path")
 
     # 4c. synchronous through graph_mix ------------------------------------

@@ -40,15 +40,15 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # A, theta, sol, b, out, n, D, stream
     "repro_graph_mix": (P, P, P, P, P, I, I, P),
-    # table, idx, w, b, sol, out, n, k, p, stream
-    "repro_sparse_gather_mix": (P, P, P, P, P, P, I, I, I, P),
+    # table, idx, w, b, sol, order (or NULL), out, N, n, k, p, stream
+    "repro_sparse_gather_mix": (P,) * 7 + (I,) * 4 + (P,),
     # win, enc, tgt_row, m, n, k, stream
     "repro_round_elect": (P, P, P, I, I, I, P),
     # theta, Ke, got_ever, msg, k_old, tgt_row, enc, theta_base, a_w,
     # win, keep, m, n, k, p, stream
     "repro_round_apply": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     # theta, K, Z_own, Z_nbr, L_own, L_nbr, pay_th, pay_K, pay_Lo, pay_Ln,
-    # upd, own_s, oth_a, oth_s, stale, got, scratch, E, k, p, rho, stream
+    # upd, own_s, oth_a, oth_s, stale, got, flags, E, k, p, rho, stream
     "repro_cl_edge_step": (P,) * 17 + (I, I, I, F, P),
     # t_ii, t_ji, t_jj, t_ij, l_own_i, l_nbr_j_of_i, l_own_j, l_nbr_i_of_j,
     # z_i, z_j and the four dual outputs, E, p, rho, stream

@@ -28,7 +28,9 @@ Canonical signatures (shared by every impl of an op):
 
     mix:        (theta (n,D), theta_sol (n,D), A (n,n), b (n,)) -> (n,D)
     sparse_mix: (table (N,p), idx (n,k) int32, w (n,k), b (n,),
-                 sol (n,p)) -> (n,p)
+                 sol (n,p), *, order=None) -> (n,p); order, an (n,)
+                 int32 row permutation, is the kernel's row schedule
+                 (the reference ignores it; the result is the same)
     round_step: (theta (n,p), Ke (n*k,p+1), got_ever (n,) bool, msg (2B,p),
                  tgt_row (2B,) int32, enc (2B,) int32, k_old (2B,p),
                  theta_base (n,p), a_w (n*k,)) -> (theta, Ke, got_ever,
@@ -45,7 +47,8 @@ Canonical signatures (shared by every impl of an op):
                    pay_th, pay_K, pay_Lo, pay_Ln (E,p), upd, own_s, oth_a,
                    oth_s (E,) int32, stale, got (E,) bool, *, rho)
                   -> (Z_own, Z_nbr, L_own, L_nbr); both impls update the
-                  four arrays in place and return them
+                  four arrays in place and return them; the kernel takes
+                  E = 2B sides in event pairs (side b + B mirrors side b)
     attention:  (q (B,S,H,hd), k (B,S,K,hd), v (B,S,K,hd), *, window=None)
                 -> (B,S,H,hd), causal; K | H and query head h reads kv
                 head h // (H // K) (``jnp.repeat`` of the kv heads)
@@ -157,7 +160,7 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    _gm.launches = _sm.launches = _rf.launches = 0
+    _gm.launches = _sm.launches = _sm.ordered_launches = _rf.launches = 0
     _rf.cl_edge_launches = _au.launches = _fa.launches = 0
 
 

@@ -30,7 +30,7 @@ def graph_mix(theta, theta_sol, A, b):
             + b.to(f)[:, None] * theta_sol.to(f)).to(theta.dtype)
 
 
-def sparse_gather_mix(table, idx, w, b, sol):
+def sparse_gather_mix(table, idx, w, b, sol, *, order=None):
     """CSR model-propagation sweep over padded-neighbor tables.
 
     table: (N, p); idx: (n, k) int neighbor ids; w: (n, k) mixing weights
@@ -39,7 +39,8 @@ def sparse_gather_mix(table, idx, w, b, sol):
 
     The anchor comes first, then the k slots in slot order, each product
     rounded before its add: the CUDA kernel's order, so the two agree bit
-    for bit.
+    for bit.  ``order`` (the kernel's row schedule) does not change the
+    result and is ignored.
     """
     acc = b[:, None] * sol
     for s in range(idx.shape[1]):

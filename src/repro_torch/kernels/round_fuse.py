@@ -23,8 +23,9 @@ slot-order row sums, so the two agree bit for bit), which runs for tensors
 on the CPU only; for CUDA tensors the wrapper launches the kernel or
 raises.
 
-``cl_edge_step``'s CUDA kernel (``csrc/cl_edge_step.cu``, two launches:
-compute into scratch, then land) replaces the Pallas TPU kernel
+``cl_edge_step``'s CUDA kernel (``csrc/cl_edge_step.cu``: one warp per
+event, one event elected per edge through a claim launch and an
+``atomicExch`` in the apply launch) replaces the Pallas TPU kernel
 ``repro/kernels/round_fuse.py::cl_edge_step_pallas``.  It too updates its
 state (``Z_own``, ``Z_nbr``, ``L_own``, ``L_nbr``) in place, so the
 one-round-stale payload — the previous round's post-primal ``theta``/``K``
@@ -210,11 +211,38 @@ _CL_FLOATS = ("theta", "K", "Z_own", "Z_nbr", "L_own", "L_nbr", "pay_th",
               "pay_K", "pay_Lo", "pay_Ln")
 _CL_SIDES = ("upd", "own_s", "oth_a", "oth_s", "stale", "got")
 
+#: The election words of ``cl_edge_step``'s kernel: one (n*k,) int32
+#: buffer per (n*k, device), made zero once and left zero by every call
+#: that returns (the winner of each edge swaps its word back to 0), so a
+#: round costs no fill.  Calls that share a buffer must run in stream order
+#: (the engine's do); a call that raises drops its buffer.
+_cl_flags = {}
+
+
+def _flags_key(nk: int, device):
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return nk, device
+
+
+def cl_edge_flags(nk: int, device) -> torch.Tensor:
+    """The kernel's (nk,) int32 election buffer on ``device`` (zero
+    between calls), made on first use."""
+    key = _flags_key(nk, device)
+    if key not in _cl_flags:
+        # scatter: unique targets (one dict entry per key)
+        _cl_flags[key] = torch.zeros(nk, dtype=torch.int32, device=key[1])
+    return _cl_flags[key]
+
 
 def _check_cl(*args):
     theta, K = args[0], args[1]
     n, k, p = K.shape
     E = args[10].shape[0]
+    if E % 2:
+        raise ValueError(f"cl_edge_step: {E} sides; the kernel takes event "
+                         f"pairs (side b + E/2 mirrors side b)")
     shapes = [(n, p)] + [(n, k, p)] * 5 + [(E, p)] * 4 + [(E,)] * 6
     dtypes = [torch.float32] * 10 + [torch.int32] * 4 + [torch.bool] * 2
     for name, t, shape, dtype in zip(_CL_FLOATS + _CL_SIDES, args, shapes,
@@ -237,9 +265,15 @@ def cl_edge_step(theta, K, Z_own, Z_nbr, L_own, L_nbr,
                  upd, own_s, oth_a, oth_s, stale, got, *, rho: float):
     """One batched CL-ADMM edge phase (``kernels.ref.cl_edge_step``):
     updates ``Z_own``, ``Z_nbr``, ``L_own`` and ``L_nbr`` in place and
-    returns them.  The side indices must lie in range (agents < n, slots
-    < k), as the scheduler's events do: checking them here would cost a
-    host sync a round.
+    returns them.
+
+    The kernel takes the sides as the engine lays them out: E = 2B sides
+    in event pairs, side ``b + B`` the mirror of side ``b`` (its ``upd``/
+    ``own_s`` are side b's ``oth_a``/``oth_s`` and the other way round),
+    each pair two ends of one edge of the topology, with staleness drawn
+    per sender.  The indices must lie in range (agents < n, slots < k), as
+    the scheduler's events do: checking either here would cost a host sync
+    a round.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     """
@@ -251,12 +285,16 @@ def cl_edge_step(theta, K, Z_own, Z_nbr, L_own, L_nbr,
     if theta.device.type != "cuda":
         raise ValueError(f"cl_edge_step: no kernel for {theta.device}")
     _check_cl(*args)
-    _, k, p = K.shape
+    n, k, p = K.shape
     E = upd.shape[0]
-    scratch = torch.empty((E, 4, p), dtype=torch.float32,
-                          device=theta.device)
-    _build.launch("repro_cl_edge_step",
-                  *(t.data_ptr() for t in args + (scratch,)), E, k, p,
-                  float(rho), device=theta.device)
+    flags = cl_edge_flags(n * k, theta.device)
+    try:
+        _build.launch("repro_cl_edge_step",
+                      *(t.data_ptr() for t in args + (flags,)), E, k, p,
+                      float(rho), device=theta.device)
+    except RuntimeError:
+        # a launch that failed may leave claimed words behind
+        _cl_flags.pop(_flags_key(n * k, theta.device), None)
+        raise
     cl_edge_launches += 1
     return Z_own, Z_nbr, L_own, L_nbr

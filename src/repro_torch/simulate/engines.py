@@ -9,7 +9,8 @@ State is O(n * k * p) padded-neighbor storage:
                         and dual variables of the edge (i, nbr_idx[i, s])
 
 * ``sparse_sync_mp`` — the synchronous Eq. 5 sweep, one ``sparse_mix`` op
-  (the ``sparse_gather_mix`` CUDA kernel on the card) per sweep.
+  (the ``sparse_gather_mix`` CUDA kernel on the card, rows taken in the
+  topology's locality order) per sweep.
 * ``run_mp_scenario`` — MP gossip under a fault scenario, B wake-ups per
   round, replaying an ``EventStream``.  Two round bodies: the per-op
   gather/mix/scatter sequence (``backend=None``) and the fused
@@ -78,16 +79,19 @@ def sparse_sync_mp(topo: SparseTopology, theta_sol, c, alpha: float,
                       + (1-alpha) c_i theta_sol[i]) / (alpha + (1-alpha) c_i)
 
     One sweep = one "sparse_mix" op over all agents, resolved through
-    ``kernels.dispatch`` for ``device`` (CUDA when None).
+    ``kernels.dispatch`` for ``device`` (CUDA when None), given the
+    topology's ``locality_order`` as its row schedule (built on the host
+    on the topology's first sweep; needs scipy).
     """
     device = resolve_device(device)
     tabs, theta_sol, c = _payload(topo, theta_sol, c, device)
     w, b = mp_mix_operator(tabs.nbr_p, c, alpha)
     w, b = w.contiguous(), b.contiguous()
+    order = torch.as_tensor(topo.locality_order, device=device)
     mix = resolve("sparse_mix", backend, device)
     theta = theta_sol
     for _ in range(sweeps):
-        theta = mix(theta, tabs.nbr_idx, w, b, theta_sol)
+        theta = mix(theta, tabs.nbr_idx, w, b, theta_sol, order=order)
     return theta
 
 

@@ -11,6 +11,10 @@ runs its plain PyTorch version, held against the JAX package:
   cl_edge_step`` on real event sides with repeated targets and stale
   sides (atol 1e-6): the port's prefetched stale rows give what the full
   ``pv_*`` snapshot gives, and repeated targets carry identical values;
+* the CUDA kernel's edge election (one event per edge lands the union of
+  the edge's delivered bits), emulated event by event in random orders on
+  hand-built rounds (``tests/_cl_rounds.py``), bit for bit against the
+  plain version, with the election words zero afterwards;
 * the helpers (``admm_edge_halfstep``, ``sample_event``,
   ``personalized_predict``, ``cl_stale_prefetch``) and the dispatch rules.
 
@@ -34,6 +38,7 @@ from repro.kernels.admm_update import \
 from repro.simulate import scheduler as jsched  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
+from _cl_rounds import CASES, election_round  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from repro_torch.core import sparse as tsparse  # noqa: E402
 from repro_torch.kernels import admm_update as tau  # noqa: E402
@@ -209,6 +214,82 @@ def test_cl_edge_step_nothing_delivered_is_identity():
         assert torch.equal(o, t(s0))
 
 
+def emulate_election(state, sides, rho, k, events):
+    """``csrc/cl_edge_step.cu``'s algorithm on the CPU, one event at a time:
+    the claim ORs each event's delivered bits into its edge's canonical
+    word, then the events in the order ``events`` swap the word for 0, and
+    the one that gets it back nonzero computes both ends from the arrays
+    as they stand and writes the ends whose bit is set.  Returns the four
+    updated arrays and the election words."""
+    th, K, Zo, Zn, Lo, Ln, pth, pK, pLo, pLn = [x.clone() for x in state]
+    upd, own_s, oth_a, oth_s, stale, got = (x.tolist() for x in sides)
+    n, _, p = K.shape
+    B = len(upd) // 2
+    Kf, Zof, Znf, Lof, Lnf = (a.view(n * k, p) for a in (K, Zo, Zn, Lo, Ln))
+    flags = np.zeros(n * k, np.int64)
+
+    def ends(b):
+        ca, cb = upd[b] * k + own_s[b], oth_a[b] * k + oth_s[b]
+        return ca, cb, min(ca, cb)
+
+    for b in range(B):
+        ga, gb = int(got[b]), int(got[b + B])
+        if ga or gb:
+            ca, cb, c = ends(b)
+            flags[c] |= (ga | gb << 1) if ca <= cb else (gb | ga << 1)
+    for b in events:
+        if not (got[b] or got[b + B]):
+            continue
+        ca, cb, c = ends(b)
+        bits, flags[c] = int(flags[c]), 0
+        if not bits:
+            continue
+        own_a = (th[upd[b]], Kf[ca], Lof[ca], Lnf[ca])
+        own_b = (th[oth_a[b]], Kf[cb], Lof[cb], Lnf[cb])
+        pay_a = (pth[b], pK[b], pLo[b], pLn[b]) if stale[b] else own_b
+        pay_b = ((pth[b + B], pK[b + B], pLo[b + B], pLn[b + B])
+                 if stale[b + B] else own_a)
+        ra = tref.admm_edge_halfstep(*own_a, *pay_a, rho)
+        rb = tref.admm_edge_halfstep(*own_b, *pay_b, rho)
+        for cell, res, bit in ((ca, ra, 1 if ca <= cb else 2),
+                               (cb, rb, 2 if ca <= cb else 1)):
+            if bits & bit:
+                for arr, v in zip((Zof, Znf, Lof, Lnf), res):
+                    arr[cell] = v          # scatter: unique targets (one cell)
+    return (Zo, Zn, Lo, Ln), flags
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_cl_edge_election_lands_what_the_plain_version_lands(case):
+    """Each election case, with the events taken in three random orders:
+    the same four arrays as the plain version, bit for bit, and every
+    election word back at zero."""
+    state, sides, rho, k = election_round(case, "cpu")
+    B = sides[0].shape[0] // 2
+    want = trf.cl_edge_step_plain(*[x.clone() for x in state], *sides,
+                                  rho=rho)
+    for seed in range(3):
+        events = np.random.default_rng(seed).permutation(B).tolist()
+        got, flags = emulate_election(state, sides, rho, k, events)
+        assert not flags.any()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_cl_edge_election_rounds_hit_their_cases():
+    """The hand-built rounds contain what their names say: a repeated
+    target, and for ``stale_dup`` stale and fresh sides on one edge."""
+    for case in CASES:
+        _, sides, _, k = election_round(case, "cpu")
+        upd, own_s, _, _, stale, got = sides
+        tgt = upd.long() * k + own_s.long()
+        assert tgt.unique().numel() < tgt.numel(), case
+        if case == "stale_dup":
+            dup = tgt == tgt[(tgt[:, None] == tgt[None, :]).sum(1) > 1][0]
+            assert (stale & got & dup).any()
+        if case == "split_bits":
+            assert got.sum() < got.numel()
+
+
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
@@ -284,6 +365,9 @@ def test_cl_wrappers_check_inputs():
     bad[6] = bad[6][:-1]                             # pay_th short a row
     with pytest.raises(ValueError):
         trf._check_cl(*bad)
+    odd = good[:6] + [x[:-1] for x in good[6:]]      # not event pairs
+    with pytest.raises(ValueError, match="event pairs"):
+        trf._check_cl(*odd)
     e = [torch.zeros(4, 3) for _ in range(8)]
     tau._check(e)
     with pytest.raises(ValueError):

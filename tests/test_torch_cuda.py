@@ -1,10 +1,13 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs (the tolerances of
-tests/test_torch_kernels.py; ``cl_edge_step`` and ``admm_edge_update``
-bit for bit, repeated targets included; ``flash_attention`` 1e-2 abs and
-rel in bf16, 1e-5 in float32), and a small model's prefill through the
-``flash_attention`` kernel against the reference attention.  The kernels
-have no CPU mode: on a host without a CUDA card every test here skips.
+tests/test_torch_kernels.py; ``sparse_gather_mix`` bit for bit in any row
+order; ``cl_edge_step`` and ``admm_edge_update`` bit for bit, repeated
+targets included, and ``cl_edge_step`` on rounds built for each case of
+its edge election, with its election words zero after every call;
+``flash_attention`` 1e-2 abs and rel in bf16, 1e-5 in float32), and a
+small model's prefill through the ``flash_attention`` kernel against the
+reference attention.  The kernels have no CPU mode: on a host without a
+CUDA card every test here skips.
 
 Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -14,12 +17,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _cl_rounds import CASES, election_round  # noqa: E402
 from repro_torch.kernels import admm_update as au  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import graph_mix as gm  # noqa: E402
 from repro_torch.kernels import round_fuse as rf  # noqa: E402
 from repro_torch.kernels import sparse_mix as sm  # noqa: E402
+from repro_torch.simulate import random_geometric_topology  # noqa: E402
+from repro_torch.simulate import sparse_sync_mp, topology  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -57,16 +63,68 @@ def test_graph_mix_kernel_replay_is_bit_identical(cuda):
 
 
 @pytest.mark.parametrize("N,n,k,p", [(300, 200, 7, 40), (64, 64, 3, 32),
-                                     (50, 10, 1, 5)])
+                                     (50, 10, 1, 5), (90, 70, 32, 32),
+                                     (120, 60, 37, 33)])   # k > 32: chunks
 def test_sparse_gather_mix_kernel(cuda, N, n, k, p):
     rng = np.random.default_rng(N + n + k + p)
     table, w, b, sol = on(cuda, rng.standard_normal((N, p)),
                           rng.uniform(size=(n, k)), rng.uniform(size=n),
                           rng.standard_normal((n, p)))
     (idx,) = on(cuda, rng.integers(0, N, (n, k)), dtype=torch.int32)
-    got = sm.sparse_gather_mix(table, idx, w, b, sol)
     want = sm.sparse_gather_mix_plain(table, idx, w, b, sol)
-    assert torch.equal(got, want)       # same slot-order arithmetic
+    perm = torch.as_tensor(rng.permutation(n), dtype=torch.int32,
+                           device=cuda)
+    for order in (None, perm):
+        before = sm.launches
+        got = sm.sparse_gather_mix(table, idx, w, b, sol, order=order)
+        assert sm.launches == before + 1
+        assert torch.equal(got, want)   # same slot-order arithmetic
+
+
+def rcm_mix_inputs(dev, topo, p, seed):
+    """sparse_sync_mp's operands on ``topo``: the table is a random model
+    (a steady-state sweep's), the rows in the topology's RCM order."""
+    from repro_torch.core.model_propagation import mp_mix_operator
+    n = topo.n
+    rng = np.random.default_rng(seed)
+    tabs = topo.device_tables(dev)
+    table, sol, c = on(dev, rng.standard_normal((n, p)),
+                       rng.standard_normal((n, p)), rng.uniform(0.1, 1, n))
+    w, b = mp_mix_operator(tabs.nbr_p, c, 0.9)
+    order = torch.as_tensor(topo.locality_order, device=dev)
+    return table, tabs.nbr_idx, w.contiguous(), b.contiguous(), sol, order
+
+
+def pairs_topology(n):
+    """n/2 disjoint edges: every agent has one neighbor (k = 1)."""
+    i = np.arange(0, n, 2)
+    return topology._from_pairs(n, i, i + 1, np.zeros(n, np.int32))
+
+
+@pytest.mark.parametrize("make,p", [
+    (lambda: random_geometric_topology(3000, k=8, seed=1), 40),
+    (lambda: random_geometric_topology(2000, k=8, seed=2), 32),
+    (lambda: pairs_topology(500), 7)])
+def test_sparse_gather_mix_kernel_rcm_order(cuda, make, p):
+    table, idx, w, b, sol, order = rcm_mix_inputs(cuda, make(), p, p)
+    want = sm.sparse_gather_mix_plain(table, idx, w, b, sol)
+    got = sm.sparse_gather_mix(table, idx, w, b, sol, order=order)
+    assert torch.equal(got, want)
+    assert torch.equal(sm.sparse_gather_mix(table, idx, w, b, sol,
+                                            order=order), got)   # replay
+
+
+def test_sparse_sync_mp_launches_with_the_order(cuda):
+    topo = random_geometric_topology(1000, k=6, seed=3)
+    rng = np.random.default_rng(3)
+    sol = rng.standard_normal((1000, 8)).astype(np.float32)
+    c = rng.uniform(0.1, 1.0, 1000).astype(np.float32)
+    dispatch.reset_launch_counts()
+    got = sparse_sync_mp(topo, sol, c, 0.9, 4, device=cuda)
+    assert sm.launches == sm.ordered_launches == 4
+    want = sparse_sync_mp(topo, sol, c, 0.9, 4, device=cuda,
+                          backend=dispatch.ReproBackend(default="reference"))
+    assert torch.equal(got, want)
 
 
 def make_round(dev, n, k, p, m, seed, deliver_frac=0.7, seen_frac=0.5):
@@ -180,6 +238,36 @@ def test_cl_edge_step_nothing_got_is_identity(cuda):
     sides = sides[:5] + (torch.zeros_like(sides[5]),)
     out = cl_edge_run(rf.cl_edge_step, f, sides, rho)
     assert all(torch.equal(g, w) for g, w in zip(out, f[2:6]))
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("p", [9, 32, 40])
+def test_cl_edge_step_election_cases(cuda, case, p):
+    """Rounds built for each election case (tests/_cl_rounds.py): bit for
+    bit the plain version, election words zero after each call, and a
+    second call on the first's output (a replay of the kernel on two
+    copies) bit-identical too."""
+    f, sides, rho, k = election_round(case, cuda, p=p)
+    n = f[1].shape[0]
+    flags = rf.cl_edge_flags(n * k, cuda)
+    assert flags is rf.cl_edge_flags(n * k, f[0].device)  # the wrapper's
+    a, b, plain = ([t.clone() for t in f] for _ in range(3))
+    for _ in range(2):
+        out_a = rf.cl_edge_step(*a, *sides, rho=rho)
+        assert not flags.any()
+        out_b = rf.cl_edge_step(*b, *sides, rho=rho)
+        assert not flags.any()
+        want = rf.cl_edge_step_plain(*plain, *sides, rho=rho)
+        assert all(torch.equal(x, w) for x, w in zip(out_a, want))
+        assert all(torch.equal(x, y) for x, y in zip(out_a, out_b))
+
+
+def test_cl_edge_step_flags_are_zero_after_engine_rounds(cuda):
+    f, sides, rho = make_cl_edge(cuda, 200, 400, 32, 6)
+    flags = rf.cl_edge_flags(f[1].shape[0] * f[1].shape[1], f[0].device)
+    cl_edge_run(rf.cl_edge_step, f, sides, rho)
+    torch.cuda.synchronize()
+    assert not flags.any()
 
 
 def test_dispatch_auto_picks_kernels(cuda):
