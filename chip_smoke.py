@@ -17,7 +17,9 @@ JAX package.  Phases, in order — any failure exits non-zero:
    where one exists, one library call of the same function;
    ``sparse_gather_mix`` twice, bit for bit: with its rows in identity
    order and in the topology's RCM locality order (built on the host
-   here, timed, and cached on the topology for 4b);
+   here, timed, and cached on the topology for 4b); ``round_step`` bit
+   for bit, with the registers and local bytes of its main-path apply
+   kernel as the CUDA runtime reports them;
 4. drive the paths through the user entry points, each with the launch
    counts set to 0 just before and read just after:
    a. ``run_scenario(ScenarioSpec(algo="mp", ...))`` fused (``round_step``
@@ -28,6 +30,11 @@ JAX package.  Phases, in order — any failure exits non-zero:
       the plain path;
    c. ``synchronous`` on ``random_geometric_graph(2048, k=8)``, D = 4096,
       100 steps through ``graph_mix``, against the plain path.
+5mp. where the time of a fused MP round goes: ``PROFILE_ROUNDS`` fused
+     rounds under ``torch.profiler``, read on the device timeline from
+     the first round's ``round_step`` to the last one's (no set-up): the
+     rounds' span, device time by operation, ``round_step``'s share and
+     the device's busy share of the span (a reading, not a check).
 
 Then CL-ADMM (paper §4.2) on the same topology and stream, after the MP
 state is freed:
@@ -239,6 +246,13 @@ def check_round_step(torch, rf, state, ops):
     def fresh():
         return theta.clone(), Ke.clone(), got_ever.clone()
 
+    n, p = theta.shape
+    k = Ke.shape[0] // n
+    res = rf.round_step_resources(k, p)
+    log(f"[3] round_step apply kernel for k={k}, p={p}: "
+        f"{res['registers']} registers, {res['local_bytes']} bytes of "
+        f"local memory a thread")
+
     got = rf.round_step(*fresh(), msg, tgt_row, enc, k_old, theta_base, a_w)
     want = rf.round_step_plain(*fresh(), msg, tgt_row, enc, k_old,
                                theta_base, a_w)
@@ -249,7 +263,6 @@ def check_round_step(torch, rf, state, ops):
               (got[1] - want[1]).abs().max().item())
     keep = want[3]
     del got, want
-    n, p = theta.shape
     m = msg.shape[0]
     win_rows = tgt_row[keep].long()
     W = int(keep.sum())
@@ -271,10 +284,12 @@ def check_round_step(torch, rf, state, ops):
         name="round_step", route="cuda",
         source="src/repro_torch/kernels/csrc/round_step.cu",
         replaces="src/repro/kernels/round_fuse.py:256",
-        design="atomicMax elect, warp-per-event apply",
-        shape=f"n={n} k={Ke.shape[0] // n} p={p} m={m} winners={W} "
-              f"rows={R} first={F}",
-        max_abs_err=err, tol=1e-6,
+        design="round-tagged 64-bit election words (no fill), 8 lanes "
+               "an event, ballot leader, k <= 32 and p = 32 fixed at "
+               "compile time",
+        shape=f"n={n} k={k} p={p} m={m} winners={W} rows={R} first={F}",
+        registers=res["registers"], local_bytes=res["local_bytes"],
+        max_abs_err=err, tol=0.0,
         ms=time_ms(torch, lambda: rf.round_step(th, ke, ge, msg, tgt_row,
                                                 enc, k_old, theta_base,
                                                 a_w), 50),
@@ -492,21 +507,52 @@ def profile_device(torch, run):
     return wall_ms, busy_ms, rows
 
 
-def device_split(rows):
-    """Device ms of profiler rows by kind: the flash_attention kernel,
-    matrix products (cuBLAS/CUTLASS kernels), and the rest (elementwise
-    passes, reductions, copies)."""
-    split = {"flash_attention": 0.0, "gemms": 0.0, "other": 0.0}
+def device_split(rows, kernel, tags):
+    """Device ms of profiler rows by kind: ``kernel`` (the rows whose name
+    holds one of ``tags``), matrix products (cuBLAS/CUTLASS kernels), and
+    the rest (elementwise passes, gathers, reductions, copies)."""
+    split = {kernel: 0.0, "gemms": 0.0, "other": 0.0}
     for ms, key, _ in rows:
         name = key.lower()
-        if "flash_fwd" in name:
-            split["flash_attention"] += ms
+        if any(t in name for t in tags):
+            split[kernel] += ms
         elif any(t in name for t in ("gemm", "gemv", "cutlass", "xmma",
                                      "nvjet", "cublas")):
             split["gemms"] += ms
         else:
             split["other"] += ms
     return split
+
+
+def profile_rounds(torch, run, tag):
+    """The device timeline of ``run()`` between the first and the last
+    start of a kernel whose name holds ``tag`` (one launch a round): the
+    set-up before the first round and the recording after the last fall
+    outside.  Returns ``(span_ms, busy_ms, rows, rounds)``: the window's
+    length, the device time inside it, ``(ms, name, count)`` by operation,
+    and the rounds it spans (launches of ``tag`` less one); None when the
+    profiler saw fewer than two such launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    marks = sorted(ev.time_range.start for ev in dev if tag in ev.name)
+    if len(marks) < 2:
+        return None
+    t0, t1 = marks[0], marks[-1]
+    by_name = {}
+    for ev in dev:
+        if t0 <= ev.time_range.start < t1:
+            ms, count = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3,
+                                count + 1)
+    rows = sorted(((ms, name, count) for name, (ms, count)
+                   in by_name.items()), reverse=True)
+    return (t1 - t0) / 1e3, sum(r[0] for r in rows), rows, len(marks) - 1
 
 
 def main() -> int:
@@ -679,6 +725,29 @@ def main() -> int:
     if not hist_err <= 1e-5 or not moved > 0:
         return fail("fused trajectory disagrees with the per-op one")
     del runs, fu, po
+
+    # 5mp. where a fused MP round's time goes (a reading; nothing is
+    # checked): the device timeline from round 0's round_step to the last
+    # round's, so the set-up (table copies, warm start) is left out
+    got = profile_rounds(torch, lambda: run_scenario(ScenarioSpec(
+        **dict(spec, rounds=PROFILE_ROUNDS, record_every=PROFILE_ROUNDS),
+        backend=dispatch.ReproBackend())), "round_elect")
+    if got is None:
+        log("[5mp] the profiler recorded no device time: not measured")
+    else:
+        span_ms, busy_ms, rows, n_rounds = got
+        log(f"[5mp] fused MP, {n_rounds} rounds on the device timeline: "
+            f"{span_ms:.3f} ms ({span_ms / n_rounds:.4f} ms a round), "
+            f"device busy {busy_ms:.3f} ms ({100 * busy_ms / span_ms:.1f} "
+            f"%)")
+        for ms, key, count in rows[:14]:
+            log(f"[5mp]   {ms:9.3f} ms  {count:6d} x  {key[:100]}")
+        split = device_split(rows, "round_step", ("round_elect",
+                                                  "round_apply"))
+        log("[5mp] a round's device time: " + ", ".join(
+            f"{k} {v / n_rounds:.4f} ms ({100 * v / busy_ms:.1f} %)"
+            for k, v in split.items()))
+    del got
 
     # 4b. sparse_sync_mp through sparse_gather_mix -------------------------
     dispatch.reset_launch_counts()
@@ -959,7 +1028,8 @@ def main() -> int:
             for ms, key, count in rows[:10]:
                 log(f"[6b]   {ms:9.3f} ms  {count:6d} x  {key[:100]}")
             if "prefill" in what:
-                split = device_split(rows)
+                split = device_split(rows, "flash_attention",
+                                     ("flash_fwd",))
                 log("[6b] prefill device time: " + ", ".join(
                     f"{k} {v:.3f} ms ({100 * v / busy_ms:.1f} %)"
                     for k, v in split.items()))

@@ -36,17 +36,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points and their argument types (pointers, sizes, scalars,
-#: stream last).
+#: stream last for those that launch).
 SIGNATURES = {
     # A, theta, sol, b, out, n, D, stream
     "repro_graph_mix": (P, P, P, P, P, I, I, P),
     # table, idx, w, b, sol, order (or NULL), out, N, n, k, p, stream
     "repro_sparse_gather_mix": (P,) * 7 + (I,) * 4 + (P,),
-    # win, enc, tgt_row, m, n, k, stream
-    "repro_round_elect": (P, P, P, I, I, I, P),
     # theta, Ke, got_ever, msg, k_old, tgt_row, enc, theta_base, a_w,
-    # win, keep, m, n, k, p, stream
-    "repro_round_apply": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # words, keep, m, n, k, p, stream
+    "repro_round_step": (P,) * 11 + (I,) * 4 + (P,),
+    # k, p, out (int[2]): no stream, called directly, not through launch()
+    "repro_round_step_attrs": (I, I, P),
     # theta, K, Z_own, Z_nbr, L_own, L_nbr, pay_th, pay_K, pay_Lo, pay_Ln,
     # upd, own_s, oth_a, oth_s, stale, got, flags, E, k, p, rho, stream
     "repro_cl_edge_step": (P,) * 17 + (I, I, I, F, P),

@@ -13,7 +13,9 @@ image of the warm-start slots) and sets ``got_ever``.
 
 The CUDA kernel (``csrc/round_step.cu``) replaces the Pallas TPU
 megakernel ``repro/kernels/round_fuse.py::round_step_pallas``; the source
-note there gives its two launches, the winner rule and its bound.  It
+note there gives its two launches, the winner rule, its round-tagged
+election words (a persistent buffer per (n*k, device), :func:`round_words`,
+never filled again after it is made) and its bound.  It
 updates ``theta``, ``Ke`` and ``got_ever`` in place (the state lives in
 HBM with no size cap, and copying a multi-GB slot table every round would
 cost more than the round): callers use the returned tensors and do not
@@ -39,6 +41,8 @@ torch ops.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -157,6 +161,45 @@ def _check(theta, Ke, got_ever, msg, tgt_row, enc, k_old, theta_base, a_w):
             raise ValueError(f"round_step: {name} must be contiguous")
 
 
+def _buffer_key(nk: int, device):
+    """Registry key of an election buffer: (n*k, device with its index)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return nk, device
+
+
+#: The election words of ``round_step``'s kernel: one (n*k + 2,) int64
+#: buffer per (n*k, device), made zero once and never filled again.  Each
+#: call posts its winners under a tag one above the last call's (the tag is
+#: kept in the buffer's last two words), so words of earlier calls can
+#: neither win nor match.  Calls that share a buffer must run in stream
+#: order (the engine's do); a call that raises drops its buffer.
+_round_words = {}
+
+
+def round_words(nk: int, device) -> torch.Tensor:
+    """The kernel's (nk + 2,) int64 election buffer on ``device``, made
+    zero on first use."""
+    key = _buffer_key(nk, device)
+    if key not in _round_words:
+        # scatter: unique targets (one dict entry per key)
+        _round_words[key] = torch.zeros(nk + 2, dtype=torch.int64,
+                                        device=key[1])
+    return _round_words[key]
+
+
+def round_step_resources(k: int, p: int) -> dict:
+    """Registers and local memory bytes (spills included) per thread of the
+    apply kernel that :func:`round_step` launches for ``(k, p)``, as the
+    CUDA runtime reports them (``cudaFuncGetAttributes``)."""
+    out = (ctypes.c_int * 2)()
+    err = _build.library().repro_round_step_attrs(k, p, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"repro_round_step_attrs: CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1]}
+
+
 def round_step(theta, Ke, got_ever, msg, tgt_row, enc, k_old, theta_base,
                a_w):
     """One fused MP gossip round; updates ``theta``, ``Ke`` and
@@ -164,6 +207,9 @@ def round_step(theta, Ke, got_ever, msg, tgt_row, enc, k_old, theta_base,
     ``keep`` (2B,) bool the per-event winner mask.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
+    A call allocates only ``keep``: the election buffer
+    (:func:`round_words`) is made once per (n*k, device) and never filled
+    again.
     """
     global launches
     if theta.device.type == "cpu":
@@ -176,13 +222,17 @@ def round_step(theta, Ke, got_ever, msg, tgt_row, enc, k_old, theta_base,
     nk = Ke.shape[0]
     m = msg.shape[0]
     dev = theta.device
-    win = torch.full((nk,), -1, dtype=torch.int32, device=dev)
+    words = round_words(nk, dev)
     keep = torch.empty((m,), dtype=torch.bool, device=dev)
-    _build.launch("repro_round_elect", win.data_ptr(), enc.data_ptr(),
-                  tgt_row.data_ptr(), m, n, nk // n, device=dev)
     ptrs = [t.data_ptr() for t in (theta, Ke, got_ever, msg, k_old, tgt_row,
-                                   enc, theta_base, a_w, win, keep)]
-    _build.launch("repro_round_apply", *ptrs, m, n, nk // n, p, device=dev)
+                                   enc, theta_base, a_w, words, keep)]
+    try:
+        _build.launch("repro_round_step", *ptrs, m, n, nk // n, p,
+                      device=dev)
+    except RuntimeError:
+        # a launch that failed may leave this call's tag behind
+        _round_words.pop(_buffer_key(nk, dev), None)
+        raise
     launches += 1
     return theta, Ke, got_ever, keep
 
@@ -219,17 +269,10 @@ _CL_SIDES = ("upd", "own_s", "oth_a", "oth_s", "stale", "got")
 _cl_flags = {}
 
 
-def _flags_key(nk: int, device):
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return nk, device
-
-
 def cl_edge_flags(nk: int, device) -> torch.Tensor:
     """The kernel's (nk,) int32 election buffer on ``device`` (zero
     between calls), made on first use."""
-    key = _flags_key(nk, device)
+    key = _buffer_key(nk, device)
     if key not in _cl_flags:
         # scatter: unique targets (one dict entry per key)
         _cl_flags[key] = torch.zeros(nk, dtype=torch.int32, device=key[1])
@@ -294,7 +337,7 @@ def cl_edge_step(theta, K, Z_own, Z_nbr, L_own, L_nbr,
                       float(rho), device=theta.device)
     except RuntimeError:
         # a launch that failed may leave claimed words behind
-        _cl_flags.pop(_flags_key(n * k, theta.device), None)
+        _cl_flags.pop(_buffer_key(n * k, theta.device), None)
         raise
     cl_edge_launches += 1
     return Z_own, Z_nbr, L_own, L_nbr

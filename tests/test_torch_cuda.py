@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs (the tolerances of
 tests/test_torch_kernels.py; ``sparse_gather_mix`` bit for bit in any row
-order; ``cl_edge_step`` and ``admm_edge_update`` bit for bit, repeated
+order; ``round_step`` bit for bit in its fixed and generic kernels, over
+20 consecutive calls on one election buffer that no call refills or
+reallocates; ``cl_edge_step`` and ``admm_edge_update`` bit for bit, repeated
 targets included, and ``cl_edge_step`` on rounds built for each case of
 its edge election, with its election words zero after every call;
 ``flash_attention`` 1e-2 abs and rel in bf16, 1e-5 in float32), and a
@@ -151,7 +153,15 @@ def make_round(dev, n, k, p, m, seed, deliver_frac=0.7, seen_frac=0.5):
                                   dict(n=500, k=8, p=32, m=2000, seed=4,
                                        seen_frac=0.0),
                                   dict(n=17, k=3, p=4, m=10, seed=5,
-                                       deliver_frac=0.0)])
+                                       deliver_frac=0.0),
+                                  # the fixed (k <= 32, p = 32) kernels
+                                  dict(n=2000, k=18, p=32, m=4000, seed=6),
+                                  dict(n=60, k=32, p=32, m=900, seed=7),
+                                  dict(n=300, k=1, p=32, m=400, seed=8),
+                                  # the generic kernel: k > 32, p != 32
+                                  dict(n=30, k=40, p=9, m=700, seed=9),
+                                  dict(n=30, k=40, p=32, m=700, seed=10),
+                                  dict(n=30, k=40, p=33, m=700, seed=11)])
 def test_round_step_kernel(cuda, case):
     args = make_round(cuda, **case)
     clone = lambda: {k: v.clone() for k, v in args.items()}  # noqa: E731
@@ -170,6 +180,65 @@ def test_round_step_replay_is_bit_identical(cuda):
         ra = rf.round_step(*a.values())
         rb = rf.round_step(*b.values())
     assert all(torch.equal(x, y) for x, y in zip(ra, rb))
+
+
+def next_events(dev, n, k, p, m, seed):
+    """A fresh round's events (msg, tgt_row, enc, k_old) on a fixed state."""
+    ev = make_round(dev, n, k, p, m, seed)
+    return [ev[f] for f in ("msg", "tgt_row", "enc", "k_old")]
+
+
+@pytest.mark.parametrize("k,p", [(18, 32), (40, 9)])
+def test_round_step_consecutive_calls_on_one_buffer(cuda, k, p):
+    """20 rounds chained through one state and one election buffer, each
+    bit for bit with the plain version on the same round-start state: the
+    words earlier rounds left behind never count."""
+    n, m = 200, 600
+    args = make_round(cuda, n, k, p, m, seed=20)
+    state = [args["theta"], args["Ke"], args["got_ever"]]
+    fixed = (args["theta_base"], args["a_w"])
+    words = rf.round_words(n * k, cuda)
+    for t in range(20):
+        ev = next_events(cuda, n, k, p, m, seed=100 + t)
+        want = rf.round_step_plain(*(x.clone() for x in state), *ev, *fixed)
+        got = rf.round_step(*state, *ev, *fixed)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), t
+        state = list(got[:3])
+    assert rf.round_words(n * k, cuda) is words
+    assert words[n * k].item() == words[n * k + 1].item() >= 20   # tags
+
+
+def test_round_step_buffers_kept_apart_by_size(cuda):
+    """Two (n*k) sizes get two buffers, each reused by its own calls, and
+    interleaved calls of the two stay bit for bit."""
+    a = make_round(cuda, 50, 6, 32, 300, seed=30)
+    b = make_round(cuda, 70, 6, 32, 300, seed=31)
+    for r in range(3):
+        for args in (a, b):
+            want = rf.round_step_plain(*(v.clone() for v in args.values()))
+            got = rf.round_step(*args.values())
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), r
+    wa, wb = rf.round_words(300, cuda), rf.round_words(420, cuda)
+    assert wa.data_ptr() != wb.data_ptr()
+    assert wa.shape == (302,) and wb.shape == (422,)
+
+
+def test_round_step_allocates_only_keep(cuda):
+    """After its buffer exists, a call allocates nothing of size n*k: the
+    buffer stays where it was and the device's allocated bytes grow by
+    keep's m bytes at most."""
+    n, k, p, m = 4000, 18, 32, 2048            # m a multiple of 512 B
+    args = make_round(cuda, n, k, p, m, seed=40)
+    rf.round_step(*args.values())
+    ptr = rf.round_words(n * k, cuda).data_ptr()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = rf.round_step(*args.values())
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    assert rf.round_words(n * k, cuda).data_ptr() == ptr
+    assert grown <= m, grown
+    assert out[3].numel() == m
 
 
 @pytest.mark.parametrize("E,p,rho", [(1, 1, 1.0), (1000, 32, 0.7),
