@@ -29,7 +29,24 @@ JAX package.  Phases, in order — any failure exits non-zero:
       ``sparse_gather_mix``, every launch given the RCM order, against
       the plain path;
    c. ``synchronous`` on ``random_geometric_graph(2048, k=8)``, D = 4096,
-      100 steps through ``graph_mix``, against the plain path.
+      100 steps through ``graph_mix``, against the plain path;
+   f. the paper's async gossip (§3.2) on that graph, p = 32, 4,000 ticks
+      on wake-ups drawn once by a seeded ``torch.Generator``: the dense
+      ``async_gossip`` (Theta_tilde, 537 MB) and ``sparse_async_gossip``
+      bit for bit (theta_hist, and every live slot against its dense
+      knowledge cell); then ``sparse_async_gossip`` on the n = 1M
+      topology (20,000 ticks) finite; ticks/s of each;
+   g. joint graph learning (``algo="joint"``) on 4a's topology, models and
+      stream: ``eta_graph=0`` equal to 4a's per-op trace bit for bit;
+      the JAX benchmark's knobs (eta 0.3, lam 1.0, a graph step every 5
+      rounds, prune at 1e-3): learned weights non-negative and exactly 0
+      at dead slots, each row's mass in [1 - k * prune_eps, 1] (a prune
+      zeroes a weight without renormalising the row, as in the JAX
+      package), no pruned slot revived, the live-edge count never
+      rising, suppressed <= delivered, the stream counters equal to 4a's;
+      the last graph step on its inputs: projection rows summing to 1 and
+      the blend keeping the row's mass within 1e-5, ``edge_reweight`` on
+      the card within 1e-5 of the CPU; events/s beside 4a's per-op.
 5mp. where the time of a fused MP round goes: ``PROFILE_ROUNDS`` fused
      rounds under ``torch.profiler``, read on the device timeline from
      the first round's ``round_step`` to the last one's (no set-up): the
@@ -53,6 +70,16 @@ state is freed:
      launched once per round;
 4e.  ``dispatch.resolve("admm_edge", None, "cuda")`` once over every edge
      of the CL run's final state, against its plain version;
+4h.  CL-ADMM with the inexact primal: ``InexactPrimal(quadratic,
+     b_steps=None)`` (the B -> inf fixed point) within 1e-5 of 4d's exact
+     kernel run; ``b_steps=8`` on the same data and stream
+     (``INEXACT_ROUNDS`` rounds) with the kernel and the reference
+     backend: equal counters, theta_hist within 1e-5, ``cl_edge_step``
+     once per round; then federated moons at n = 20,000 with
+     ``MLPAgent(2, (8,))`` (p = 33, the kernel's generic-p path): 400
+     solitary AdamW steps, then 200 CL rounds of batch 2,000 with
+     ``InexactPrimal(logistic, b_steps=10, lr=0.1)``, kernel and reference
+     within 1e-5; mean test accuracies and events/s are readings;
 5.   where the time of a CL round goes: ``PROFILE_ROUNDS`` rounds of the
      kernel path under ``torch.profiler``, device time by operation and
      the device's busy share of the wall time (a reading, not a check).
@@ -113,6 +140,17 @@ N_DENSE, K_DENSE, D_DENSE, STEPS = 2048, 8, 4096, 100
 ALPHA, SEED = 0.9, 0
 MU, RHO = 0.1, 1.0          # CL-ADMM (the JAX benchmark's CL configuration)
 DEVICE = "cuda"
+# 4f: the paper's async gossip, one wake-up a tick
+GOSSIP_TICKS, GOSSIP_RECORD = 4_000, 500          # dense and sparse, n = 2048
+GOSSIP_TICKS_1M, GOSSIP_RECORD_1M = 20_000, 5_000  # sparse, n = 1M
+# 4g: the JAX benchmark's graph-learning knobs (bench_network_sim.py:91)
+JOINT_KW = dict(eta_graph=0.3, lam=1.0, graph_every=5, prune_eps=1e-3)
+# 4h: the inexact primal at n = 1M (rounds of the b_steps = 8 pair), and
+# federated moons with MLP agents at a larger n than the JAX acceptance
+# test's 24: the problem's generator loops over agents on the host
+INEXACT_ROUNDS, INEXACT_RECORD = 50, 25
+MOONS_N, MOONS_BATCH, MOONS_ROUNDS, MOONS_RECORD = 20_000, 2_000, 200, 100
+MOONS_SOLITARY_STEPS = 400
 
 # LM serving: Llama-3-8B at full width and depth
 LM_ARCH = "llama3-8b"
@@ -555,6 +593,266 @@ def profile_rounds(torch, run, tag):
     return (t1 - t0) / 1e3, sum(r[0] for r in rows), rows, len(marks) - 1
 
 
+def timed(torch, fn):
+    """``(fn(), host seconds)``, synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_async_gossip(torch, np, dev, g, topo, sol, c):
+    """4f. The paper's async gossip (§3.2): the dense engine (Theta_tilde,
+    n x n x p) and the exact sparse engine on ``g`` with the same
+    wake-ups, drawn once by a seeded ``torch.Generator``, must agree bit
+    for bit (theta_hist, and every live slot against its dense knowledge
+    cell); then the sparse engine on the n = 1M topology must stay
+    finite.  Returns a failure message or None."""
+    from repro_torch.core.model_propagation import async_gossip
+    from repro_torch.core.sparse import wakeups
+    from repro_torch.simulate import sparse_async_gossip
+    from repro_torch.simulate.topology import SparseTopology
+
+    n = g.n
+    rng = np.random.default_rng(SEED + 2)
+    sol_g = rng.standard_normal((n, P)).astype(np.float32)
+    c_g = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    topo_g = SparseTopology.from_graph(g)
+    draws = [np.array(a) for a in zip(*wakeups(n, topo_g.tables,
+                                               GOSSIP_TICKS, seed=SEED))]
+    kw = dict(record_every=GOSSIP_RECORD, draws=draws, device=dev)
+    dense, secs_d = timed(torch, lambda: async_gossip(
+        g, sol_g, c_g, ALPHA, GOSSIP_TICKS, **kw))
+    sparse, secs_s = timed(torch, lambda: sparse_async_gossip(
+        topo_g, sol_g, c_g, ALPHA, GOSSIP_TICKS, **kw))
+    tabs = topo_g.tables
+    rows, slots = (torch.as_tensor(a, device=dev) for a in np.nonzero(
+        np.arange(topo_g.k_max)[None, :] < tabs.deg_count[:, None]))
+    cols = torch.as_tensor(tabs.nbr_idx, device=dev).long()[rows, slots]
+    same_hist = torch.equal(dense.theta_hist, sparse.theta_hist)
+    same_slots = torch.equal(sparse.final_knowledge[rows, slots],
+                             dense.final_knowledge[rows, cols])
+    log(f"[4f] async gossip on random_geometric_graph({n}, k={K_DENSE}), "
+        f"p={P}: dense {GOSSIP_TICKS / secs_d:.4g} ticks/s "
+        f"(Theta_tilde {dense.final_knowledge.numel() * 4 / 1e6:.0f} MB), "
+        f"sparse {GOSSIP_TICKS / secs_s:.4g} ticks/s; theta_hist equal: "
+        f"{same_hist}, {rows.numel()} live slots equal to the dense "
+        f"knowledge: {same_slots}")
+    if not (same_hist and same_slots) \
+            or not torch.isfinite(sparse.theta_hist).all():
+        return "4f: sparse async gossip differs from the dense engine"
+    del dense, sparse
+    tr, secs = timed(torch, lambda: sparse_async_gossip(
+        topo, sol, c, ALPHA, GOSSIP_TICKS_1M, seed=SEED,
+        record_every=GOSSIP_RECORD_1M, device=dev))
+    moved = (tr.theta_hist[-1] - sol).abs().max().item()
+    log(f"[4f] sparse async gossip n={topo.n}: {GOSSIP_TICKS_1M} ticks in "
+        f"{secs:.3f} s = {GOSSIP_TICKS_1M / secs:.4g} ticks/s (host "
+        f"draws); max |theta - theta_sol| = {moved:.3g}")
+    if tr.theta_hist.shape != (GOSSIP_TICKS_1M // GOSSIP_RECORD_1M,
+                               topo.n, P) \
+            or not torch.isfinite(tr.theta_hist).all() or not moved > 0:
+        return "4f: the n = 1M sparse async gossip run"
+    return None
+
+
+def check_joint(torch, dispatch, dev, spec, per_op, per_op_rate):
+    """4g. Joint graph learning on the MP path's topology, models and
+    stream: at eta_graph = 0 it must equal 4a's per-op trace ``per_op``
+    bit for bit; with the JAX benchmark's knobs the learned weights must
+    be non-negative, exactly 0 at dead slots, with each row's mass within
+    the prune's bound below 1, the live mask and the live-edge count must
+    never grow, the voided deliveries must be a subset of the delivered
+    ones, and the stream counters must equal 4a's; the last graph step,
+    on its own inputs, must project onto the simplex and blend within
+    1e-5, and its ``edge_reweight`` on the card must agree with the CPU
+    within 1e-5.  Returns a failure message or None."""
+    from repro_torch.core.sparse import live_slots
+    from repro_torch.kernels import ref
+    from repro_torch.simulate import ScenarioSpec, run_scenario
+
+    spec = dict(spec, algo="joint")
+    counters = (per_op.delivered, per_op.dropped, per_op.invalid,
+                per_op.events)
+    tr, secs = timed(torch, lambda: run_scenario(ScenarioSpec(
+        **spec, eta_graph=0.0)))
+    same = torch.equal(tr.theta_hist, per_op.theta_hist)
+    log(f"[4g] joint, eta_graph=0: {tr.events / secs:.4g} events/s "
+        f"(4a per-op {per_op_rate:.4g}); theta_hist equal to 4a's per-op: "
+        f"{same}")
+    if not same or (tr.delivered, tr.dropped, tr.invalid, tr.events) \
+            != counters or tr.suppressed != 0:
+        return "4g: joint at eta_graph=0 is not 4a's per-op run"
+    del tr
+
+    plain = dispatch.resolve("edge_reweight", None, dev)
+    last = []
+
+    def capture(d, w, live, *, eta, lam):
+        last[:] = [d, w, live]                    # references, no copies
+        return plain(d, w, live, eta=eta, lam=lam)
+
+    dispatch.register("edge_reweight", "reference")(capture)
+    try:
+        tr, secs = timed(torch, lambda: run_scenario(ScenarioSpec(
+            **spec, **JOINT_KW)))
+    finally:
+        dispatch.register("edge_reweight", "reference")(plain)
+    w, live = tr.final_w, tr.final_live
+    tabs = spec["topology"].device_tables(dev)
+    k = tabs.nbr_idx.shape[1]
+    cand = live_slots(tabs.deg_count, k)
+    has = live.any(dim=1)
+    sums = w.sum(dim=1)[has]
+    edges = tr.live_edges_hist
+    steps = tr.rounds // JOINT_KW["graph_every"]
+    # a prune zeroes weights <= prune_eps without renormalising the row
+    # (as the JAX package does), and each later blend gives back a share
+    # eta of the deficit, so a row's mass lies in [1 - k * prune_eps, 1]
+    floor = 1.0 - k * JOINT_KW["prune_eps"]
+    log(f"[4g] joint, {JOINT_KW}: {tr.events / secs:.4g} events/s "
+        f"(4a per-op {per_op_rate:.4g}); {steps} graph steps; live "
+        f"edges {edges.tolist()} of {int(cand.sum())} candidates; row "
+        f"mass {sums.min().item():.7g} to {sums.max().item():.7g} (in "
+        f"[{floor:.4g}, 1 + 1e-5]); suppressed {tr.suppressed} of "
+        f"{tr.delivered} delivered")
+    if (w[~live] != 0).any() or (w < 0).any() \
+            or not sums.min().item() >= floor - 1e-5 \
+            or not sums.max().item() <= 1.0 + 1e-5:
+        return "4g: learned rows off the simplex"
+    if (live & ~cand).any() or (edges[1:] > edges[:-1]).any():
+        return "4g: a pruned slot revived"
+    if not 0 <= tr.suppressed <= tr.delivered \
+            or (tr.delivered, tr.dropped, tr.invalid, tr.events) \
+            != counters or not torch.isfinite(tr.theta_hist).all():
+        return "4g: learned run's counters"
+    del tr
+    # the last graph step, on its own inputs: its projection target is on
+    # the simplex, the blend keeps (1 - eta) of the row's mass and adds
+    # eta, and the card agrees with the CPU
+    d, w, live = last
+    eta, lam = JOINT_KW["eta_graph"], JOINT_KW["lam"]
+    has = live.any(dim=1)
+    target = ref.simplex_project_rows(-d / (2.0 * lam), live)
+    target_err = (target.sum(dim=1)[has] - 1.0).abs().max().item()
+    got = plain(d, w, live, eta=eta, lam=lam)
+    blend_err = (got.sum(dim=1) - ((1.0 - eta) * w.sum(dim=1) + eta))[has] \
+        .abs().max().item()
+    want = plain(d.cpu(), w.cpu(), live.cpu(), eta=eta, lam=lam)
+    got = got.cpu()
+    err = (got - want).abs().max().item()
+    support = int(((got > 0) != (want > 0)).sum())
+    log(f"[4g] the last graph step ({tuple(d.shape)}): projection rows' "
+        f"max |sum - 1| = {target_err:.3g}, blend's max |mass error| = "
+        f"{blend_err:.3g} (tol 1e-5 each); edge_reweight on the card vs "
+        f"the CPU max abs err {err:.3g} (tol 1e-5), {support} slots "
+        f"differ in support")
+    if not target_err <= 1e-5 or not blend_err <= 1e-5 \
+            or (target[~live] != 0).any():
+        return "4g: the graph step left the simplex"
+    if not err <= 1e-5:
+        return "4g: edge_reweight on the card disagrees with the CPU"
+    return None
+
+
+def cl_pair(torch, dispatch, run, label, rounds):
+    """Run a CL scenario with the kernel (auto) and with the reference
+    backend; check equal counters, theta_hist within 1e-5, finite, and
+    ``cl_edge_step`` launched once per round on the kernel run.  Returns
+    ``(kernel trace, events/s, failure message or None)``."""
+    ref_backend = dispatch.ReproBackend(default="reference")
+    traces, rates, launches = [], [], []
+    for backend in (None, ref_backend):
+        dispatch.reset_launch_counts()
+        tr, secs = timed(torch, lambda: run(backend))
+        launches.append(dispatch.launch_counts()["cl_edge_step"])
+        tr.final = None                      # the state is not used here
+        traces.append(tr)
+        rates.append(tr.events / secs)
+    ker, ref = traces
+    err = (ker.theta_hist - ref.theta_hist).abs().max().item()
+    log(f"[{label}] kernel {rates[0]:.4g} events/s, reference "
+        f"{rates[1]:.4g}; cl_edge_step launches {launches}; theta_hist "
+        f"kernel vs reference max |diff| = {err:.3g} (tol 1e-5)")
+    if launches != [rounds, 0] or not err <= 1e-5 \
+            or (ker.delivered, ker.dropped, ker.invalid) \
+            != (ref.delivered, ref.dropped, ref.invalid) \
+            or not torch.isfinite(ker.theta_hist).all():
+        return ker, rates[0], f"{label}: kernel vs reference CL run"
+    return ker, rates[0], None
+
+
+def check_inexact(torch, np, dispatch, dev, spec_cl, exact, exact_rate):
+    """4h. CL-ADMM with the inexact primal: the B -> inf quadratic solver
+    on 4d's data and stream against 4d's exact kernel run ``exact``;
+    ``b_steps=8`` with the kernel and the reference backend; then
+    federated moons with MLP agents (p = 33, ``cl_edge_step``'s generic-p
+    path), kernel and reference.  Returns a failure message or None."""
+    from repro_torch.core.primal import (InexactPrimal, flat_predictor,
+                                         solitary_adamw)
+    from repro_torch.data import federated_moons_problem, model_accuracy
+    from repro_torch.models import MLPAgent
+    from repro_torch.simulate import (NetworkConditions, ScenarioSpec,
+                                      precompute_event_stream, run_scenario)
+
+    tr, secs = timed(torch, lambda: run_scenario(ScenarioSpec(
+        **spec_cl, rounds=ROUNDS, record_every=RECORD,
+        primal=InexactPrimal(loss="quadratic", b_steps=None))))
+    tr.final = None
+    err = (tr.theta_hist - exact.theta_hist).abs().max().item()
+    log(f"[4h] InexactPrimal(quadratic, b_steps=None): {tr.events / secs:.4g}"
+        f" events/s (4d exact {exact_rate:.4g}); theta_hist vs 4d's exact "
+        f"run max |diff| = {err:.3g} (tol 1e-5)")
+    if not err <= 1e-5 or (tr.delivered, tr.dropped, tr.invalid) != \
+            (exact.delivered, exact.dropped, exact.invalid):
+        return "4h: the B -> inf anchor differs from the exact run"
+    del tr
+
+    inexact = InexactPrimal(loss="quadratic", b_steps=8, lr=0.05)
+    _, rate, bad = cl_pair(torch, dispatch, lambda backend: run_scenario(
+        ScenarioSpec(**spec_cl, rounds=INEXACT_ROUNDS,
+                     record_every=INEXACT_RECORD, primal=inexact,
+                     backend=backend)), "4h b_steps=8", INEXACT_ROUNDS)
+    log(f"[4h] b_steps=8 at n={spec_cl['topology'].n}: {rate:.4g} events/s"
+        f" against 4d's exact {exact_rate:.4g} ({rate / exact_rate:.3g}x)")
+    if bad:
+        return bad
+
+    (mtopo, train, tx, ty), gen_s = timed(torch, lambda: (
+        federated_moons_problem(n=MOONS_N, seed=SEED, device=dev)))
+    model = MLPAgent(in_dim=2, hidden=(8,))
+    pred = flat_predictor(model)
+    sol, sol_s = timed(torch, lambda: solitary_adamw(
+        train, loss="logistic", model=model, steps=MOONS_SOLITARY_STEPS,
+        seed=SEED))
+    acc_sol = float(model_accuracy(sol, pred, tx, ty).mean())
+    cond = NetworkConditions()
+    stream = precompute_event_stream(
+        mtopo.device_tables(dev), torch.as_tensor(mtopo.partition_halves()),
+        cond, MOONS_BATCH, SEED, MOONS_ROUNDS, device=dev)
+    primal = InexactPrimal(loss="logistic", model=model, b_steps=10, lr=0.1)
+    ker, rate, bad = cl_pair(torch, dispatch, lambda backend: run_scenario(
+        ScenarioSpec(algo="cl", topology=mtopo, data=train, mu=0.5, rho=0.2,
+                     conditions=cond, rounds=MOONS_ROUNDS,
+                     batch=MOONS_BATCH, seed=SEED,
+                     record_every=MOONS_RECORD, theta_sol=sol,
+                     stream=stream, primal=primal, backend=backend,
+                     device=dev)), "4h moons", MOONS_ROUNDS)
+    acc = float(model_accuracy(ker.theta_hist[-1], pred, tx, ty).mean())
+    log(f"[4h] federated moons n={MOONS_N}, MLPAgent(2, (8,)) p="
+        f"{sol.shape[1]}: generator {gen_s:.2f} s on the host, solitary "
+        f"AdamW ({MOONS_SOLITARY_STEPS} steps) {sol_s:.2f} s; mean test "
+        f"accuracy solitary {acc_sol:.4f}, collaborative {acc:.4f} "
+        f"(a reading); CL {rate:.4g} events/s")
+    if bad:
+        return bad
+    if ker.theta_hist.shape != (MOONS_ROUNDS // MOONS_RECORD, MOONS_N,
+                                model.flattener().dim):
+        return f"4h: moons theta_hist {tuple(ker.theta_hist.shape)}"
+    return None
+
+
 def main() -> int:
     import torch
 
@@ -687,7 +985,7 @@ def main() -> int:
     spec = dict(algo="mp", topology=topo, conditions=cond, rounds=ROUNDS,
                 batch=BATCH, seed=SEED, record_every=RECORD, theta_sol=sol,
                 c=c, alpha=ALPHA, stream=stream, device=dev)
-    runs, counts = {}, {}
+    runs, counts, rates = {}, {}, {}
     for name, backend in (("fused", dispatch.ReproBackend()),
                           ("per-op", None)):
         dispatch.reset_launch_counts()
@@ -698,6 +996,7 @@ def main() -> int:
         secs = time.perf_counter() - t0
         counts[name] = dispatch.launch_counts()
         runs[name] = tr
+        rates[name] = tr.events / secs
         log(f"[4a] {name}: {tr.rounds} rounds, {tr.events} events in "
             f"{secs:.3f} s = {tr.events / secs:.4g} events/s; "
             f"delivered={tr.delivered} dropped={tr.dropped} "
@@ -724,7 +1023,7 @@ def main() -> int:
         f"(tol 1e-5); max |theta - theta_sol| = {moved:.3g}")
     if not hist_err <= 1e-5 or not moved > 0:
         return fail("fused trajectory disagrees with the per-op one")
-    del runs, fu, po
+    del runs, fu                  # 4g holds joint learning against ``po``
 
     # 5mp. where a fused MP round's time goes (a reading; nothing is
     # checked): the device timeline from round 0's round_step to the last
@@ -786,8 +1085,18 @@ def main() -> int:
     if counts["synchronous"]["graph_mix"] != STEPS or not err <= 1e-5 \
             or not torch.isfinite(got).all():
         return fail("synchronous path")
+    del got, want, graph_inputs, sol_dense, P_dense, A_mix
 
-    del got, want, graph_inputs, sol_dense, P_dense, A_mix, sol, c, w, b
+    # 4f. the paper's async gossip, dense and sparse ------------------------
+    bad = check_async_gossip(torch, np, dev, g, topo, sol, c)
+    if bad:
+        return fail(bad)
+
+    # 4g. joint graph learning on the MP path -----------------------------
+    bad = check_joint(torch, dispatch, dev, spec, po, rates["per-op"])
+    if bad:
+        return fail(bad)
+    del po, sol, c, w, b
 
     # 2cl. CL-ADMM data ----------------------------------------------------
     rng_cl = np.random.default_rng(SEED + 1)
@@ -846,7 +1155,7 @@ def main() -> int:
     log("[3cl] both CL kernels agree with their plain versions bit for bit")
 
     # 4d. the CL scenario path: kernel (auto) and reference ---------------
-    cl_runs = {}
+    cl_runs, cl_rates = {}, {}
     for name, backend in (("cl-kernel", None),
                           ("cl-reference",
                            dispatch.ReproBackend(default="reference"))):
@@ -859,6 +1168,7 @@ def main() -> int:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts[name] = dispatch.launch_counts()
+        cl_rates[name] = tr.events / secs
         log(f"[4d] {name}: {tr.rounds} rounds, {tr.events} events in "
             f"{secs:.3f} s = {tr.events / secs:.4g} events/s; "
             f"delivered={tr.delivered} dropped={tr.dropped} "
@@ -909,6 +1219,12 @@ def main() -> int:
             or not finite:
         return fail("admm_edge path")
     del slabs, out, want
+
+    # 4h. CL-ADMM with the inexact primal ----------------------------------
+    bad = check_inexact(torch, np, dispatch, dev, spec_cl, ck,
+                        cl_rates["cl-kernel"])
+    if bad:
+        return fail(bad)
 
     # 5. where a CL round's time goes (a reading; nothing is checked) ----
     wall_ms, busy_ms, rows = profile_device(torch, lambda: run_scenario(

@@ -3,7 +3,8 @@
 Each function takes the JAX side's arrays (anything ``np.asarray`` reads:
 numpy arrays, or JAX arrays, which convert to numpy) and returns the
 port's tensors on a given device (CUDA when None): the simulator's tables,
-streams, models and states, and an LM's parameter tree.  Objects are read by
+streams, models and states, agents' flat parameter rows, and an LM's
+parameter tree.  Objects are read by
 field name only, so this module imports nothing of ``repro``.
 """
 
@@ -20,6 +21,7 @@ from repro_torch.core.losses import AgentData
 from repro_torch.core.sparse import DeviceTables, to_device
 from repro_torch.simulate.engines import SparseADMMState
 from repro_torch.simulate.scheduler import EventStream
+from repro_torch.tree import tree_leaves
 
 
 def tables_from_arrays(tables, device=None) -> DeviceTables:
@@ -82,6 +84,24 @@ def admm_state_from_arrays(state, device=None):
     cls = ADMMState if hasattr(state, "T") else SparseADMMState
     return cls(*(_f32(getattr(state, f.name), device)
                  for f in dataclasses.fields(cls)))
+
+
+def agent_rows_from_arrays(params, device=None) -> torch.Tensor:
+    """Agents' flat parameter rows as an (n, p) float32 tensor.
+
+    ``params`` is an (n, p) array of rows (e.g. the JAX package's
+    ``solitary_adamw`` output) or an agent-stacked parameter tree (dicts,
+    tuples and lists of arrays with a leading agent axis, e.g. a
+    ``jax.vmap`` of an agent's ``init``), flattened per agent with the
+    leaves in ``jax.tree_util``'s order — the layout of
+    ``models.flatten.ParamFlattener``.
+    """
+    device = resolve_device(device)
+    leaves = [np.asarray(leaf, np.float32) for leaf in tree_leaves(params)]
+    n = leaves[0].shape[0]
+    return torch.as_tensor(np.concatenate([leaf.reshape(n, -1)
+                                           for leaf in leaves], axis=1),
+                           device=device)
 
 
 def _flat(tree, prefix=""):

@@ -40,8 +40,8 @@ from repro_torch.kernels.dispatch import ReproBackend
 from .graph import Graph
 from .losses import LOSSES, AgentData, local_stats
 from .sparse import (admm_edge_halfstep, padded_neighbor_tables,
-                     quadratic_primal_core, record_chunks, sample_event,
-                     to_device)
+                     quadratic_primal_core, record_chunks, to_device,
+                     wakeups)
 
 
 def cl_objective(theta, W, mu, loss_fn, data: AgentData):
@@ -265,12 +265,9 @@ def async_admm(graph: Graph, data: AgentData, mu: float, rho: float,
     primal = _make_primal(tabs, W, D, mask, mu, rho, data, loss, k_steps,
                           lr, backend)
     record_every, n_rec = record_chunks(steps, record_every)
-    gen = torch.Generator().manual_seed(seed) if draws is None else None
     hist = []
-    for t in range(n_rec * record_every):
-        i, s = sample_event(n, host.slot_cdf, host.deg_count, generator=gen,
-                            draw=None if draws is None
-                            else (draws[0][t], draws[1][t]))
+    for t, (i, s) in enumerate(wakeups(n, host, n_rec * record_every, seed,
+                                       draws)):
         if host.deg_count[i] > 0:
             j = int(host.nbr_idx[i, s])
             primal(st, i)

@@ -1,6 +1,5 @@
 """Padded per-agent datasets, local losses, solitary models and
-confidences (paper Eq. 1, §3.1; counterpart of ``repro.core.losses``
-without ``guarded_loss``).
+confidences (paper Eq. 1, §3.1; counterpart of ``repro.core.losses``).
 
 Datasets are padded to a common max size with a mask, so the whole agent
 population is processed as one batch (agents have widely varying m_i by
@@ -102,6 +101,49 @@ def masked_sum(vals, mask):
     """Sum ``vals`` over live rows with an exact-zero pad contribution (the
     ``where`` also zeroes the pads' gradient)."""
     return torch.sum(torch.where(mask > 0, vals, 0.0))
+
+
+def guarded_loss(loss: str, predict_fn=None):
+    """The guarded local loss ``l(theta; x, y, mask)`` the inexact primal
+    differentiates (DESIGN.md §18).
+
+    The double-where pattern: pad rows of ``x``/``y`` are replaced with
+    zeros *before* the model runs and the per-sample losses are masked
+    *after*, so padding contributes an exactly-zero value and gradient
+    under ``torch.autograd`` even when the pads hold NaN or Inf.
+
+    ``predict_fn(theta, x) -> (m,)`` scores a batch with a flat parameter
+    row (e.g. ``core.primal.flat_predictor(model)``); ``None`` means the
+    linear model ``x @ theta`` for hinge/logistic and mean estimation
+    (theta is the model) for quadratic.
+    """
+    if loss == "quadratic":
+        if predict_fn is not None:
+            raise ValueError("quadratic loss is mean estimation — theta is "
+                             "the model; it takes no predict_fn")
+
+        def quadratic(theta, x, y, mask):
+            """Guarded ``sum_j mask_j ||theta - x_j||^2``."""
+            xs = torch.where(mask[:, None] > 0, x, 0.0)
+            r = theta[None, :] - xs
+            return masked_sum(torch.sum(r * r, dim=-1), mask)
+        return quadratic
+    if loss not in ("hinge", "logistic"):
+        raise ValueError(f"unknown loss {loss!r}; one of {tuple(LOSSES)}")
+    hinge = loss == "hinge"
+
+    def margin_loss(theta, x, y, mask):
+        """Guarded hinge / logistic loss of the model's scores."""
+        xs = torch.where(mask[:, None] > 0, x, 0.0)
+        ys = torch.where(mask > 0, y, 0.0)
+        f = xs @ theta if predict_fn is None else predict_fn(theta, xs)
+        z = ys * f
+        zero = torch.zeros_like(z)
+        # maximum, not clamp: at a tie its subgradient is 1/2, as in JAX
+        vals = torch.maximum(zero, 1.0 - z) if hinge \
+            else torch.logaddexp(zero, -z)
+        return masked_sum(vals, mask)
+    return margin_loss
 
 
 def total_loss(loss_fn, theta_all, data: AgentData):

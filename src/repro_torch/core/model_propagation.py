@@ -1,17 +1,23 @@
-"""Model Propagation (paper §3): the Prop. 1 closed form and the Eq. 5
-synchronous iteration (counterpart of ``repro.core.model_propagation``).
+"""Model Propagation (paper §3): the Prop. 1 closed form, the Eq. 5
+synchronous iteration and the asynchronous gossip algorithm (counterpart
+of ``repro.core.model_propagation``).
 
-Both solve  Q_MP(Theta) =
+All three solve  Q_MP(Theta) =
     1/2 ( sum_{i<j} W_ij ||theta_i - theta_j||^2
           + mu sum_i D_ii c_i ||theta_i - theta_i^sol||^2 ):
 
-* ``closed_form``  — Prop. 1:  Theta* = abar (I - abar(I-C) - a P)^{-1} C Theta_sol
-* ``synchronous``  — fixed-point iteration Eq. (5), one ``mix`` op a step
-                     (the ``graph_mix`` CUDA kernel on the card)
+* ``closed_form``   — Prop. 1:  Theta* = abar (I - abar(I-C) - a P)^{-1} C Theta_sol
+* ``synchronous``   — fixed-point iteration Eq. (5), one ``mix`` op a step
+                      (the ``graph_mix`` CUDA kernel on the card)
+* ``async_gossip``  — the paper's asynchronous gossip algorithm (§3.2),
+                      one wake-up a tick on the full Theta_tilde (n, n, p)
+                      state; ``simulate.engines.sparse_async_gossip``
+                      equals it bit for bit over O(n k p) slot state
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -21,6 +27,8 @@ from repro_torch import resolve_device
 from repro_torch.kernels.dispatch import ReproBackend, resolve
 
 from .graph import Graph
+from .sparse import (agent_model_update, padded_neighbor_tables,
+                     record_chunks, wakeups)
 
 
 def mp_mix_operator(P_rows, c, alpha):
@@ -97,3 +105,73 @@ def label_propagation(graph: Graph, labels, alpha: float,
                       device=None) -> torch.Tensor:
     """Zhou et al. (2004) — the C = I special case (paper §3.1 remark)."""
     return closed_form(graph, labels, np.ones(graph.n), alpha, device=device)
+
+
+@dataclasses.dataclass
+class AsyncTrace:
+    """Result of the async gossip simulation.
+
+    theta_hist: (n_records, n, p) — each agent's own model over time
+    comms_hist: (n_records,)      — cumulative pairwise communications
+    final_knowledge: (n, n, p)    — the full Theta_tilde at the end
+    """
+
+    theta_hist: torch.Tensor
+    comms_hist: np.ndarray
+    final_knowledge: torch.Tensor
+
+
+def async_gossip(graph: Graph, theta_sol, c, alpha: float, steps: int,
+                 seed: int = 0, record_every: int = 100, theta0=None,
+                 draws=None, backend: Optional[ReproBackend] = None,
+                 device=None) -> AsyncTrace:
+    """The asynchronous gossip MP algorithm (paper §3.2) on ``device``
+    (CUDA when None).
+
+    The state is Theta_tilde (n, n, p): T[i, j] is agent i's knowledge of
+    agent j's model, warm-started with the solitary models wherever i
+    knows j (itself and its neighbors), or ``theta0``.  One tick = one
+    wake-up (agent i, neighbor slot s, neighbor j ~ pi_i uniform over
+    N_i): i and j exchange their current models, then both recompute
+    theta by Eq. (6) — 2 pairwise communications.  ``draws = (i_seq,
+    s_seq)`` gives the wake-ups (e.g. the JAX package's); otherwise a
+    ``torch.Generator`` seeded with ``seed`` draws them.  A degree-0 waker
+    is a no-op.  The horizon is floored to whole ``record_every`` chunks
+    (``core.sparse.record_chunks``).
+    """
+    device = resolve_device(device)
+    n = graph.n
+    sol = _tensor(theta_sol, device).reshape(n, -1)
+    p = sol.shape[1]
+    host = padded_neighbor_tables(graph)
+    nbr_p = torch.as_tensor(host.nbr_p, device=device)
+    idx = torch.as_tensor(host.nbr_idx, device=device).long()
+    c = _tensor(c, device)
+    if theta0 is None:
+        knows = torch.as_tensor((np.asarray(graph.W) > 0)
+                                | np.eye(n, dtype=bool), device=device)
+        T = torch.where(knows[:, :, None], sol[None].expand(n, n, p), 0.0)
+    else:
+        T = _tensor(theta0, device).reshape(n, n, p).clone()
+    own = T.diagonal(dim1=0, dim2=1)                   # (p, n) view
+
+    def update(l):
+        return agent_model_update(l, nbr_p, T[l][idx[l]], c, sol, alpha,
+                                  backend)
+
+    record_every, n_rec = record_chunks(steps, record_every)
+    hist = []
+    for t, (i, s) in enumerate(wakeups(n, host, n_rec * record_every,
+                                       seed, draws)):
+        if host.deg_count[i] > 0:          # a degree-0 waker is a no-op
+            j = int(host.nbr_idx[i, s])
+            # communication step: exchange current self-models
+            T[i, j] = T[j, j]  # scatter: unique target — one (i, j) cell
+            T[j, i] = T[i, i]  # scatter: unique target — one (j, i) cell
+            # update step for both endpoints, i first
+            T[i, i] = update(i)  # scatter: unique target — one cell
+            T[j, j] = update(j)  # scatter: unique target — one cell
+        if (t + 1) % record_every == 0:
+            hist.append(own.T.clone())
+    comms = 2 * record_every * (np.arange(n_rec) + 1)
+    return AsyncTrace(torch.stack(hist), comms, T)

@@ -55,6 +55,24 @@ class NeighborTables(NamedTuple):
         """Padded slot count (max degree over agents)."""
         return self.nbr_idx.shape[1]
 
+    def with_weights(self, nbr_w_new: np.ndarray) -> "NeighborTables":
+        """New tables carrying updated per-slot weights (time-varying
+        graphs, DESIGN.md §13).
+
+        The candidate structure (``nbr_idx``, ``rev_slot``, ``deg_count``
+        and the uniform wake-up cdf ``slot_cdf``) stays frozen, which keeps
+        the event process replayable; ``nbr_w``, ``nbr_p`` and ``deg_w``
+        are recomputed from ``nbr_w_new`` (dead slots zeroed; zero-degree
+        rows get an all-zero stochastic row).
+        """
+        live = np.arange(self.k_max)[None, :] < self.deg_count[:, None]
+        w = np.where(live, np.asarray(nbr_w_new, np.float64), 0.0)
+        deg_w = w.sum(axis=1)
+        nbr_p = np.where(live, w / np.where(deg_w > 0, deg_w, 1.0)[:, None],
+                         0.0)
+        return self._replace(nbr_w=w.astype(np.float32),
+                             nbr_p=nbr_p.astype(np.float32), deg_w=deg_w)
+
 
 def constant_row_sums(deg_count: np.ndarray, weight: float) -> np.ndarray:
     """Per-row float64 sums of ``deg_count[i]`` copies of ``weight``, each
@@ -227,6 +245,19 @@ def sample_event(n: int, slot_cdf, deg_count, *, draw=None,
     return i, max(min(s, deg - 1), 0)
 
 
+def wakeups(n: int, tables, steps: int, seed: int = 0, draws=None):
+    """The wake-ups ``(i, s)`` of the exact engines, one a tick, as python
+    ints (``sample_event`` over the host tables' ``slot_cdf`` and
+    ``deg_count``): ``draws = (i_seq, s_seq)`` gives them (e.g. the JAX
+    package's, replayed with its key schedule); otherwise a
+    ``torch.Generator`` seeded with ``seed`` draws them."""
+    gen = torch.Generator().manual_seed(seed) if draws is None else None
+    for t in range(steps):
+        yield sample_event(n, tables.slot_cdf, tables.deg_count,
+                           generator=gen, draw=None if draws is None
+                           else (draws[0][t], draws[1][t]))
+
+
 def record_chunks(steps: int, record_every: int) -> tuple:
     """The recording policy for chunked engines (``repro.core.sparse``).
 
@@ -260,6 +291,16 @@ def batched_model_update(nbr_p_rows, K_rows, c_rows, sol_rows, alpha,
     abar = 1.0 - alpha
     return (alpha * agg + abar * c_rows[:, None] * sol_rows) \
         / (alpha + abar * c_rows)[:, None]
+
+
+def agent_model_update(l: int, nbr_p, slots, c, sol, alpha,
+                       backend: Optional[ReproBackend] = None):
+    """Eq. (6) for one agent ``l`` from its (k, p) knowledge ``slots`` of
+    its neighbors: :func:`batched_model_update` on a batch of one row, the
+    one update the dense and the sparse exact gossip engines share (so
+    they agree bit for bit)."""
+    return batched_model_update(nbr_p[l:l + 1], slots[None], c[l:l + 1],
+                                sol[l:l + 1], alpha, backend)[0]
 
 
 def personalized_predict(theta_rows, x_rows):

@@ -1,13 +1,14 @@
 """Synthetic problems of the paper's experiments (counterpart of
-``repro.data.synthetic``, without the LM streams and federated moons).
+``repro.data.synthetic``, without the LM streams).
 
 The numpy draws are exactly those of the JAX package from the same seed:
 ``mean_estimation_problem`` (§5.1: two-moons auxiliary information,
 N(+-1, 40) sample streams, c_i ~ U(1/2 +- eps/2), m_i = round(100 c_i)),
 ``two_cluster_mean_problem`` (two planted clusters of agents with
-opposite mean targets) and ``linear_classification_problem`` (§5.2:
+opposite mean targets), ``linear_classification_problem`` (§5.2:
 target models in a 2-D subspace of R^p, angular-kernel graph,
-m_i ~ U{1..20}, 5% label flips).
+m_i ~ U{1..20}, 5% label flips) and ``federated_moons_problem``
+(per-cluster nonlinear two-moons boundaries for the nonlinear agents).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from repro_torch.core.graph import (angular_kernel_graph,
                                     gaussian_kernel_graph,
                                     knn_graph_from_similarity, two_moons)
 from repro_torch.core.losses import AgentData, pad_datasets
+from repro_torch.simulate.topology import planted_partition_topology
 
 
 def mean_estimation_problem(n: int = 300, eps: float = 1.0,
@@ -104,3 +106,73 @@ def accuracy(theta_all, data: AgentData) -> np.ndarray:
     pred = np.sign(np.einsum("nmp,np->nm", x, theta))
     correct = (pred == y) * mask
     return correct.sum(1) / np.maximum(mask.sum(1), 1)
+
+
+# ---------------------------------------------------------------------------
+# Nonlinear personalized boundaries — federated two moons (DESIGN.md §18)
+# ---------------------------------------------------------------------------
+
+
+def federated_moons_problem(n: int = 24, n_clusters: int = 2,
+                            m_lo: int = 3, m_hi: int = 8,
+                            noise: float = 0.15, n_test: int = 256,
+                            seed: int = 0, k_intra: int = 4,
+                            k_inter: int = 1, device=None):
+    """Per-cluster nonlinear decision boundaries for the inexact-primal
+    experiment: tiny local samples of a two-moons boundary that only
+    collaboration can resolve.
+
+    Cluster ``c``'s points are the two-moons problem rotated by
+    ``pi c / n_clusters`` about the moons' centroid, with the labels of
+    odd clusters flipped; each agent draws ``m_i ~ U{m_lo..m_hi}``
+    training points from its cluster's distribution.  The candidate graph
+    is ``planted_partition_topology`` (intra-cluster ring and links,
+    ``k_inter`` cross-cluster links per agent).  The numpy draws are the
+    JAX package's, in its order, so the arrays equal its arrays.
+
+    Returns ``(topo, train, test_x, test_y)``: a SparseTopology, the
+    padded train AgentData on ``device`` (CUDA when None; labels in
+    {-1, +1}), and numpy per-agent test sets ``test_x (n, n_test, 2)``,
+    ``test_y (n, n_test)`` from each agent's own cluster.  The loop over
+    agents runs on the host.
+    """
+    rng = np.random.default_rng(seed)
+    topo = planted_partition_topology(n, n_clusters=n_clusters,
+                                      k_intra=k_intra, k_inter=k_inter,
+                                      seed=seed)
+    center = np.array([0.5, 0.25])
+
+    def sample(ci, m, sub_seed):
+        pts, labels = two_moons(m, noise=noise, seed=sub_seed)
+        ang = np.pi * ci / n_clusters
+        rot = np.array([[np.cos(ang), -np.sin(ang)],
+                        [np.sin(ang), np.cos(ang)]])
+        pts = (pts - center) @ rot.T
+        y = np.where(labels == 0, 1.0, -1.0)
+        return pts, (-y if ci % 2 else y)
+
+    m_i = rng.integers(m_lo, m_hi + 1, n)
+    xs, ys, tx, ty = [], [], [], []
+    for i in range(n):
+        ci = int(topo.groups[i])
+        pts, y = sample(ci, int(m_i[i]), int(rng.integers(2 ** 31)))
+        xs.append(pts)
+        ys.append(y)
+        pts_t, y_t = sample(ci, n_test, int(rng.integers(2 ** 31)))
+        tx.append(pts_t)
+        ty.append(y_t)
+    return (topo, pad_datasets(xs, ys, device=device),
+            np.stack(tx).astype(np.float32), np.stack(ty).astype(np.float32))
+
+
+def model_accuracy(theta_all, predict_fn, x, y) -> np.ndarray:
+    """(n,) per-agent accuracy of flat-row models under a score function,
+    as numpy: ``predict_fn(theta (p,), x (m, q)) -> (m,)`` scores whose
+    sign is the predicted ±1 label (e.g. ``core.primal.flat_predictor``),
+    vmapped over theta_all (n, p) and x (n, m, q) on theta_all's device;
+    y (n, m)."""
+    theta = torch.as_tensor(theta_all, dtype=torch.float32)
+    x = torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                        device=theta.device)
+    scores = torch.func.vmap(predict_fn)(theta, x).cpu().numpy()
+    return (np.sign(scores) == np.sign(np.asarray(y))).mean(axis=1)

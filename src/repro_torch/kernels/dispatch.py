@@ -1,11 +1,12 @@
-"""Backend dispatch for the model-propagation, CL-ADMM and LM serving hot
-paths (counterpart of ``repro.kernels.dispatch``, slimmed to this port's
-ops and impls).
+"""Backend dispatch for the model-propagation, CL-ADMM, graph-learning
+and LM serving hot paths (counterpart of ``repro.kernels.dispatch``,
+slimmed to this port's ops and impls).
 
 A registry keyed by
 
     op   ∈ {mix, sparse_mix, round_step, neighbor_aggregate, admm_primal,
-            admm_edge, cl_edge_step, attention}
+            admm_primal_inexact, admm_edge, cl_edge_step, edge_reweight,
+            attention}
     impl ∈ {reference, cuda}
 
 maps to callables; ``resolve(op, backend, device)`` returns the one a call
@@ -14,8 +15,9 @@ also each kernel module's plain version), ``cuda`` the hand-written Hopper
 kernel.  Selection:
 
 * **auto** (the default): ``cuda`` for a CUDA device where the op has a
-  kernel, ``reference`` otherwise (CPU tensors, or ``neighbor_aggregate``
-  and ``admm_primal``, which have no kernel).
+  kernel, ``reference`` otherwise (CPU tensors, or ``neighbor_aggregate``,
+  ``admm_primal``, ``admm_primal_inexact`` and ``edge_reweight``, which
+  have no TPU kernel to port and run as torch ops).
 * per-op **overrides** via :class:`ReproBackend`; asking for ``cuda`` on a
   non-CUDA device raises :class:`BackendUnavailable` — nothing falls back
   silently.
@@ -40,6 +42,12 @@ Canonical signatures (shared by every impl of an op):
     admm_primal: (w (...,k), live (...,k) bool, z_own, z_nbr, l_own,
                   l_nbr (...,k,p), D (...), m (...), sx (...,p), mu, rho)
                  -> (theta (...,p), theta_js (...,k,p))
+    admm_primal_inexact: (w (...,k), live (...,k) bool, z_own, z_nbr,
+                  l_own, l_nbr (...,k,p), D (...), x (...,m,q), y (...,m),
+                  mask (...,m), theta0 (...,p), mu, rho, *, loss_fn,
+                  b_steps, opt) -> (theta (...,p), theta_js (...,k,p));
+                 batched over the leading axes (the JAX op is rowwise,
+                 under vmap)
     admm_edge:  (t_ii, t_ji, t_jj, t_ij, l_own_i, l_nbr_j_of_i, l_own_j,
                  l_nbr_i_of_j (E,p), *, rho) -> (z_i, z_j, and the four
                  updated duals, each (E,p))
@@ -49,6 +57,8 @@ Canonical signatures (shared by every impl of an op):
                   -> (Z_own, Z_nbr, L_own, L_nbr); both impls update the
                   four arrays in place and return them; the kernel takes
                   E = 2B sides in event pairs (side b + B mirrors side b)
+    edge_reweight: (d (...,k), w (...,k), live (...,k) bool, *, eta, lam)
+                   -> (...,k)
     attention:  (q (B,S,H,hd), k (B,S,K,hd), v (B,S,K,hd), *, window=None)
                 -> (B,S,H,hd), causal; K | H and query head h reads kv
                 head h // (H // K) (``jnp.repeat`` of the kv heads)
@@ -172,9 +182,11 @@ register("round_step", "reference")(ref.gossip_round_step)
 register("round_step", "cuda")(_rf.round_step)
 register("neighbor_aggregate", "reference")(ref.neighbor_aggregate)
 register("admm_primal", "reference")(ref.quadratic_primal)
+register("admm_primal_inexact", "reference")(ref.inexact_primal)
 register("admm_edge", "reference")(ref.admm_edge_update)
 register("admm_edge", "cuda")(_au.admm_edge_update)
 register("cl_edge_step", "reference")(ref.cl_edge_step)
 register("cl_edge_step", "cuda")(_rf.cl_edge_step)
+register("edge_reweight", "reference")(ref.edge_reweight)
 register("attention", "reference")(ref.flash_attention)
 register("attention", "cuda")(_fa.flash_attention)

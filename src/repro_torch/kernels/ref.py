@@ -1,9 +1,10 @@
 """Plain-PyTorch twins of the JAX package's oracles (``repro.kernels.ref``)
 for the ops of the model-propagation path (``graph_mix``,
 ``sparse_gather_mix``, ``neighbor_aggregate``, ``gossip_round_step``) and
-of the CL-ADMM path (``quadratic_primal``, ``admm_edge_halfstep``,
-``admm_edge_update``, ``cl_edge_step``), and ``flash_attention`` for the
-LM serving path.
+of the CL-ADMM path (``quadratic_primal``, ``inexact_primal``,
+``admm_edge_halfstep``, ``admm_edge_update``, ``cl_edge_step``), of joint
+graph learning (``simplex_project_rows``, ``edge_reweight``), and
+``flash_attention`` for the LM serving path.
 
 They are the ``reference`` implementations of ``kernels.dispatch`` and the
 one plain version of each CUDA kernel (the kernel modules import them as
@@ -18,6 +19,8 @@ so it rounds as the kernels' ``__fdiv_rn`` does.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.optim.adamw import adamw_rows
 
 
 def graph_mix(theta, theta_sol, A, b):
@@ -143,6 +146,67 @@ def quadratic_primal(w, live, z_own_s, z_nbr_s, l_own_s, l_nbr_s, D_l, m_l,
     return theta_l, theta_js
 
 
+def inexact_primal(w, live, z_own_s, z_nbr_s, l_own_s, l_nbr_s, D_l,
+                   x, y, mask, theta0, mu, rho, *, loss_fn, b_steps, opt):
+    """Inexact CL-ADMM primal: ``b_steps`` AdamW steps on the *reduced*
+    local Lagrangian (DiNNO-style; DESIGN.md §18), over a batch of R
+    agents' slot rows — the ``admm_primal_inexact`` op.
+
+    The neighbor copies are eliminated in closed form each step,
+    ``theta_js(theta) = (w theta + rho z_nbr - l_nbr) / (w + rho)``, so the
+    optimizer sees, per row,
+
+        F(theta) = mu D_l loss_fn(theta; x, y, mask)
+                 + sum_live [ l_own (theta - z_own)
+                              + rho/2 ||theta - z_own||^2 ]
+                 + sum_live [ w/2 ||theta - theta_js||^2
+                              + l_nbr (theta_js - z_nbr)
+                              + rho/2 ||theta_js - z_nbr||^2 ].
+
+    Rows are independent, so autograd of the summed objective gives each
+    row's gradient (``optim.adamw.adamw_rows``).  ``b_steps=None``
+    evaluates the B -> inf fixed point in closed form
+    (:func:`quadratic_primal`; provable for the quadratic loss only, where
+    it is the exact block-elimination solve).
+
+    w (R, k) edge weights (0 at pads); live (R, k) bool; z/l slot rows
+    (R, k, p); D_l (R,); x (R, m, q), y (R, m), mask (R, m) the rows'
+    padded local data; theta0 (R, p) warm start; ``loss_fn(theta (p,), x
+    (m, q), y (m,), mask (m,)) -> ()`` a guarded ``core.losses`` loss;
+    ``opt`` an ``optim.adamw.AdamWConfig``.  Returns ``(theta (R, p),
+    theta_js (R, k, p))``; dead slots of theta_js carry don't-care values
+    (the engines keep the old ones under the live mask).
+    """
+    if b_steps is None:
+        m_l = torch.sum(mask, dim=-1)
+        sx = torch.sum(x * mask[..., None], dim=-2)
+        return quadratic_primal(w, live, z_own_s, z_nbr_s, l_own_s, l_nbr_s,
+                                D_l, m_l, sx, mu, rho)
+
+    b = rho * z_nbr_s - l_nbr_s                               # (R, k, p)
+    denom = torch.where(live, w + rho, 1.0)                   # (R, k)
+    row_loss = torch.func.vmap(loss_fn)
+
+    def theta_js_of(theta):
+        return (w[..., None] * theta[..., None, :] + b) / denom[..., None]
+
+    def objective(theta):                                     # (R,)
+        tjs = theta_js_of(theta)
+        d_own = theta[..., None, :] - z_own_s
+        d_js = theta[..., None, :] - tjs
+        d_nbr = tjs - z_nbr_s
+        slot = (torch.sum(l_own_s * d_own, dim=-1)
+                + 0.5 * rho * torch.sum(d_own * d_own, dim=-1)
+                + 0.5 * w * torch.sum(d_js * d_js, dim=-1)
+                + torch.sum(l_nbr_s * d_nbr, dim=-1)
+                + 0.5 * rho * torch.sum(d_nbr * d_nbr, dim=-1))
+        return (mu * D_l * row_loss(theta, x, y, mask)
+                + torch.sum(torch.where(live, slot, 0.0), dim=-1))
+
+    theta = adamw_rows(objective, theta0, b_steps, opt)
+    return theta, theta_js_of(theta)
+
+
 def _rho_tensor(rho, like):
     """``rho`` as a 0-d float32 tensor on ``like``'s device, the divisor of
     the edge math (see the module docstring); filled on the device, so no
@@ -238,7 +302,56 @@ def cl_edge_step(theta, K, Z_own, Z_nbr, L_own, L_nbr,
     return Z_own, Z_nbr, L_own, L_nbr
 
 
-#: Logit of a masked (query, key) pair, as in the JAX package.
+# ---------------------------------------------------------------------------
+# Joint collaboration-graph learning (DESIGN.md §13)
+# ---------------------------------------------------------------------------
+
+
+def simplex_project_rows(v, live):
+    """Euclidean projection of each row of ``v`` onto the probability
+    simplex restricted to its ``live`` slots (the sort-and-threshold form
+    of Held et al. 1974 / Duchi et al. 2008, over rows).
+
+    v, live: (..., k).  Dead slots are excluded from the support and get
+    an exact 0; rows with no live slot return all zeros.  The sort is
+    descending and the cumsum float32, as in the JAX package; a CUDA
+    cumsum associates its adds differently from the CPU's, so results on
+    the card agree with the CPU's to rounding, not bit for bit.
+    """
+    f = torch.float32
+    vm = torch.where(live, v.to(f), NEG_INF)                   # (..., k)
+    u = -torch.sort(-vm, dim=-1).values                        # descending
+    css = torch.cumsum(u, dim=-1)
+    r = torch.arange(1, v.shape[-1] + 1, dtype=f, device=v.device)
+    cond = u * r > css - 1.0                                   # support test
+    rho_n = cond.sum(dim=-1)                                   # support size
+    idx = torch.clamp(rho_n - 1, min=0)
+    tau = (torch.gather(css, -1, idx[..., None])[..., 0] - 1.0) \
+        / torch.clamp(rho_n, min=1).to(f)
+    out = torch.clamp(vm - tau[..., None], min=0.0)
+    return torch.where(live & (rho_n > 0)[..., None], out, 0.0)
+
+
+def edge_reweight(d, w, live, *, eta: float, lam: float):
+    """Local collaboration-graph re-estimation step (Zantedeschi et al.
+    2019, arXiv:1901.08460) — the ``edge_reweight`` op.
+
+    Each row solves  min_{w in simplex(live)} <w, d> + lam ||w||^2, whose
+    closed form is the simplex projection of ``-d / (2 lam)``, and relaxes
+    toward it:  w' = (1 - eta) w + eta proj(-d / (2 lam)).  d: (..., k)
+    dissimilarities (ignored at dead slots); w: (..., k) row-stochastic
+    weights; live: (..., k) bool.  Slots outside ``live`` get an exact 0;
+    rows with no live slot come back all zero.
+    """
+    f = torch.float32
+    two_lam = torch.full((), 2.0 * lam, dtype=f, device=d.device)
+    target = simplex_project_rows(-d.to(f) / two_lam, live)
+    out = (1.0 - eta) * w.to(f) + eta * target
+    return torch.where(live, out, 0.0).to(w.dtype)
+
+
+#: Logit of a masked (query, key) pair, and the simplex projection's
+#: dead-slot value, as in the JAX package.
 NEG_INF = -1e30
 
 

@@ -1,5 +1,5 @@
-"""Sparse event-driven network simulator: model propagation and
-CL-ADMM."""
+"""Sparse event-driven network simulator: model propagation, CL-ADMM
+and joint collaboration-graph learning."""
 
 from .topology import (SparseTopology, cluster_topology,
                        planted_partition_topology, random_geometric_topology,
@@ -8,9 +8,11 @@ from .scheduler import (EventBatch, EventStream, NetworkConditions,
                         churn_step, draw_events, draw_slots, draw_wakeups,
                         precompute_event_stream, straggler_rates,
                         stream_totals)
-from .engines import (CLSimTrace, SimTrace, SparseADMMState,
-                      SparseCLTrace, init_sparse_admm, run_cl_scenario,
-                      run_mp_scenario, sparse_async_admm, sparse_sync_mp)
+from .engines import (CLSimTrace, JointSimTrace, SimTrace, SparseADMMState,
+                      SparseCLTrace, SparseTrace, init_sparse_admm,
+                      run_cl_scenario, run_joint_scenario, run_mp_scenario,
+                      sparse_async_admm, sparse_async_gossip,
+                      sparse_sync_mp)
 from .spec import ScenarioSpec, run_scenario
 from .scenarios import SCENARIOS, Scenario, get_scenario, list_scenarios
 

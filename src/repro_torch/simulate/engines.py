@@ -1,5 +1,5 @@
-"""Sparse event-driven engines: model propagation and CL-ADMM
-(counterpart of ``repro.simulate.engines``).
+"""Sparse event-driven engines: model propagation, CL-ADMM and joint
+collaboration-graph learning (counterpart of ``repro.simulate.engines``).
 
 State is O(n * k * p) padded-neighbor storage:
 
@@ -17,12 +17,21 @@ State is O(n * k * p) padded-neighbor storage:
   ``round_step`` op (``backend`` given; the ``round_step`` CUDA kernel on
   the card).  Both consume the same events, so their counters match
   exactly and their trajectories agree to fp rounding.
+* ``sparse_async_gossip`` — the paper's asynchronous MP gossip one
+  wake-up at a time over the slot rows; bit for bit
+  ``core.model_propagation.async_gossip``.
 * ``sparse_async_admm`` — asynchronous CL-ADMM one wake-up at a time over
   the slot rows; bit for bit ``core.collaborative.async_admm``.
 * ``run_cl_scenario`` — asynchronous CL-ADMM under a fault scenario, B
-  wake-ups per round: a batched primal phase (torch ops), then one
-  ``cl_edge_step`` op (the CUDA kernel on the card).  The state is updated
-  in place; no (n, k, p) array is copied in any round.
+  wake-ups per round: a batched primal phase (torch ops: the exact
+  quadratic solve, or AdamW steps on the local Lagrangian for nonlinear
+  losses and agents), then one ``cl_edge_step`` op (the CUDA kernel on
+  the card).  The state is updated in place; no (n, k, p) array is copied
+  in any round.
+* ``run_joint_scenario`` — MP gossip under a fault scenario with the
+  collaboration graph learned alongside (DESIGN.md §13): the per-op MP
+  round under learned weights, with a graph step (the ``edge_reweight``
+  op) every ``graph_every`` rounds.
 """
 
 from __future__ import annotations
@@ -34,12 +43,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.graph_learning import prune_rows, reweight_rows
 from repro_torch.core.losses import AgentData, local_stats
 from repro_torch.core.model_propagation import mp_mix_operator
 from repro_torch.core.primal import ExactQuadraticPrimal
-from repro_torch.core.sparse import (admm_edge_halfstep, batched_model_update,
-                                     live_slots, quadratic_primal_core,
-                                     record_chunks, sample_event)
+from repro_torch.core.sparse import (admm_edge_halfstep, agent_model_update,
+                                     batched_model_update, live_slots,
+                                     quadratic_primal_core, record_chunks,
+                                     wakeups)
 from repro_torch.kernels.dispatch import (ReproBackend, cl_stale_prefetch,
                                           encode_slots, resolve,
                                           round_prefetch, round_scales,
@@ -63,6 +74,64 @@ def _payload(topo: SparseTopology, theta_sol, c, device):
 def _mp_warm_start(tabs, theta_sol):
     """Solitary models everywhere the agent has knowledge (paper §3.2)."""
     return theta_sol, theta_sol[tabs.nbr_idx]          # (n, p), (n, k, p)
+
+
+# ---------------------------------------------------------------------------
+# Exact sparse MP gossip (mirrors core.model_propagation.async_gossip)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SparseTrace:
+    """theta_hist: (n_records, n, p); comms_hist: cumulative pairwise
+    communications; the final models (n, p) and neighbor slots (n, k, p)."""
+
+    theta_hist: torch.Tensor
+    comms_hist: np.ndarray
+    final_theta: torch.Tensor
+    final_knowledge: torch.Tensor
+
+
+def sparse_async_gossip(topo: SparseTopology, theta_sol, c, alpha: float,
+                        steps: int, seed: int = 0, record_every: int = 100,
+                        draws=None, backend: Optional[ReproBackend] = None,
+                        device=None) -> SparseTrace:
+    """The paper's async gossip MP algorithm (§3.2) over O(n k p) slot
+    state, one wake-up a tick, on ``device`` (CUDA when None).
+
+    ``draws = (i_seq, s_seq)`` gives the wake-ups; otherwise a
+    ``torch.Generator`` seeded with ``seed`` draws them.  On the same
+    graph and draws it equals ``core.model_propagation.async_gossip`` bit
+    for bit: the same slot arithmetic (``core.sparse.agent_model_update``)
+    on slot ``s`` of row i holding what the dense T[i, nbr_idx[i, s]]
+    holds.  A degree-0 waker is a no-op.
+    """
+    device = resolve_device(device)
+    tabs, sol, c = _payload(topo, theta_sol, c, device)
+    theta, K = _mp_warm_start(tabs, sol)
+    theta = theta.clone()
+    host = topo.tables
+
+    def update(l):
+        return agent_model_update(l, tabs.nbr_p, K[l], c, sol, alpha,
+                                  backend)
+
+    record_every, n_rec = record_chunks(steps, record_every)
+    hist = []
+    for t, (i, s) in enumerate(wakeups(topo.n, host, n_rec * record_every,
+                                       seed, draws)):
+        if host.deg_count[i] > 0:          # a degree-0 waker is a no-op
+            j, r = int(host.nbr_idx[i, s]), int(host.rev_slot[i, s])
+            # communication step: exchange current self-models
+            K[i, s] = theta[j]
+            K[j, r] = theta[i]
+            # update step for both endpoints, i first
+            theta[i] = update(i)
+            theta[j] = update(j)
+        if (t + 1) % record_every == 0:
+            hist.append(theta.clone())
+    comms = 2 * record_every * (np.arange(n_rec) + 1)
+    return SparseTrace(torch.stack(hist), comms, theta, K)
 
 
 # ---------------------------------------------------------------------------
@@ -169,12 +238,17 @@ def run_mp_scenario(topo: SparseTopology, theta_sol, c, alpha: float,
 
 
 def _per_op_rounds(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
-                   record_every, backend):
+                   record_every, backend, graph=None):
     """The per-op round body; returns the recorded theta snapshots.
 
     Undelivered messages and non-receivers are redirected to a trash row
     past the end of the slot table / model table (the OOB-drop of the JAX
     scatters), so no round synchronises with the host.
+
+    ``graph`` (a :class:`_LearnedGraph`, joint runs only) supplies the
+    mixing weights in place of ``tabs.nbr_p``, voids deliveries into a
+    pruned receiver slot and runs the graph step; without it the body is
+    the MP round.
     """
     n, p = theta_sol.shape
     k = tabs.nbr_idx.shape[1]
@@ -183,6 +257,7 @@ def _per_op_rounds(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
     K = torch.cat([K0.reshape(nk, p), K0.new_zeros(1, p)])   # + trash row
     theta = torch.cat([theta0, theta0.new_zeros(1, p)])
     theta_prev = theta
+    w = tabs.nbr_p if graph is None else graph.w
     hist = []
     for t in range(n_rec * record_every):
         ev = stream.batch_at(t)
@@ -190,25 +265,33 @@ def _per_op_rounds(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
                             theta[ev.i])
         msg_j = torch.where(ev.stale_ji[:, None], theta_prev[ev.j],
                             theta[ev.j])
+        cell_j, cell_i = ev.j * k + ev.r, ev.i * k + ev.s
+        ok_ij, ok_ji = ev.deliver_ij, ev.deliver_ji
+        if graph is not None and graph.prune:
+            ok_ij, ok_ji = graph.admit(cell_j, cell_i, ok_ij, ok_ji)
         # scatter: idempotent — every write to one slot in one round comes
         # from the same sender with the same staleness flag, so duplicate
         # targets carry identical payloads (undelivered ones go to trash)
-        K[torch.where(ev.deliver_ij, ev.j * k + ev.r, nk)] = msg_i
+        K[torch.where(ok_ij, cell_j, nk)] = msg_i
         # scatter: idempotent (same argument for the j -> i direction)
-        K[torch.where(ev.deliver_ji, ev.i * k + ev.s, nk)] = msg_j
+        K[torch.where(ok_ji, cell_i, nk)] = msg_j
         # update: endpoints that received a message recompute Eq. (6);
         # delivery implies both endpoints are active (scheduler contract)
         upd = torch.cat([ev.i, ev.j])
-        got = torch.cat([ev.deliver_ji, ev.deliver_ij])
+        got = torch.cat([ok_ji, ok_ij])
         K_rows = K[:nk].view(n, k, p)[upd]
-        new = batched_model_update(tabs.nbr_p[upd], K_rows, c[upd],
-                                   theta_sol[upd], alpha)
+        new = batched_model_update(w[upd], K_rows, c[upd], theta_sol[upd],
+                                   alpha, backend)
         theta_prev, theta = theta, theta.clone()
         # scatter: idempotent — duplicate agents in upd recompute the same
         # row from the same post-communication slots
         theta[torch.where(got, upd, n)] = new
+        if graph is not None and graph.due(t):
+            w = graph.step(theta[:n], K[:nk].view(n, k, p), backend)
         if (t + 1) % record_every == 0:
             hist.append(theta[:n].clone())
+            if graph is not None:
+                graph.record()
     return hist
 
 
@@ -362,12 +445,9 @@ def sparse_async_admm(topo: SparseTopology, data: AgentData, mu: float,
     tabs, D, m, sx, st = _admm_payload(topo, data, theta_sol, state, device)
     host = topo.tables
     record_every, n_rec = record_chunks(steps, record_every)
-    gen = torch.Generator().manual_seed(seed) if draws is None else None
     hist = []
-    for t in range(n_rec * record_every):
-        i, s = sample_event(topo.n, host.slot_cdf, host.deg_count,
-                            generator=gen, draw=None if draws is None
-                            else (draws[0][t], draws[1][t]))
+    for t, (i, s) in enumerate(wakeups(topo.n, host, n_rec * record_every,
+                                       seed, draws)):
         if host.deg_count[i] > 0:        # a degree-0 waker is a no-op
             j, r = int(host.nbr_idx[i, s]), int(host.rev_slot[i, s])
             _sparse_primal_quadratic(st, i, tabs, D, m, sx, mu, rho, backend)
@@ -416,14 +496,23 @@ def run_cl_scenario(topo: SparseTopology, data: AgentData, mu: float,
     carried across by ``repro_torch.convert.stream_from_arrays``); when
     absent the torch scheduler draws one from ``seed``.  ``state`` (or the
     warm start from ``theta_sol``) is updated in place and returned as
-    ``final``.  ``primal`` is None or ``core.primal.ExactQuadraticPrimal()``
-    (the same computation); any other solver raises NotImplementedError.
+    ``final``.
+
+    ``primal`` selects the primal-phase solver (``core.primal``): None or
+    ``ExactQuadraticPrimal()`` is the closed-form quadratic solve;
+    ``InexactPrimal(...)`` runs B AdamW steps on the local Lagrangian, for
+    nonlinear losses and flattened agent models — then ``theta_sol`` holds
+    the (n, p) flat parameter rows (e.g. from ``core.primal.
+    solitary_adamw``), whose width p need not be the feature width of
+    ``data.x``.  A solver needing data (``needs_data``) gets the rows'
+    ``(x, y, mask)``; one without ``solve_batch`` raises TypeError.
 
     One round:
 
     1. **primal** — every endpoint whose partner's payload was delivered
-       recomputes its exact quadratic primal from its round-start rows
-       and rewrites its theta and live K slots.  Duplicate agents read the
+       recomputes its primal from its round-start rows (and, for the
+       inexact solver, its round-start model as the warm start) and
+       rewrites its theta and live K slots.  Duplicate agents read the
        same rows and write identical values.
     2. **prefetch** — the next round's stale payload rows, gathered from
        this round's post-primal theta/K and round-start L_own/L_nbr
@@ -436,12 +525,12 @@ def run_cl_scenario(topo: SparseTopology, data: AgentData, mu: float,
     device = resolve_device(device)
     if primal is None:
         primal = ExactQuadraticPrimal()
-    elif not isinstance(primal, ExactQuadraticPrimal):
-        raise NotImplementedError(
-            f"primal solver {type(primal).__name__} is not ported to "
-            f"repro_torch yet: ROADMAP queue 1 item 5 (InexactPrimal and "
-            f"the nonlinear CL-ADMM agents)")
+    elif not callable(getattr(primal, "solve_batch", None)):
+        raise TypeError(f"primal solver {type(primal).__name__} has no "
+                        f"solve_batch method")
     tabs, D, m, sx, st = _admm_payload(topo, data, theta_sol, state, device)
+    xym = tuple(a.to(device) for a in (data.x, data.y, data.mask)) \
+        if primal.needs_data else ()
     record_every, n_rec = record_chunks(rounds, record_every)
     total_rounds = n_rec * record_every
     if stream is None:
@@ -467,8 +556,8 @@ def run_cl_scenario(topo: SparseTopology, data: AgentData, mu: float,
         rows = live[u]
         new_theta, theta_js = primal.solve_batch(
             tabs.nbr_w[u], rows, st.Z_own[u], st.Z_nbr[u], st.L_own[u],
-            st.L_nbr[u], D[u], m[u], sx[u], (), st.theta[u], mu, rho,
-            backend)
+            st.L_nbr[u], D[u], m[u], sx[u], tuple(a[u] for a in xym),
+            st.theta[u], mu, rho, backend)
         K_rows = st.K[u]
         hit = landed(u, got, n)[:, None]
         # scatter: idempotent — duplicate agents in upd derive identical
@@ -494,3 +583,130 @@ def run_cl_scenario(topo: SparseTopology, data: AgentData, mu: float,
     return CLSimTrace(torch.stack(hist), stream.active_frac[ends],
                       delivered, dropped, total_rounds, total_rounds * batch,
                       invalid, final=st)
+
+
+# ---------------------------------------------------------------------------
+# Joint model + collaboration-graph learning (DESIGN.md §13)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class JointSimTrace(SimTrace):
+    """SimTrace plus the graph-learning outputs.
+
+    final_w / final_live: (n, k) learned row-stochastic weights and the
+        surviving-candidate mask (the candidate mask when pruning is off);
+    live_edges_hist: (n_records,) live directed slots with weight > 0 at
+        each record;
+    suppressed: deliveries voided because the receiver had pruned the
+        edge — a subset of ``delivered`` (the stream's accounting
+        invariant is unchanged).
+    """
+
+    final_w: Optional[torch.Tensor] = None
+    final_live: Optional[torch.Tensor] = None
+    live_edges_hist: Optional[torch.Tensor] = None
+    suppressed: int = 0
+
+
+class _LearnedGraph:
+    """The joint engine's graph state inside the per-op round body: the
+    learned weights ``w`` and live mask over the frozen candidate slots,
+    the graph step every ``graph_every`` rounds (rate ``eta``, sparsity
+    temperature ``lam``; then a monotone prune at ``prune_eps``), and the
+    count of deliveries voided by a pruned receiver, kept on the device
+    (no round syncs with the host)."""
+
+    def __init__(self, tabs, eta, lam, graph_every, prune_eps):
+        k = tabs.nbr_idx.shape[1]
+        self.w = tabs.nbr_p
+        self.live = live_slots(tabs.deg_count, k)
+        self.eta, self.lam, self.every = eta, lam, graph_every
+        self.prune_eps = prune_eps
+        self.prune = eta > 0.0 and prune_eps is not None
+        self.suppressed = torch.zeros((), dtype=torch.int64,
+                                      device=tabs.nbr_p.device)
+        self.edges = []
+
+    def admit(self, cell_j, cell_i, ok_ij, ok_ji):
+        """Void deliveries into a pruned receiver slot, counting them."""
+        live = self.live.view(-1)
+        keep_ij = ok_ij & live[cell_j]
+        keep_ji = ok_ji & live[cell_i]
+        self.suppressed += (ok_ij & ~keep_ij).sum() \
+            + (ok_ji & ~keep_ji).sum()
+        return keep_ij, keep_ji
+
+    def due(self, t):
+        """Whether round ``t`` (global index) ends with a graph step."""
+        return self.eta > 0.0 and (t + 1) % self.every == 0
+
+    def step(self, theta, K, backend):
+        """The graph step on the post-update models and slots; returns the
+        new mixing weights."""
+        self.w = reweight_rows(theta, K, self.w, self.live, eta=self.eta,
+                               lam=self.lam, backend=backend)
+        if self.prune:
+            self.w, self.live = prune_rows(self.w, self.live,
+                                           self.prune_eps)
+        return self.w
+
+    def record(self):
+        self.edges.append((self.live & (self.w > 0)).sum())
+
+
+def run_joint_scenario(topo: SparseTopology, theta_sol, c, alpha: float,
+                       conditions: NetworkConditions, rounds: int,
+                       batch: int, seed: int = 0, record_every: int = 10, *,
+                       eta_graph: float = 0.0, lam: float = 1.0,
+                       graph_every: int = 1,
+                       prune_eps: Optional[float] = None,
+                       stream: Optional[EventStream] = None,
+                       backend: Optional[ReproBackend] = None,
+                       device=None) -> JointSimTrace:
+    """Joint MP gossip and collaboration-graph learning under a fault
+    scenario (Zantedeschi et al. 2019 alternation; DESIGN.md §13), on
+    ``device`` (CUDA when None).
+
+    The MP per-op round of ``run_mp_scenario`` with the topology as state:
+    the candidate slot tables stay frozen (wake-ups stay uniform over the
+    candidates, so the event stream is replayable), while the mixing
+    weights start at ``tabs.nbr_p`` and are re-estimated every
+    ``graph_every`` rounds from local model distances
+    (``core.graph_learning.reweight_rows``, rate ``eta_graph``, sparsity
+    temperature ``lam``).  ``prune_eps`` (with ``eta_graph > 0``)
+    permanently drops slots whose weight falls to it or below, and
+    deliveries into a pruned receiver slot are voided (``suppressed``).
+
+    A round: land the messages, then the Eq. 6 update under the current
+    weights, then — when ``(t + 1) % graph_every == 0`` — the graph step
+    on the post-update models and slots, then the prune.
+    ``eta_graph=0`` runs no graph step and is bit for bit
+    ``run_mp_scenario(backend=None)`` on the same events: both are the
+    one per-op round body.  ``backend`` selects per-op implementations
+    (there is no fused joint body).
+    """
+    device = resolve_device(device)
+    tabs, theta_sol, c = _payload(topo, theta_sol, c, device)
+    record_every, n_rec = record_chunks(rounds, record_every)
+    total_rounds = n_rec * record_every
+    if stream is None:
+        stream = precompute_event_stream(
+            tabs, torch.as_tensor(topo.partition_halves()), conditions,
+            batch, seed, total_rounds, device=device)
+    if stream.rounds < total_rounds or stream.i.shape[1] != batch:
+        raise ValueError(f"stream is ({stream.rounds}, "
+                         f"{stream.i.shape[1]}); the run needs "
+                         f"({total_rounds}, {batch})")
+    graph = _LearnedGraph(tabs, eta_graph, lam, graph_every, prune_eps)
+    hist = _per_op_rounds(tabs, theta_sol, c, alpha, conditions, stream,
+                          n_rec, record_every, backend, graph)
+    ends = torch.arange(1, n_rec + 1, device=device) * record_every - 1
+    delivered, dropped, invalid = stream_totals(
+        EventStream(*(f[:total_rounds] for f in stream)))
+    return JointSimTrace(torch.stack(hist), stream.active_frac[ends],
+                         delivered, dropped, total_rounds,
+                         total_rounds * batch, invalid, final_w=graph.w,
+                         final_live=graph.live,
+                         live_edges_hist=torch.stack(graph.edges),
+                         suppressed=int(graph.suppressed))

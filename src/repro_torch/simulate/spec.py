@@ -1,12 +1,14 @@
 """Unified scenario API: one frozen spec, one entry point (counterpart of
 ``repro.simulate.spec``, single device).
 
-``run_scenario(ScenarioSpec(algo="mp", ...))`` runs the MP gossip engine
-and ``algo="cl"`` the CL-ADMM engine on ``spec.device`` (CUDA when None).
-``stream=`` is accepted for both: torch cannot replay ``jax.random``, so a
-precomputed EventStream is how the port takes the reference's draws.
+``run_scenario(ScenarioSpec(algo=...))`` runs the MP gossip engine
+(``"mp"``), the CL-ADMM engine with any primal solver (``"cl"``) or the
+joint model and graph-learning engine (``"joint"``) on ``spec.device``
+(CUDA when None).  ``stream=`` is accepted for all three: torch cannot
+replay ``jax.random``, so a precomputed EventStream is how the port takes
+the reference's draws.
 
-The rest of the JAX spec is not ported yet; each such field raises
+Telemetry, sharding and serving are not ported yet; each raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -22,7 +24,6 @@ _ALGOS = ("mp", "cl", "joint")
 
 #: What is not ported yet, and the ROADMAP queue-1 item that ports it.
 _LATER = {
-    "joint": "ROADMAP queue 1 item 6 (joint graph learning)",
     "telemetry": "ROADMAP queue 1 item 7 (scenario API and telemetry)",
     "serve": "ROADMAP queue 1 item 9 (serving)",
     "sharded": "ROADMAP queue 1 item 10 (multi-GPU)",
@@ -33,20 +34,22 @@ _LATER = {
 class ScenarioSpec:
     """Everything that defines one scenario run.
 
-    core:   algo, topology (SparseTopology), conditions, rounds, batch,
-            seed, record_every
-    mp:     theta_sol (solitary models), c (confidences), alpha (Eq. 3 mix)
-    cl:     data (AgentData), mu, rho, theta_sol (warm start) or state
-            (a SparseADMMState, updated in place), primal (None or
-            ExactQuadraticPrimal; the engine raises NotImplementedError,
-            naming the ROADMAP item, for any other solver)
-    events: stream — a precomputed EventStream to replay (otherwise drawn
-            from ``seed`` by the torch scheduler)
-    exec:   backend (mp: fused round_step when given; both: per-op impl
-            choice), device (CUDA when None)
+    core:     algo ("mp" | "cl" | "joint"), topology (SparseTopology),
+              conditions, rounds, batch, seed, record_every
+    mp/joint: theta_sol (solitary models), c (confidences), alpha (Eq. 3
+              mix)
+    cl:       data (AgentData), mu, rho, theta_sol (warm start) or state
+              (a SparseADMMState, updated in place), primal (a solver of
+              ``core.primal``; None = the exact closed-form quadratic
+              solve)
+    joint:    eta_graph, lam, graph_every, prune_eps (DESIGN.md §13)
+    events:   stream — a precomputed EventStream to replay (otherwise
+              drawn from ``seed`` by the torch scheduler)
+    exec:     backend (mp: fused round_step when given; all: per-op impl
+              choice), device (CUDA when None)
 
-    ``joint`` payloads, telemetry, sharding, serving and the inexact
-    primal are fields of the JAX spec that this port does not run yet.
+    Telemetry, sharding and serving are fields of the JAX spec that this
+    port does not run yet.
     """
 
     algo: str
@@ -64,6 +67,10 @@ class ScenarioSpec:
     rho: Optional[float] = None
     state: Any = None
     primal: Any = None
+    eta_graph: float = 0.0
+    lam: float = 1.0
+    graph_every: int = 1
+    prune_eps: Optional[float] = None
     stream: Optional[EventStream] = None
     backend: Any = None
     device: Any = None
@@ -93,9 +100,7 @@ def _not_ported(what: str):
 def run_scenario(spec: ScenarioSpec):
     """Run the scenario a :class:`ScenarioSpec` describes; returns the
     engine's :class:`~repro_torch.simulate.engines.SimTrace` (a
-    ``CLSimTrace`` for ``cl``)."""
-    if spec.algo == "joint":
-        _not_ported("joint")
+    ``CLSimTrace`` for ``cl``, a ``JointSimTrace`` for ``joint``)."""
     if spec.sharded:
         _not_ported("sharded")
     if spec.serve is not None:
@@ -114,6 +119,14 @@ def run_scenario(spec: ScenarioSpec):
             state=spec.state, stream=spec.stream, backend=spec.backend,
             primal=spec.primal, device=spec.device)
     spec._require(theta_sol=spec.theta_sol, c=spec.c)
+    if spec.algo == "joint":
+        return _engines.run_joint_scenario(
+            spec.topology, spec.theta_sol, spec.c, spec.alpha,
+            spec.conditions, spec.rounds, spec.batch, seed=spec.seed,
+            record_every=spec.record_every, eta_graph=spec.eta_graph,
+            lam=spec.lam, graph_every=spec.graph_every,
+            prune_eps=spec.prune_eps, stream=spec.stream,
+            backend=spec.backend, device=spec.device)
     return _engines.run_mp_scenario(
         spec.topology, spec.theta_sol, spec.c, spec.alpha, spec.conditions,
         spec.rounds, spec.batch, seed=spec.seed,

@@ -330,12 +330,12 @@ def test_cl_spec_rejects_what_is_not_ported(scen):
     _, tt, _, td, sol = scen
     cond = get_scenario("clean").make_conditions(ROUNDS)
 
-    class Inexact:                                   # a data-hungry solver
+    class NoSolve:                        # a "solver" without solve_batch
         needs_data = True
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="solve_batch"):
         run_scenario(cl_spec(tt, td, cond, None, theta_sol=sol,
-                             primal=Inexact()))
+                             primal=NoSolve()))
     with pytest.raises(ValueError, match="data"):
         run_scenario(ScenarioSpec(algo="cl", topology=tt, conditions=cond,
                                   rounds=ROUNDS, batch=BATCH, mu=0.1,

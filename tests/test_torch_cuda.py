@@ -6,9 +6,13 @@ order; ``round_step`` bit for bit in its fixed and generic kernels, over
 reallocates; ``cl_edge_step`` and ``admm_edge_update`` bit for bit, repeated
 targets included, and ``cl_edge_step`` on rounds built for each case of
 its edge election, with its election words zero after every call;
-``flash_attention`` 1e-2 abs and rel in bf16, 1e-5 in float32), and a
-small model's prefill through the ``flash_attention`` kernel against the
-reference attention.  The kernels have no CPU mode: on a host without a
+``flash_attention`` 1e-2 abs and rel in bf16, 1e-5 in float32), a small
+model's prefill through the ``flash_attention`` kernel against the
+reference attention, and the paths without kernels of their own:
+``edge_reweight`` on the card against the CPU, sparse against dense async
+gossip and joint learning at rate 0 against per-op MP bit for bit, and
+the inexact primal with MLP agents (p = 33) through ``cl_edge_step``
+against the reference backend.  The kernels have no CPU mode: on a host without a
 CUDA card every test here skips.
 
 Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
@@ -435,3 +439,104 @@ def test_model_prefill_through_the_kernel(cuda):
     assert torch.allclose(got, want, atol=1e-4, rtol=1e-4)
     assert torch.allclose(cache["layers"][1]["k"],
                           cache_ref["layers"][1]["k"], atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the paper's other algorithms on the card: async gossip, joint graph
+# learning and the nonlinear CL-ADMM agents (no kernels of their own; the
+# nonlinear agents run cl_edge_step at p = 33)
+# ---------------------------------------------------------------------------
+
+
+def test_edge_reweight_on_the_card_matches_the_cpu(cuda):
+    """CUDA's cumsum associates its adds differently from the CPU's, so
+    the projection agrees to rounding (1e-5), not bit for bit."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(0)
+    live = rng.uniform(size=(5000, 18)) < 0.85
+    w = rng.uniform(0, 1, live.shape) * live
+    w = (w / np.maximum(w.sum(1, keepdims=True), 1e-9)).astype(np.float32)
+    d = rng.uniform(0, 4, live.shape).astype(np.float32)
+    for eta, lam in ((0.3, 1.0), (1.0, 1e-3), (0.5, 1e3)):
+        want = ref.edge_reweight(*map(torch.as_tensor, (d, w, live)),
+                                 eta=eta, lam=lam)
+        got = ref.edge_reweight(*(torch.as_tensor(a, device=cuda)
+                                  for a in (d, w, live)), eta=eta, lam=lam)
+        assert (got.cpu() - want).abs().max().item() <= 1e-5
+
+
+def test_sparse_async_gossip_equals_dense_on_the_card(cuda):
+    from repro_torch.core.graph import random_geometric_graph
+    from repro_torch.core.model_propagation import async_gossip
+    from repro_torch.simulate import sparse_async_gossip
+    from repro_torch.simulate.topology import SparseTopology
+    g = random_geometric_graph(64, k=5, seed=3)
+    rng = np.random.default_rng(1)
+    sol = rng.standard_normal((64, 32)).astype(np.float32)
+    c = rng.uniform(0.05, 1.0, 64).astype(np.float32)
+    dense = async_gossip(g, sol, c, 0.9, 600, seed=2, record_every=100,
+                         device=cuda)
+    topo = SparseTopology.from_graph(g)
+    sparse = sparse_async_gossip(topo, sol, c, 0.9, 600, seed=2,
+                                 record_every=100, device=cuda)
+    assert torch.equal(dense.theta_hist, sparse.theta_hist)
+    tabs = topo.tables
+    rows, slots = np.nonzero(np.arange(topo.k_max)[None, :]
+                             < tabs.deg_count[:, None])
+    assert torch.equal(sparse.final_knowledge[rows, slots],
+                       dense.final_knowledge[rows, tabs.nbr_idx[rows,
+                                                                 slots]])
+
+
+def test_joint_rate_zero_is_per_op_mp_on_the_card(cuda):
+    from repro_torch.simulate import (NetworkConditions, ScenarioSpec,
+                                      run_scenario)
+    topo = random_geometric_topology(3000, k=6, seed=0)
+    rng = np.random.default_rng(0)
+    sol = rng.standard_normal((3000, 32)).astype(np.float32)
+    c = rng.uniform(0.05, 1.0, 3000).astype(np.float32)
+    kw = dict(topology=topo, conditions=NetworkConditions(
+        drop_prob=0.1, stale_prob=0.3), rounds=40, batch=300, seed=1,
+        record_every=10, theta_sol=sol, c=c, alpha=0.9, device=cuda)
+    mp = run_scenario(ScenarioSpec(algo="mp", **kw))
+    joint = run_scenario(ScenarioSpec(algo="joint", **kw))
+    assert torch.equal(joint.theta_hist, mp.theta_hist)
+    assert (joint.delivered, joint.dropped, joint.invalid) == \
+        (mp.delivered, mp.dropped, mp.invalid)
+    learned = run_scenario(ScenarioSpec(
+        algo="joint", eta_graph=0.3, lam=1.0, graph_every=5,
+        prune_eps=1e-3, **kw))
+    live = learned.final_live
+    assert (learned.final_w[~live] == 0).all()
+    sums = learned.final_w.sum(1)[live.any(1)]
+    assert (sums - 1).abs().max().item() <= 1e-5
+    assert learned.suppressed <= learned.delivered
+
+
+def test_inexact_primal_kernel_matches_reference_at_p33(cuda):
+    """MLP agents (p = 33, cl_edge_step's generic-p path): the kernel run
+    and the reference run agree within 1e-5, one launch a round."""
+    from repro_torch.core.primal import InexactPrimal, solitary_adamw
+    from repro_torch.data import federated_moons_problem
+    from repro_torch.models import MLPAgent
+    from repro_torch.simulate import (NetworkConditions, ScenarioSpec,
+                                      run_scenario)
+    model = MLPAgent(in_dim=2, hidden=(8,))
+    topo, train, _, _ = federated_moons_problem(n=400, seed=0, device=cuda)
+    sol = solitary_adamw(train, loss="logistic", model=model, steps=50)
+    assert sol.shape == (400, 33)
+    runs, launches = [], []
+    for backend in (None, dispatch.ReproBackend(default="reference")):
+        dispatch.reset_launch_counts()
+        runs.append(run_scenario(ScenarioSpec(
+            algo="cl", topology=topo, data=train, mu=0.5, rho=0.2,
+            conditions=NetworkConditions(drop_prob=0.1, stale_prob=0.2),
+            rounds=30, batch=40, seed=0, record_every=10, theta_sol=sol,
+            primal=InexactPrimal(loss="logistic", model=model, b_steps=4,
+                                 lr=0.1),
+            backend=backend, device=cuda)))
+        launches.append(dispatch.launch_counts()["cl_edge_step"])
+    assert launches == [30, 0]
+    assert (runs[0].theta_hist - runs[1].theta_hist).abs().max().item() \
+        <= 1e-5
+    assert torch.isfinite(runs[0].theta_hist).all()

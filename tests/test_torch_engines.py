@@ -8,7 +8,8 @@ reproduces the inline engine's key schedule, carried across by
 ``repro_torch.convert.stream_from_arrays``.  Counters and ``active_hist``
 match exactly and ``theta_hist`` within 1e-5 (the bar of
 tests/test_round_fuse.py).  The port's own torch-drawn stream keeps the
-accounting invariant, and the spec fields not ported yet raise.
+accounting invariant, and the spec fields not ported yet (telemetry,
+sharding, serving) raise.
 """
 
 import numpy as np
@@ -158,8 +159,8 @@ def test_stream_totals_invariant(setup):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("algo", "cl"), ("algo", "joint"), ("sharded", True),
-    ("serve", object()), ("telemetry", type("T", (), {"enabled": True})()),
+    ("sharded", True), ("serve", object()),
+    ("telemetry", type("T", (), {"enabled": True})()),
 ])
 def test_unported_spec_fields_raise(setup, field, value):
     _, tt, sol, c = setup
@@ -167,11 +168,5 @@ def test_unported_spec_fields_raise(setup, field, value):
         "clean").make_conditions(ROUNDS), rounds=ROUNDS, batch=BATCH,
         theta_sol=sol, c=c, device=CPU)
     kw[field] = value
-    if kw["algo"] == "cl":
-        # CL-ADMM runs; what it still lacks is the inexact primal
-        from repro_torch.core.losses import pad_datasets
-        kw.update(data=pad_datasets(list(sol[:, None, :]), device=CPU),
-                  mu=0.1, rho=1.0,
-                  primal=type("InexactPrimal", (), {"needs_data": True})())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_scenario(ScenarioSpec(**kw))

@@ -58,6 +58,9 @@ def test_imports_with_jax_blocked():
         "repro_torch.models.blocks, repro_torch.models.common, "
         "repro_torch.models.model, repro_torch.serve, "
         "repro_torch.serve.engine\n"
+        "import repro_torch.core.graph_learning, repro_torch.optim, "
+        "repro_torch.optim.adamw, repro_torch.models.flatten, "
+        "repro_torch.tree\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -75,13 +78,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.convert import model_params_from_arrays
     from repro_torch.models import Model
+    from repro_torch.convert import agent_rows_from_arrays
     from repro_torch.core import collaborative, graph, model_propagation
     from repro_torch.core.losses import pad_datasets
-    from repro_torch.data import linear_classification_problem
+    from repro_torch.data import (federated_moons_problem,
+                                  linear_classification_problem)
     from repro_torch.simulate import (ScenarioSpec, get_scenario,
                                       init_sparse_admm, ring_topology,
                                       run_scenario, sparse_async_admm,
-                                      sparse_sync_mp)
+                                      sparse_async_gossip, sparse_sync_mp)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -112,6 +117,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: sparse_sync_mp(topo, sol, c, 0.9, 2),
         lambda: model_propagation.synchronous(g, sol, c, 0.9, 2),
         lambda: model_propagation.closed_form(g, sol, c, 0.9),
+        lambda: model_propagation.async_gossip(g, sol, c, 0.9, 2),
+        lambda: sparse_async_gossip(topo, sol, c, 0.9, 2),
+        lambda: run_scenario(ScenarioSpec(
+            algo="joint", topology=topo,
+            conditions=get_scenario("clean").make_conditions(4), rounds=4,
+            batch=2, theta_sol=sol, c=c, eta_graph=0.3)),
+        lambda: federated_moons_problem(n=4, n_test=2),
+        lambda: agent_rows_from_arrays(sol),
         lambda: topo.device_tables(),
         lambda: Model(get_config("llama3-8b", "reduced")),
         lambda: model_params_from_arrays(get_config("llama3-8b", "reduced"),
