@@ -30,6 +30,17 @@ JAX package.  Phases, in order — any failure exits non-zero:
       the plain path;
    c. ``synchronous`` on ``random_geometric_graph(2048, k=8)``, D = 4096,
       100 steps through ``graph_mix``, against the plain path;
+   j. the paper's multi-trial sweeps (§5.1 mean estimation at n = 300):
+      ``run_mp_sweep`` on 100 seeds x alphas (0.5, 0.9, 0.99) = 300
+      trials, 300 sweeps, exactly one ``graph_mix`` launch a sweep for all
+      trials, against the plain path within 1e-5 (theta_final absolute,
+      objective_hist and err_hist relative to their largest value); the
+      batched ``graph_mix`` at the sweep shape timed beside its bound and
+      ``torch.baddbmm``; ``closed_form_comparison`` on those trials; then
+      ``run_joint_sweep`` (10 seeds x eta (0, 0.3), its eta = 0 column
+      equal to the MP sweep's trials bit for bit) and ``run_admm_sweep``
+      (5 seeds x mu (0.05, 0.2), against the CPU on two trials within
+      1e-4); trials x sweeps/s of each;
    f. the paper's async gossip (§3.2) on that graph, p = 32, 4,000 ticks
       on wake-ups drawn once by a seeded ``torch.Generator``: the dense
       ``async_gossip`` (Theta_tilde, 537 MB) and ``sparse_async_gossip``
@@ -82,7 +93,16 @@ state is freed:
      within 1e-5; mean test accuracies and events/s are readings;
 5.   where the time of a CL round goes: ``PROFILE_ROUNDS`` rounds of the
      kernel path under ``torch.profiler``, device time by operation and
-     the device's busy share of the wall time (a reading, not a check).
+     the device's busy share of the wall time (a reading, not a check);
+4i.  run telemetry on the n = 1M paths: fused MP, exact CL and joint
+     learning (the benchmark's knobs) on the ``lossy-10`` stream, each
+     through ``run_scenario`` with telemetry off and on: theta_hist bit
+     for bit, the same kernel launches, the frames' counters equal to
+     ``stream_chunk_totals`` (``link + churn + partition == dropped``),
+     MP and CL staleness equal to ``stream_staleness_chunks`` and their
+     updates to the deliveries (joint: updates + suppressed ==
+     delivered); events/s off and on; one run directory written with
+     ``write_run`` to a temporary path and read back with ``load_run``.
 
 Then LM serving (Llama-3-8B at full width and depth, bf16 weights drawn
 from the seed on the card), after the CL state is freed:
@@ -108,7 +128,8 @@ from the seed on the card), after the CL state is freed:
     share of 16 greedy tokens on which the two agree.
 
 Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all six
-kernels, with their launches on their paths), the card's name and power
+kernels, with their launches on their paths; ``graph_mix`` counts both of
+its paths and carries its trial-axis reading under ``trial_axis``), the card's name and power
 limit as nvidia-smi reports them, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -151,6 +172,11 @@ JOINT_KW = dict(eta_graph=0.3, lam=1.0, graph_every=5, prune_eps=1e-3)
 INEXACT_ROUNDS, INEXACT_RECORD = 50, 25
 MOONS_N, MOONS_BATCH, MOONS_ROUNDS, MOONS_RECORD = 20_000, 2_000, 200, 100
 MOONS_SOLITARY_STEPS = 400
+# 4j: the paper's §5.1 sweeps at the generator's default n = 300
+SWEEP_N, SWEEP_SEEDS, SWEEP_ALPHAS, SWEEP_STEPS = 300, 100, (0.5, 0.9, 0.99), \
+    300
+JOINT_SWEEP_SEEDS, JOINT_SWEEP_ETAS, JOINT_SWEEP_EVERY = 10, (0.0, 0.3), 10
+ADMM_SWEEP_SEEDS, ADMM_SWEEP_MUS, ADMM_SWEEP_ITERS = 5, (0.05, 0.2), 50
 
 # LM serving: Llama-3-8B at full width and depth
 LM_ARCH = "llama3-8b"
@@ -228,6 +254,254 @@ def check_graph_mix(torch, gm, graph_inputs):
         ffma_floor_ms=bound_ms(n_bytes, 2 * n * n * D + 2 * n * D)[0],
         library_ms=time_ms(torch, lambda: torch.addmm(bsol, A, theta), 20),
         library_call="torch.addmm(b*sol, A, theta)")
+
+
+def check_graph_mix_trials(torch, gm, args):
+    """graph_mix over the sweep's trial axis at its shape and inputs (the
+    first step of ``run_mp_sweep``): one launch for T problems of D = 1,
+    which take the kernel's FFMA rows path.  The work is A's T n^2 floats
+    read once, so the bound is bytes; the library call is
+    ``torch.baddbmm`` of the same function."""
+    theta, sol, A, b = args
+    T, n, D = theta.shape
+    got = gm.graph_mix(theta, sol, A, b)
+    err = (got - gm.graph_mix_plain(theta, sol, A, b)).abs().max().item()
+    bsol = b[..., None] * sol
+    bms, by = bound_ms(4 * (T * n * n + 3 * T * n * D + T * n),
+                       2 * T * n * n * D + 2 * T * n * D)
+    return dict(
+        design="warp per output row, FFMA (D <= 8)",
+        shape=f"T={T} n={n} D={D}", max_abs_err=err, tol=1e-5,
+        ms=time_ms(torch, lambda: gm.graph_mix(theta, sol, A, b), 20),
+        plain_ms=time_ms(torch, lambda: gm.graph_mix_plain(theta, sol, A,
+                                                           b), 20),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.baddbmm(bsol, A, theta),
+                           20),
+        library_call="torch.baddbmm(b*sol, A, theta)")
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want| (numpy arrays)."""
+    return float(abs(got - want).max() / max(abs(want).max(), 1e-30))
+
+
+def check_sweeps(torch, np, dispatch, gm, dev):
+    """4j. The paper's §5.1 sweeps at n = 300: ``run_mp_sweep`` on 300
+    trials, 300 sweeps, one ``graph_mix`` launch a sweep, against the
+    plain path within 1e-5; the batched ``graph_mix`` at the sweep shape;
+    ``closed_form_comparison``; ``run_joint_sweep`` with its eta = 0
+    column equal to the MP sweep bit for bit; ``run_admm_sweep`` against
+    the CPU on two trials.  Returns ``(the trial-axis kernel reading, the
+    MP sweep's launches, failure message or None)``."""
+    from repro_torch.core.model_propagation import mp_mix_operator
+    from repro_torch.experiments import (admm_mean_estimation_trials,
+                                         closed_form_comparison,
+                                         joint_mean_estimation_trials,
+                                         mean_estimation_trials,
+                                         run_admm_sweep, run_joint_sweep,
+                                         run_mp_sweep)
+    plain = dispatch.ReproBackend(default="reference")
+    t0 = time.perf_counter()
+    trials = mean_estimation_trials(range(SWEEP_SEEDS), SWEEP_ALPHAS,
+                                    n=SWEEP_N)
+    T = trials.n_trials
+    log(f"[4j] {T} trials of the §5.1 problem at n={SWEEP_N} built on the "
+        f"host in {time.perf_counter() - t0:.2f} s")
+    dispatch.reset_launch_counts()
+    ker, secs = timed(torch, lambda: run_mp_sweep(
+        trials, SWEEP_STEPS, device=dev))
+    launches = dispatch.launch_counts()
+    ref, secs_p = timed(torch, lambda: run_mp_sweep(
+        trials, SWEEP_STEPS, backend=plain, device=dev))
+    errs = dict(theta_final=float(abs(ker.theta_final
+                                      - ref.theta_final).max()),
+                objective_hist=rel_err(ker.objective_hist,
+                                       ref.objective_hist),
+                err_hist=rel_err(ker.err_hist, ref.err_hist))
+    log(f"[4j] run_mp_sweep: {T} trials x {SWEEP_STEPS} sweeps, kernel "
+        f"{T * SWEEP_STEPS / secs:.4g} trials*sweeps/s ({secs:.3f} s), "
+        f"plain {T * SWEEP_STEPS / secs_p:.4g}; launches {launches}; "
+        f"kernel vs plain {errs} (tol 1e-5; theta absolute, histories "
+        f"relative)")
+    if launches["graph_mix"] != SWEEP_STEPS \
+            or sum(launches.values()) != SWEEP_STEPS:
+        return None, launches, "4j: not one graph_mix launch a sweep"
+    if not max(errs.values()) <= 1e-5 \
+            or not np.isfinite(ker.objective_hist).all():
+        return None, launches, "4j: the MP sweep's kernel vs plain"
+    # the batched graph_mix on the sweep's own first-step inputs
+    P, c, sol = (torch.as_tensor(a, device=dev)
+                 for a in (trials.P, trials.c, trials.theta_sol))
+    A_mix, b = mp_mix_operator(
+        P, c, torch.as_tensor(trials.alpha, device=dev)[:, None])
+    batched = check_graph_mix_trials(torch, gm, (sol, sol, A_mix, b))
+    log("[4j] graph_mix over the trial axis: " + json.dumps(batched))
+    del P, A_mix, b, sol, c
+    if not batched["max_abs_err"] <= batched["tol"]:
+        return batched, launches, "4j: batched graph_mix vs plain"
+
+    (e_c, e_nc, win), secs = timed(torch, lambda: closed_form_comparison(
+        trials, device=dev))
+    log(f"[4j] closed_form_comparison: {T} trials in {secs:.3f} s; "
+        f"confidences win on {win.mean():.3f} of the trials; mean error "
+        f"with {e_c.mean():.4g}, without {e_nc.mean():.4g}")
+    if e_c.shape != (T,) or not np.isfinite(e_c).all() \
+            or not np.isfinite(e_nc).all():
+        return batched, launches, "4j: closed_form_comparison"
+
+    jt = joint_mean_estimation_trials(range(JOINT_SWEEP_SEEDS), (0.9,),
+                                      JOINT_SWEEP_ETAS, n=SWEEP_N)
+    dispatch.reset_launch_counts()
+    jr, secs = timed(torch, lambda: run_joint_sweep(
+        jt, SWEEP_STEPS, graph_every=JOINT_SWEEP_EVERY, device=dev))
+    jl = dispatch.launch_counts()["graph_mix"]
+    frozen = jt.eta == 0.0
+    # the MP sweep's trial of the same seed at alpha = 0.9
+    same = np.array_equal(jr.theta_final[frozen], ker.theta_final[
+        np.asarray(jt.seed[frozen]) * len(SWEEP_ALPHAS)
+        + SWEEP_ALPHAS.index(0.9)])
+    mass = jr.intra_mass_hist[~frozen]
+    log(f"[4j] run_joint_sweep: {jt.n_trials} trials x {SWEEP_STEPS} "
+        f"sweeps in {secs:.3f} s = "
+        f"{jt.n_trials * SWEEP_STEPS / secs:.4g} trials*sweeps/s; "
+        f"graph_mix launches {jl}; eta=0 column equal to the MP sweep: "
+        f"{same}; learned rows' intra-cluster weight share "
+        f"{mass[:, 0].mean():.4f} -> {mass[:, -1].mean():.4f}")
+    if jl != SWEEP_STEPS or not same \
+            or not np.isfinite(jr.objective_hist).all():
+        return batched, launches, "4j: run_joint_sweep"
+
+    at = admm_mean_estimation_trials(range(ADMM_SWEEP_SEEDS),
+                                     ADMM_SWEEP_MUS, (1.0,), n=SWEEP_N)
+    ar, secs = timed(torch, lambda: run_admm_sweep(
+        at, ADMM_SWEEP_ITERS, device=dev))
+    two = dataclasses.replace(at, **{f.name: getattr(at, f.name)[:2]
+                                     for f in dataclasses.fields(at)})
+    cpu = run_admm_sweep(two, ADMM_SWEEP_ITERS, device="cpu")
+    err = float(abs(ar.theta_final[:2] - cpu.theta_final).max())
+    log(f"[4j] run_admm_sweep: {at.n_trials} trials x {ADMM_SWEEP_ITERS} "
+        f"iterations in {secs:.3f} s = "
+        f"{at.n_trials * ADMM_SWEEP_ITERS / secs:.4g} trials*iters/s; "
+        f"card vs CPU on two trials max |diff| = {err:.3g} (tol 1e-4)")
+    if not err <= 1e-4 or not np.isfinite(ar.objective_hist).all():
+        return batched, launches, "4j: run_admm_sweep"
+    return batched, launches, None
+
+
+def telemetry_costs(torch, spec_mp):
+    """4i, a reading (nothing is checked): what telemetry adds to the fused
+    MP run, by part, with CUDA events over 20 calls after warm-up — a
+    round's counters (``_Telemetry.round`` on round 0's sides) and one
+    chunk's Eq. 3 objective on an (n*k, p+1) slot table of the run's size
+    (standard normal) read through the fused body's strided (n, k, p)
+    view, and on a contiguous copy of the same slots."""
+    from repro_torch.simulate.engines import _Telemetry
+    from repro_torch.telemetry import metrics as tm
+
+    tabs = spec_mp["topology"].device_tables(spec_mp["device"])
+    sol, c = spec_mp["theta_sol"], spec_mp["c"]
+    n, k = tabs.nbr_idx.shape
+    p = sol.shape[1]
+    ev = spec_mp["stream"].batch_at(0)
+    upd, got = torch.cat([ev.i, ev.j]), torch.cat([ev.deliver_ji,
+                                                   ev.deliver_ij])
+    tel = _Telemetry(n, sol.device)
+    g = torch.Generator(device=sol.device).manual_seed(SEED)
+    Ke = torch.randn((n * k, p + 1), generator=g, device=sol.device)
+    view = Ke.view(n, k, p + 1)[:, :, :p]
+    dense = view.contiguous()
+    costs = dict(
+        round_ms=time_ms(torch, lambda: tel.round(upd, got), 20),
+        objective_strided_ms=time_ms(torch, lambda: tm.mp_local_objective(
+            sol, view, tabs.nbr_p, c, sol, ALPHA), 20),
+        objective_contiguous_ms=time_ms(
+            torch, lambda: tm.mp_local_objective(sol, dense, tabs.nbr_p, c,
+                                                 sol, ALPHA), 20))
+    log(f"[4i] telemetry's costs at n={n}, k={k}, p={p}, {upd.numel()} "
+        f"sides a round: " + json.dumps(costs))
+    del Ke, view, dense
+
+
+def check_telemetry(torch, np, dispatch, spec_mp, spec_cl):
+    """4i. Run telemetry on the n = 1M paths (fused MP, exact CL, joint
+    with the benchmark's knobs), each with telemetry off and on: theta
+    bit for bit, the same launches, the frames' counters equal to the
+    stream's, staleness equal to its replay (MP, CL) and updates to the
+    deliveries; then a run directory written and read back.  Returns a
+    failure message or None."""
+    import os
+    import tempfile
+
+    from repro_torch.simulate import ScenarioSpec, run_scenario
+    from repro_torch.telemetry import (TelemetryConfig, build_manifest,
+                                       load_run, render_summary, trace_rows,
+                                       write_run)
+    from repro_torch.telemetry import metrics as tm
+
+    stream, n = spec_mp["stream"], spec_mp["topology"].n
+    n_rec = ROUNDS // RECORD
+    totals = tm.stream_chunk_totals(stream, n_rec, RECORD)
+    replay = tm.stream_staleness_chunks(stream, n, n_rec, RECORD)
+    cells = (("mp-fused", dict(spec_mp, backend=dispatch.ReproBackend())),
+             ("cl", dict(spec_cl, rounds=ROUNDS, record_every=RECORD)),
+             ("joint", dict(spec_mp, algo="joint", **JOINT_KW)))
+    rows = None
+    for label, spec in cells:
+        traces, rates, launches = [], [], []
+        for tel in (None, TelemetryConfig(enabled=True)):
+            dispatch.reset_launch_counts()
+            tr, secs = timed(torch, lambda: run_scenario(ScenarioSpec(
+                **spec, telemetry=tel)))
+            launches.append(dispatch.launch_counts())
+            if label == "cl":
+                tr.final = None
+            traces.append(tr)
+            rates.append(tr.events / secs)
+        off, on = traces
+        f = on.telemetry
+        same = torch.equal(off.theta_hist, on.theta_hist)
+        drops = f.drop_link + f.drop_churn + f.drop_partition
+        counters = all(np.array_equal(getattr(f, k), v)
+                       for k, v in totals.items()) \
+            and (drops[-1], f.delivered[-1], f.invalid[-1]) \
+            == (on.dropped, on.delivered, on.invalid)
+        if label == "joint":
+            stale = bool((f.staleness >= replay).all())
+            updates = np.array_equal(f.updates + f.suppressed, f.delivered)
+        else:
+            stale = np.array_equal(f.staleness, replay)
+            updates = np.array_equal(f.updates, f.delivered)
+        last = f.summarize()[-1]
+        log(f"[4i] {label}: telemetry off {rates[0]:.4g} events/s, on "
+            f"{rates[1]:.4g} ({rates[1] / rates[0]:.3f}x); theta_hist "
+            f"equal: {same}; launches {launches[1]}; counters equal to "
+            f"the stream's: {counters}; staleness "
+            f"{'>= the replay' if label == 'joint' else 'equal to the replay'}"
+            f": {stale}; updates: {updates}; last chunk objective "
+            f"{last['objective']:.6e}, staleness p50/p99/max "
+            f"{last['staleness_p50']:.0f}/{last['staleness_p99']:.0f}/"
+            f"{last['staleness_max']}, drops l/c/p {last['drop_link']}/"
+            f"{last['drop_churn']}/{last['drop_partition']}")
+        if not (same and counters and stale and updates) \
+                or launches[0] != launches[1] \
+                or not np.isfinite(f.objective).all():
+            return f"4i: {label} telemetry"
+        if label == "mp-fused":
+            rows = trace_rows(on)
+        del traces, off, on, tr
+    telemetry_costs(torch, spec_mp)
+    manifest = build_manifest(backend=dispatch.ReproBackend(), seed=SEED,
+                              extra=dict(phase="4i", scenario="lossy-10",
+                                         n=n, rounds=ROUNDS, batch=BATCH))
+    with tempfile.TemporaryDirectory() as tmp:
+        m2, rows2 = load_run(write_run(os.path.join(tmp, "run"), manifest,
+                                       rows))
+    log("[4i] " + render_summary(m2, rows2).replace("\n", "\n[4i] "))
+    if m2 != json.loads(json.dumps(manifest)) \
+            or rows2 != json.loads(json.dumps(rows)):
+        return "4i: the run directory did not round-trip"
+    return None
 
 
 def check_sparse_mix(torch, sm, table, idx, w, b, sol, order, label):
@@ -1087,6 +1361,12 @@ def main() -> int:
         return fail("synchronous path")
     del got, want, graph_inputs, sol_dense, P_dense, A_mix
 
+    # 4j. the multi-trial sweeps through graph_mix's trial axis ------------
+    batched, counts["sweep"], bad = check_sweeps(torch, np, dispatch, gm,
+                                                 dev)
+    if bad:
+        return fail(bad)
+
     # 4f. the paper's async gossip, dense and sparse ------------------------
     bad = check_async_gossip(torch, np, dev, g, topo, sol, c)
     if bad:
@@ -1096,7 +1376,7 @@ def main() -> int:
     bad = check_joint(torch, dispatch, dev, spec, po, rates["per-op"])
     if bad:
         return fail(bad)
-    del po, sol, c, w, b
+    del po, w, b                    # 4i runs MP again on ``spec``
 
     # 2cl. CL-ADMM data ----------------------------------------------------
     rng_cl = np.random.default_rng(SEED + 1)
@@ -1239,8 +1519,14 @@ def main() -> int:
     else:
         log("[5] the profiler recorded no device time: not measured")
 
+    # 4i. run telemetry on the MP, CL and joint paths ---------------------
+    bad = check_telemetry(torch, np, dispatch, spec, spec_cl)
+    if bad:
+        return fail(bad)
+
     # LM serving: free the simulator's state first ------------------------
     del ck, tr, ev, spec_cl, spec, data, x, sol_cl, stream, tabs, topo
+    del sol, c
     del cond, g, sol_np, c_np
     torch.cuda.empty_cache()
 
@@ -1399,10 +1685,17 @@ def main() -> int:
     summary = []
     for kr in kernels:
         kr["launches"] = counts[path_of[kr["name"]]][kr["name"]]
-        summary.append({k: kr[k] for k in (
+        row = {k: kr[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "design")})
+            "library_ms", "design")}
+        if kr["name"] == "graph_mix":           # its two paths
+            row["launches_by_path"] = {
+                "synchronous": kr["launches"],
+                "sweep": counts["sweep"]["graph_mix"]}
+            row["launches"] += counts["sweep"]["graph_mix"]
+            row["trial_axis"] = batched
+        summary.append(row)
     log(json.dumps({"kernels": summary}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -45,13 +45,21 @@ from .sparse import (admm_edge_halfstep, padded_neighbor_tables,
 
 
 def cl_objective(theta, W, mu, loss_fn, data: AgentData):
-    """Q_CL for per-agent models theta (n, p)."""
+    """Q_CL for per-agent models theta (n, p).  Leading axes are a batch of
+    problems (the sweeps' trials): theta (..., n, p), W (..., n, n), data
+    fields (..., n, m[, q]), mu a number or (...) -> (...)."""
     W = torch.as_tensor(W, dtype=theta.dtype, device=theta.device)
-    diff = theta[:, None, :] - theta[None, :, :]
-    smooth = 0.5 * torch.sum(W * torch.sum(diff * diff, dim=-1))
-    D = torch.sum(W, dim=1)
-    per_agent = torch.func.vmap(loss_fn)(theta, data.x, data.y, data.mask)
-    return smooth + mu * torch.sum(D * per_agent)
+    diff = theta[..., :, None, :] - theta[..., None, :, :]
+    smooth = 0.5 * torch.sum(W * torch.sum(diff * diff, dim=-1),
+                             dim=(-2, -1))
+    D = torch.sum(W, dim=-1)
+    rows = theta.shape[:-1]                   # (..., n) agents, flattened
+    per_agent = torch.func.vmap(loss_fn)(
+        theta.reshape(-1, theta.shape[-1]),
+        data.x.reshape(-1, *data.x.shape[len(rows):]),
+        data.y.reshape(-1, *data.y.shape[len(rows):]),
+        data.mask.reshape(-1, *data.mask.shape[len(rows):])).reshape(rows)
+    return smooth + mu * torch.sum(D * per_agent, dim=-1)
 
 
 def direct_minimize(graph: Graph, data: AgentData, mu: float, loss: str,
@@ -91,10 +99,15 @@ class ADMMState:
     L_nbr: torch.Tensor
 
     def models(self) -> torch.Tensor:
-        """(n, p) personal models — the diagonal blocks Theta_l^l."""
-        n = self.T.shape[0]
-        ar = torch.arange(n, device=self.T.device)
-        return self.T[ar, ar]
+        """(n, p) personal models — the diagonal blocks Theta_l^l (a view;
+        leading axes of T, the sweeps' trials, are kept)."""
+        return _diag_blocks(self.T)
+
+
+def _diag_blocks(T):
+    """(..., n, p) view of the diagonal blocks T[..., l, l, :] of a
+    (..., n, n, p) block array."""
+    return torch.diagonal(T, dim1=-3, dim2=-2).movedim(-1, -2)
 
 
 def init_state(graph: Graph, theta_sol, device=None) -> ADMMState:
@@ -190,17 +203,17 @@ def _edge_zl_update(st: ADMMState, i: int, j: int, rho: float):
 
 def _all_zl_update(st: ADMMState, mask, rho: float):
     """Synchronous Z + dual update of every edge at once (App. D steps
-    2-3)."""
+    2-3).  Leading axes of the state and ``mask`` (..., n, n) are a batch
+    of problems; ``rho`` is then a number or broadcasts as (..., 1, 1, 1).
+    """
     T = st.T
-    n = T.shape[0]
-    ar = torch.arange(n, device=T.device)
-    diag = T[ar, ar]
-    z_own_new = 0.5 * ((st.L_own + st.L_nbr.transpose(0, 1)) / rho
-                       + diag[:, None, :] + T.transpose(0, 1))
-    m3 = mask[:, :, None]
+    diag = _diag_blocks(T)[..., :, None, :]
+    z_own_new = 0.5 * ((st.L_own + st.L_nbr.transpose(-3, -2)) / rho
+                       + diag + T.transpose(-3, -2))
+    m3 = mask[..., None]
     Z_own = torch.where(m3, z_own_new, st.Z_own)
-    Z_nbr = torch.where(m3, z_own_new.transpose(0, 1), st.Z_nbr)
-    st.L_own = torch.where(m3, st.L_own + rho * (diag[:, None, :] - Z_own),
+    Z_nbr = torch.where(m3, z_own_new.transpose(-3, -2), st.Z_nbr)
+    st.L_own = torch.where(m3, st.L_own + rho * (diag - Z_own),
                            st.L_own)
     st.L_nbr = torch.where(m3, st.L_nbr + rho * (T - Z_nbr), st.L_nbr)
     st.Z_own, st.Z_nbr = Z_own, Z_nbr

@@ -36,25 +36,31 @@ def mp_mix_operator(P_rows, c, alpha):
 
     A_mix = diag(alpha / (alpha + abar c)) P,  b = abar c / (alpha + abar c).
     ``P_rows`` may be the dense (n, n) stochastic matrix or the (n, k)
-    padded-neighbor slot weights (row scaling is identical).
+    padded-neighbor slot weights (row scaling is identical).  Leading axes
+    are a batch of problems: P_rows (..., n, n|k), c (..., n), alpha a
+    number or (..., 1).
     """
     abar = 1.0 - alpha
     denom = alpha + abar * c
-    A_mix = (alpha / denom)[:, None] * P_rows
+    A_mix = (alpha / denom)[..., None] * P_rows
     b = abar * c / denom
     return A_mix, b
 
 
 def mp_objective(theta, theta_sol, W, c, mu):
-    """Q_MP — used by tests to verify optimality of the closed form."""
+    """Q_MP — used by tests to verify optimality of the closed form, and
+    by the sweeps.  Leading axes are a batch of problems: theta, theta_sol
+    (..., n, p), W (..., n, n), c (..., n), mu a number or (...) ->
+    (...)."""
     W = torch.as_tensor(W, dtype=theta.dtype, device=theta.device)
-    diff = theta[:, None, :] - theta[None, :, :]
+    diff = theta[..., :, None, :] - theta[..., None, :, :]
     # sum_{i<j} W_ij ||.||^2 == 1/2 sum_{i,j} W_ij ||.||^2 for symmetric W,
     # and Q_MP carries an outer 1/2 -> 0.25 overall.
-    smooth = 0.25 * torch.sum(W * torch.sum(diff * diff, dim=-1))
-    D = torch.sum(W, dim=1)
+    smooth = 0.25 * torch.sum(W * torch.sum(diff * diff, dim=-1),
+                              dim=(-2, -1))
+    D = torch.sum(W, dim=-1)
     anchor = 0.5 * mu * torch.sum(
-        D * c * torch.sum((theta - theta_sol) ** 2, dim=-1))
+        D * c * torch.sum((theta - theta_sol) ** 2, dim=-1), dim=-1)
     return smooth + anchor
 
 

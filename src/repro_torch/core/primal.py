@@ -118,6 +118,11 @@ class InexactPrimal:
             return guarded_loss(self.loss)
         return guarded_loss(self.loss, flat_predictor(self.model))
 
+    def batch_local_loss(self, theta_all, x, y, mask):
+        """(n,) guarded local losses of the agents' rows — telemetry's
+        Eq. 7 loss term."""
+        return torch.func.vmap(self.loss_fn())(theta_all, x, y, mask)
+
     def solve_batch(self, w_rows, live_rows, z_own, z_nbr, l_own, l_nbr,
                     D_rows, m_rows, sx_rows, xym, theta_rows, mu, rho,
                     backend=None):

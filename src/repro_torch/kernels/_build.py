@@ -38,8 +38,8 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points and their argument types (pointers, sizes, scalars,
 #: stream last for those that launch).
 SIGNATURES = {
-    # A, theta, sol, b, out, n, D, stream
-    "repro_graph_mix": (P, P, P, P, P, I, I, P),
+    # A, theta, sol, b, out, T, n, D, stream
+    "repro_graph_mix": (P, P, P, P, P, I, I, I, P),
     # table, idx, w, b, sol, order (or NULL), out, N, n, k, p, stream
     "repro_sparse_gather_mix": (P,) * 7 + (I,) * 4 + (P,),
     # theta, Ke, got_ever, msg, k_old, tgt_row, enc, theta_base, a_w,

@@ -2,9 +2,13 @@
 //
 //     out = A @ theta + b[:, None] * theta_sol        (all float32)
 //
+// for T independent trials (T = 1 for one problem): A (T, n, n), theta and
+// theta_sol (T, n, D), b (T, n).
+//
 // Replaces the Pallas TPU kernel repro/kernels/graph_mix.py::graph_mix
 // (_kernel), which keeps A resident in VMEM and feeds (n x n) @ (n x 512)
-// tiles to the MXU.
+// tiles to the MXU; under the sweeps' vmap it gains a batch grid
+// dimension, as this kernel does (blockIdx.z is the trial).
 //
 // Bound on an H100: 2 n^2 D floating-point operations on (2 n D + n^2 + n)
 // floats moved: compute bound.  At the main path's n = 2048, D = 4096 that
@@ -39,6 +43,23 @@
 //   - The anchor b[i] * sol[i, d] is added in the epilogue, so theta_sol is
 //     read once and out written once.
 //   - No atomics: a replay is bit-identical.
+//   - Trials: blockIdx.z picks the trial, whose A, theta, theta_sol, b and
+//     out start n*n, n*D, n*D, n and n*D floats after the previous one's.
+//     A trial's blocks compute exactly what the same problem alone does.
+//
+// Narrow models (D <= SMALL_D, the sweeps' scalar models at D = 1) take a
+// second kernel, graph_mix_rows_kernel: one warp per output row of one
+// trial, each lane an FFMA over a strided share of the row's n products,
+// then a shuffle sum.  Two reasons.  Correctness: the tensor core adds its
+// float32 accumulator with truncation, not IEEE rounding, so the 3xTF32
+// kernel's error has a sign; a sweep feeds each step's output back in for
+// hundreds of steps, and on the card it drifted 1.0e-5 from the float32
+// plain version after 40 steps at n = 60, D = 1, the 1e-5 bar; FFMA with
+// IEEE adds has no such drift.  Cost: at D = 1 a 128-column tile is 127
+// columns of zero fill, while a row read by a warp moves A's n^2 floats a
+// trial once, coalesced, which is the bound.  Each row's sum is
+// independent of T, so a trial's result equals its own launch bit for bit
+// on both kernels.
 //   - mma.sync issues TF32 well below wgmma's rate on Hopper, and the split
 //     sits on each fragment's path from shared memory to the tensor core,
 //     so the kernel is bound by mma.sync latency and issue, not by the
@@ -118,6 +139,14 @@ graph_mix_kernel(const float* __restrict__ A, const float* __restrict__ X,
                  const float* __restrict__ S, const float* __restrict__ b,
                  float* __restrict__ out, int n, int D, int a_vec, int x_vec,
                  int out_vec) {
+  {  // this block's trial
+    const size_t z = blockIdx.z, nn = (size_t)n * n, nd = (size_t)n * D;
+    A += z * nn;
+    X += z * nd;
+    S += z * nd;
+    b += z * n;
+    out += z * nd;
+  }
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);   // STAGES x [BM][A_LD]
   float* Xs = As + STAGES * A_STAGE;             // STAGES x [BK][X_LD]
@@ -213,26 +242,80 @@ graph_mix_kernel(const float* __restrict__ A, const float* __restrict__ X,
     }
 }
 
-bool aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+constexpr int SMALL_D = 8;          // widest D the rows kernel takes
+constexpr int ROWS_THREADS = 256;   // 8 warps, one row each
+
+// out[z, i, :] = A[z, i, :] @ theta[z] + b[z, i] * sol[z, i, :] for row
+// r = z * n + i of warp r: lanes take k = lane, lane + 32, ... (A's row
+// read coalesced), FFMA into D accumulators, then a butterfly sum
+__global__ void __launch_bounds__(ROWS_THREADS)
+graph_mix_rows_kernel(const float* __restrict__ A,
+                      const float* __restrict__ X,
+                      const float* __restrict__ S,
+                      const float* __restrict__ b, float* __restrict__ out,
+                      int n, int D, long long rows) {
+  const long long r = ((long long)blockIdx.x * ROWS_THREADS + threadIdx.x)
+                      >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const long long z = r / n;
+  const float* a = A + r * n;                    // (z * n + i) * n
+  const float* x = X + z * n * D;
+  float acc[SMALL_D];
+#pragma unroll
+  for (int d = 0; d < SMALL_D; ++d) acc[d] = 0.f;
+  for (int k = lane; k < n; k += 32) {
+    const float av = a[k];
+#pragma unroll
+    for (int d = 0; d < SMALL_D; ++d)
+      if (d < D) acc[d] = fmaf(av, x[(size_t)k * D + d], acc[d]);
+  }
+#pragma unroll
+  for (int d = 0; d < SMALL_D; ++d) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], off);
+  }
+  const float br = b[r];
+#pragma unroll
+  for (int d = 0; d < SMALL_D; ++d)
+    if (d < D && lane == d) {
+      const size_t o = (size_t)r * D + d;
+      out[o] = acc[d] + br * S[o];
+    }
+}
+
+// whether every trial's base, p + z * stride floats for z < T, is
+// aligned to ``bytes``
+bool aligned(const void* p, size_t stride, int T, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0 &&
+         (T == 1 || stride * sizeof(float) % bytes == 0);
 }
 
 }  // namespace
 
-// A (n, n), theta (n, D), sol (n, D), b (n,), out (n, D): contiguous f32
-// on the device.  Returns cudaGetLastError() after the launch.
+// A (T, n, n), theta (T, n, D), sol (T, n, D), b (T, n), out (T, n, D):
+// contiguous f32 on the device, T <= 65535.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int repro_graph_mix(const float* A, const float* theta,
                                const float* sol, const float* b, float* out,
-                               int n, int D, cudaStream_t stream) {
-  if (n > 0 && D > 0) {
+                               int T, int n, int D, cudaStream_t stream) {
+  if (T > 0 && n > 0 && D > 0 && D <= SMALL_D) {
+    const long long rows = (long long)T * n;
+    const long long blocks = (rows * 32 + ROWS_THREADS - 1) / ROWS_THREADS;
+    graph_mix_rows_kernel<<<(unsigned)blocks, ROWS_THREADS, 0, stream>>>(
+        A, theta, sol, b, out, n, D, rows);
+  } else if (T > 0 && n > 0 && D > 0) {
     cudaError_t err = cudaFuncSetAttribute(
         graph_mix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    const int a_vec = n % 4 == 0 && aligned(A, 16);
-    const int x_vec = D % 4 == 0 && aligned(theta, 16);
-    const int out_vec = D % 2 == 0 && aligned(sol, 8) && aligned(out, 8);
-    dim3 grid((D + BN - 1) / BN, (n + BM - 1) / BM);
+    const size_t nn = (size_t)n * n, nd = (size_t)n * D;
+    const int a_vec = n % 4 == 0 && aligned(A, nn, T, 16);
+    const int x_vec = D % 4 == 0 && aligned(theta, nd, T, 16);
+    const int out_vec = D % 2 == 0 && aligned(sol, nd, T, 8) &&
+                        aligned(out, nd, T, 8);
+    dim3 grid((D + BN - 1) / BN, (n + BM - 1) / BM, T);
     graph_mix_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
         A, theta, sol, b, out, n, D, a_vec, x_vec, out_vec);
   }

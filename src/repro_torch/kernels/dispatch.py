@@ -28,7 +28,9 @@ kernels' launch counters.
 
 Canonical signatures (shared by every impl of an op):
 
-    mix:        (theta (n,D), theta_sol (n,D), A (n,n), b (n,)) -> (n,D)
+    mix:        (theta (T?,n,D), theta_sol (T?,n,D), A (T?,n,n), b (T?,n))
+                -> (T?,n,D); the leading trial axis is optional, and the
+                kernel takes all trials in one launch
     sparse_mix: (table (N,p), idx (n,k) int32, w (n,k), b (n,),
                  sol (n,p), *, order=None) -> (n,p); order, an (n,)
                  int32 row permutation, is the kernel's row schedule

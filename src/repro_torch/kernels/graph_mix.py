@@ -1,10 +1,13 @@
 """``graph_mix``: the dense model-propagation step (paper Eq. 5),
-``out = A @ theta + b[:, None] * theta_sol``.
+``out = A @ theta + b[:, None] * theta_sol``, for one problem or for T
+trials at once along an optional leading axis (the sweeps' trial axis: one
+launch for all trials).
 
 The CUDA kernel (``csrc/graph_mix.cu``: 3xTF32 on the tensor cores with
 ``mma.sync``, operands split into TF32 hi and lo in registers so that the
 result keeps float32 accuracy, a 3-stage ``cp.async`` pipeline, the anchor
-fused into the epilogue) replaces the Pallas TPU kernel
+fused into the epilogue; for narrow models, D <= 8, one warp per output
+row in FFMA) replaces the Pallas TPU kernel
 ``repro/kernels/graph_mix.py::graph_mix``; the source note there says what
 bounds it on the H100 and how the design answers that.  Beside it sits the
 plain PyTorch version (``kernels.ref.graph_mix``), which runs for tensors
@@ -23,10 +26,21 @@ from .ref import graph_mix as graph_mix_plain
 launches = 0
 
 
+#: The most trials one launch takes (CUDA's grid z limit).
+MAX_TRIALS = 65535
+
+
 def _check(theta, theta_sol, A, b):
-    n, D = theta.shape
-    want = {"theta": (theta, (n, D)), "theta_sol": (theta_sol, (n, D)),
-            "A": (A, (n, n)), "b": (b, (n,))}
+    if theta.dim() not in (2, 3):
+        raise ValueError(f"graph_mix: theta must be (n, D) or (T, n, D), "
+                         f"got {tuple(theta.shape)}")
+    lead, (n, D) = tuple(theta.shape[:-2]), theta.shape[-2:]
+    if lead and not 0 < lead[0] <= MAX_TRIALS:
+        raise ValueError(f"graph_mix: {lead[0]} trials; one launch takes "
+                         f"1 to {MAX_TRIALS}")
+    want = {"theta": (theta, lead + (n, D)),
+            "theta_sol": (theta_sol, lead + (n, D)),
+            "A": (A, lead + (n, n)), "b": (b, lead + (n,))}
     for name, (t, shape) in want.items():
         if t.device != theta.device:
             raise ValueError(f"graph_mix: {name} on {t.device}, theta on "
@@ -42,9 +56,11 @@ def _check(theta, theta_sol, A, b):
 
 
 def graph_mix(theta, theta_sol, A, b):
-    """theta, theta_sol: (n, D); A: (n, n); b: (n,) -> (n, D), float32.
+    """theta, theta_sol: (T?, n, D); A: (T?, n, n); b: (T?, n) ->
+    (T?, n, D), float32; the leading trial axis is optional.
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    CUDA tensors launch the kernel, once for all trials; CPU tensors take
+    the plain version.
     """
     global launches
     if theta.device.type == "cpu":
@@ -52,10 +68,11 @@ def graph_mix(theta, theta_sol, A, b):
     if theta.device.type != "cuda":
         raise ValueError(f"graph_mix: no kernel for {theta.device}")
     _check(theta, theta_sol, A, b)
-    n, D = theta.shape
+    n, D = theta.shape[-2:]
+    trials = theta.shape[0] if theta.dim() == 3 else 1
     out = torch.empty_like(theta)
     _build.launch("repro_graph_mix", A.data_ptr(), theta.data_ptr(),
                   theta_sol.data_ptr(), b.data_ptr(), out.data_ptr(),
-                  n, D, device=theta.device)
+                  trials, n, D, device=theta.device)
     launches += 1
     return out

@@ -24,13 +24,25 @@ from repro_torch.optim.adamw import adamw_rows
 
 
 def graph_mix(theta, theta_sol, A, b):
-    """Fused model-propagation step: ``A @ theta + b[:, None] * theta_sol``.
+    """Fused model-propagation step: ``A @ theta + b[..., None] *
+    theta_sol``, f32 accumulation.
 
-    theta, theta_sol: (n, D); A: (n, n); b: (n,).  f32 accumulation.
+    theta, theta_sol: (T?, n, D); A: (T?, n, n); b: (T?, n), with an
+    optional leading trial axis taken through batched ``@``.  At D = 1 the
+    product is a multiply and a row sum instead: torch's CPU matmul folds
+    one (n, n) @ (n, 1) product into a matrix-vector call and a batch of
+    them into a batched gemm, which sum in different orders, while a row
+    sum adds in the same order however many rows there are.  So on the CPU
+    each trial of a batched call equals the unbatched call on that trial
+    bit for bit.
     """
     f = torch.float32
-    return (A.to(f) @ theta.to(f)
-            + b.to(f)[:, None] * theta_sol.to(f)).to(theta.dtype)
+    A32, th32 = A.to(f), theta.to(f)
+    if theta.shape[-1] == 1:
+        prod = torch.sum(A32 * th32.transpose(-1, -2), dim=-1, keepdim=True)
+    else:
+        prod = A32 @ th32
+    return (prod + b.to(f)[..., None] * theta_sol.to(f)).to(theta.dtype)
 
 
 def sparse_gather_mix(table, idx, w, b, sol, *, order=None):
@@ -341,10 +353,13 @@ def edge_reweight(d, w, live, *, eta: float, lam: float):
     toward it:  w' = (1 - eta) w + eta proj(-d / (2 lam)).  d: (..., k)
     dissimilarities (ignored at dead slots); w: (..., k) row-stochastic
     weights; live: (..., k) bool.  Slots outside ``live`` get an exact 0;
-    rows with no live slot come back all zero.
+    rows with no live slot come back all zero.  ``eta`` and ``lam`` are
+    numbers, or float32 tensors that broadcast against the rows (the
+    sweeps' per-trial values, (T, 1, 1)).
     """
     f = torch.float32
-    two_lam = torch.full((), 2.0 * lam, dtype=f, device=d.device)
+    two_lam = 2.0 * lam if isinstance(lam, torch.Tensor) \
+        else torch.full((), 2.0 * lam, dtype=f, device=d.device)
     target = simplex_project_rows(-d.to(f) / two_lam, live)
     out = (1.0 - eta) * w.to(f) + eta * target
     return torch.where(live, out, 0.0).to(w.dtype)

@@ -56,6 +56,9 @@ from repro_torch.kernels.dispatch import (ReproBackend, cl_stale_prefetch,
                                           round_prefetch, round_scales,
                                           round_stale_src)
 from repro_torch.kernels.ref import landed
+from repro_torch.telemetry import metrics as tmetrics
+from repro_torch.telemetry.config import TelemetryConfig, telemetry_on
+from repro_torch.telemetry.frames import TelemetryFrames
 from .scheduler import (EventStream, NetworkConditions,
                         precompute_event_stream, stream_totals)
 from .topology import SparseTopology
@@ -179,6 +182,8 @@ class SimTrace:
     rounds, events: totals (events = wake-ups = 2 attempted messages each)
     invalid:      never-valid wake-ups — excluded from delivered AND
                   dropped, so  delivered + dropped == 2 * (events - invalid)
+    telemetry:    TelemetryFrames when the run was launched with
+                  ``TelemetryConfig(enabled=True)``, else None
     """
 
     theta_hist: torch.Tensor
@@ -188,6 +193,46 @@ class SimTrace:
     rounds: int
     events: int
     invalid: int = 0
+    telemetry: Optional[TelemetryFrames] = None
+
+
+class _Telemetry:
+    """A run's telemetry state on the device (DESIGN.md §14): per-agent
+    staleness counters and the applied-update count, advanced every round
+    from the round's ``got`` sides (no host synchronisation), and the
+    per-chunk snapshots, copied to the host once by :meth:`frames`."""
+
+    def __init__(self, n: int, device):
+        self.n = n
+        self.stale = torch.zeros(n, dtype=torch.int32, device=device)
+        self.updates = torch.zeros((), dtype=torch.int64, device=device)
+        self.snaps = []
+
+    def round(self, upd, got):
+        """Advance the counters by one round: ``upd`` (2B,) agents, ``got``
+        (2B,) whether each applied a neighbor update."""
+        self.stale = tmetrics.staleness_step(self.stale, got, upd, self.n)
+        self.updates += got.sum()
+
+    def chunk(self, objective, suppressed=None):
+        """Snapshot the end of a record chunk with its (n,) objective."""
+        self.snaps.append((objective, self.stale.clone(),
+                           self.updates.clone(),
+                           None if suppressed is None
+                           else suppressed.clone()))
+
+    def frames(self, stream, n_rec: int, record_every: int):
+        """The run's TelemetryFrames; the counters come from the stream
+        (``metrics.stream_chunk_totals``)."""
+        obj, stale, upd, sup = zip(*self.snaps)
+        return TelemetryFrames(
+            rounds=(np.arange(n_rec) + 1) * record_every,
+            objective=torch.stack(obj).cpu().numpy(),
+            staleness=torch.stack(stale).cpu().numpy(),
+            updates=torch.stack(upd).cpu().numpy(),
+            suppressed=None if sup[0] is None
+            else torch.stack(sup).cpu().numpy(),
+            **tmetrics.stream_chunk_totals(stream, n_rec, record_every))
 
 
 def run_mp_scenario(topo: SparseTopology, theta_sol, c, alpha: float,
@@ -195,6 +240,7 @@ def run_mp_scenario(topo: SparseTopology, theta_sol, c, alpha: float,
                     batch: int, seed: int = 0, record_every: int = 10,
                     backend: Optional[ReproBackend] = None,
                     stream: Optional[EventStream] = None,
+                    telemetry: Optional[TelemetryConfig] = None,
                     device=None) -> SimTrace:
     """MP gossip under a fault scenario, B wake-ups per round.
 
@@ -212,6 +258,13 @@ def run_mp_scenario(topo: SparseTopology, theta_sol, c, alpha: float,
     batched Eq. 6 update).  A ``backend`` runs the fused ``round_step`` op
     over the flat id-column slot table, telescoping Eq. 6 from slot
     deltas; its state is updated in place.
+
+    ``telemetry=TelemetryConfig(enabled=True)`` attaches
+    ``SimTrace.telemetry``: per round the staleness and update counters of
+    the receiving sides, per record chunk the Eq. 3 local objective
+    (``telemetry.metrics.mp_local_objective``), and the stream's drop
+    attribution.  It only observes: ``theta_hist`` is bit-identical to the
+    run without it.
     """
     device = resolve_device(device)
     tabs, theta_sol, c = _payload(topo, theta_sol, c, device)
@@ -226,19 +279,21 @@ def run_mp_scenario(topo: SparseTopology, theta_sol, c, alpha: float,
                          f"{stream.i.shape[1]}); the run needs "
                          f"({total_rounds}, {batch})")
 
+    tel = _Telemetry(topo.n, device) if telemetry_on(telemetry) else None
     body = _fused_rounds if backend is not None else _per_op_rounds
     hist = body(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
-                record_every, backend)
+                record_every, backend, tel=tel)
     ends = torch.arange(1, n_rec + 1, device=device) * record_every - 1
-    delivered, dropped, invalid = stream_totals(
-        EventStream(*(f[:total_rounds] for f in stream)))
+    run = EventStream(*(f[:total_rounds] for f in stream))
+    delivered, dropped, invalid = stream_totals(run)
+    frames = None if tel is None else tel.frames(run, n_rec, record_every)
     return SimTrace(torch.stack(hist), stream.active_frac[ends],
                     delivered, dropped, total_rounds, total_rounds * batch,
-                    invalid)
+                    invalid, telemetry=frames)
 
 
 def _per_op_rounds(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
-                   record_every, backend, graph=None):
+                   record_every, backend, graph=None, tel=None):
     """The per-op round body; returns the recorded theta snapshots.
 
     Undelivered messages and non-receivers are redirected to a trash row
@@ -248,7 +303,9 @@ def _per_op_rounds(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
     ``graph`` (a :class:`_LearnedGraph`, joint runs only) supplies the
     mixing weights in place of ``tabs.nbr_p``, voids deliveries into a
     pruned receiver slot and runs the graph step; without it the body is
-    the MP round.
+    the MP round.  ``tel`` (a :class:`_Telemetry`) observes each round's
+    receiving sides and each chunk's Eq. 3 objective (under the learned
+    weights, pruned slots at 0, in joint runs).
     """
     n, p = theta_sol.shape
     k = tabs.nbr_idx.shape[1]
@@ -288,21 +345,31 @@ def _per_op_rounds(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
         theta[torch.where(got, upd, n)] = new
         if graph is not None and graph.due(t):
             w = graph.step(theta[:n], K[:nk].view(n, k, p), backend)
+        if tel is not None:
+            tel.round(upd, got)
         if (t + 1) % record_every == 0:
             hist.append(theta[:n].clone())
             if graph is not None:
                 graph.record()
+            if tel is not None:
+                w_obj = w if graph is None \
+                    else torch.where(graph.live, graph.w, 0.0)
+                tel.chunk(tmetrics.mp_local_objective(
+                    theta[:n], K[:nk].view(n, k, p), w_obj, c, theta_sol,
+                    alpha), None if graph is None else graph.suppressed)
     return hist
 
 
 def _fused_rounds(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
-                  record_every, backend):
+                  record_every, backend, tel=None):
     """The fused round body over the flat id-column slot table.
 
     Round t's stale-message source (theta at the start of round t-1) is
     gathered before round t-1's in-place step overwrites it; the fresh
     messages and the pre-scatter slot values are gathered at the start of
-    round t, after round t-1's scatters.
+    round t, after round t-1's scatters.  ``tel`` observes as in
+    :func:`_per_op_rounds`; the chunk objective reads the slot table's
+    first p columns through a strided view.
     """
     n, p = theta_sol.shape
     device = theta_sol.device
@@ -334,8 +401,16 @@ def _fused_rounds(tabs, theta_sol, c, alpha, conditions, stream, n_rec,
         stale_src = stale_src_of(t + 1, theta)
         theta, Ke, got_ever, _ = step(theta, Ke, got_ever, msg, tgt_row,
                                       enc, k_old, theta_base, a_w)
+        if tel is not None:
+            tel.round(torch.cat([ev.i, ev.j]),
+                      torch.cat([ev.deliver_ji, ev.deliver_ij]))
         if (t + 1) % record_every == 0:
             hist.append(theta.clone())
+            if tel is not None:
+                # the slot values: Ke's first p columns, a strided view
+                tel.chunk(tmetrics.mp_local_objective(
+                    theta, Ke.view(n, -1, p + 1)[:, :, :p], tabs.nbr_p, c,
+                    theta_sol, alpha))
     return hist
 
 
@@ -488,6 +563,7 @@ def run_cl_scenario(topo: SparseTopology, data: AgentData, mu: float,
                     theta_sol=None, state: Optional[SparseADMMState] = None,
                     stream: Optional[EventStream] = None,
                     backend: Optional[ReproBackend] = None, primal=None,
+                    telemetry: Optional[TelemetryConfig] = None,
                     device=None) -> CLSimTrace:
     """Asynchronous CL-ADMM (paper §4.2) under a fault scenario, B
     wake-ups per round, on ``device`` (CUDA when None).
@@ -521,6 +597,13 @@ def run_cl_scenario(topo: SparseTopology, data: AgentData, mu: float,
        delivered side updates its own (Z_own, Z_nbr, L_own, L_nbr) slot
        from its post-primal cells and the partner's payload (fresh, or
        the prefetched stale rows).
+
+    ``telemetry=TelemetryConfig(enabled=True)`` attaches
+    ``CLSimTrace.telemetry``: per round the staleness and update counters
+    of the sides that got their partner's payload, per record chunk the
+    Eq. 7 local objective (the quadratic form through the sufficient
+    statistics, or the solver's ``batch_local_loss`` for a solver that
+    needs data), and the stream's drop attribution.  It only observes.
     """
     device = resolve_device(device)
     if primal is None:
@@ -545,6 +628,13 @@ def run_cl_scenario(topo: SparseTopology, data: AgentData, mu: float,
     n, k = tabs.nbr_w.shape
     edge_step = resolve("cl_edge_step", backend, device)
     live = live_slots(tabs.deg_count, k)
+    tel = None
+    if telemetry_on(telemetry):
+        tel = _Telemetry(n, device)
+        if not primal.needs_data:
+            # the quadratic objective's one statistic the engine lacks
+            x, mask = data.x.to(device), data.mask.to(device)
+            sxx = torch.sum(mask * torch.sum(x * x, dim=-1), dim=1)
 
     sides = _event_sides(stream.batch_at(0))
     pay = cl_stale_prefetch(st.theta, st.K, st.L_own, st.L_nbr, sides[2],
@@ -574,15 +664,27 @@ def run_cl_scenario(topo: SparseTopology, data: AgentData, mu: float,
                                          nxt[2], nxt[3])
         edge_step(st.theta, st.K, st.Z_own, st.Z_nbr, st.L_own, st.L_nbr,
                   *pay, *sides, rho=rho)
+        if tel is not None:
+            tel.round(upd, got)
         sides, pay = nxt, pay_next
         if (t + 1) % record_every == 0:
             hist.append(st.theta.clone())
+            if tel is not None:
+                if primal.needs_data:
+                    obj = tmetrics.cl_local_objective_from_loss(
+                        st.theta, st.K, tabs.nbr_w, live, D,
+                        primal.batch_local_loss(st.theta, *xym), mu)
+                else:
+                    obj = tmetrics.cl_local_objective(
+                        st.theta, st.K, tabs.nbr_w, live, D, m, sx, sxx, mu)
+                tel.chunk(obj)
     ends = torch.arange(1, n_rec + 1, device=device) * record_every - 1
-    delivered, dropped, invalid = stream_totals(
-        EventStream(*(f[:total_rounds] for f in stream)))
+    run = EventStream(*(f[:total_rounds] for f in stream))
+    delivered, dropped, invalid = stream_totals(run)
+    frames = None if tel is None else tel.frames(run, n_rec, record_every)
     return CLSimTrace(torch.stack(hist), stream.active_frac[ends],
                       delivered, dropped, total_rounds, total_rounds * batch,
-                      invalid, final=st)
+                      invalid, telemetry=frames, final=st)
 
 
 # ---------------------------------------------------------------------------
@@ -663,6 +765,7 @@ def run_joint_scenario(topo: SparseTopology, theta_sol, c, alpha: float,
                        prune_eps: Optional[float] = None,
                        stream: Optional[EventStream] = None,
                        backend: Optional[ReproBackend] = None,
+                       telemetry: Optional[TelemetryConfig] = None,
                        device=None) -> JointSimTrace:
     """Joint MP gossip and collaboration-graph learning under a fault
     scenario (Zantedeschi et al. 2019 alternation; DESIGN.md §13), on
@@ -685,6 +788,13 @@ def run_joint_scenario(topo: SparseTopology, theta_sol, c, alpha: float,
     ``run_mp_scenario(backend=None)`` on the same events: both are the
     one per-op round body.  ``backend`` selects per-op implementations
     (there is no fused joint body).
+
+    ``telemetry=TelemetryConfig(enabled=True)`` attaches
+    ``JointSimTrace.telemetry`` as in :func:`run_mp_scenario`, with the
+    staleness and update counters of the *admitted* deliveries (a delivery
+    voided by a pruned receiver slot does not count, so joint staleness is
+    not a replay of the stream), the Eq. 3 objective under the learned
+    weights with pruned slots at 0, and ``suppressed`` per chunk.
     """
     device = resolve_device(device)
     tabs, theta_sol, c = _payload(topo, theta_sol, c, device)
@@ -699,14 +809,17 @@ def run_joint_scenario(topo: SparseTopology, theta_sol, c, alpha: float,
                          f"{stream.i.shape[1]}); the run needs "
                          f"({total_rounds}, {batch})")
     graph = _LearnedGraph(tabs, eta_graph, lam, graph_every, prune_eps)
+    tel = _Telemetry(topo.n, device) if telemetry_on(telemetry) else None
     hist = _per_op_rounds(tabs, theta_sol, c, alpha, conditions, stream,
-                          n_rec, record_every, backend, graph)
+                          n_rec, record_every, backend, graph, tel)
     ends = torch.arange(1, n_rec + 1, device=device) * record_every - 1
-    delivered, dropped, invalid = stream_totals(
-        EventStream(*(f[:total_rounds] for f in stream)))
+    run = EventStream(*(f[:total_rounds] for f in stream))
+    delivered, dropped, invalid = stream_totals(run)
+    frames = None if tel is None else tel.frames(run, n_rec, record_every)
     return JointSimTrace(torch.stack(hist), stream.active_frac[ends],
                          delivered, dropped, total_rounds,
-                         total_rounds * batch, invalid, final_w=graph.w,
+                         total_rounds * batch, invalid, telemetry=frames,
+                         final_w=graph.w,
                          final_live=graph.live,
                          live_edges_hist=torch.stack(graph.edges),
                          suppressed=int(graph.suppressed))

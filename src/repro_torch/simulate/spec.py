@@ -6,10 +6,14 @@
 joint model and graph-learning engine (``"joint"``) on ``spec.device``
 (CUDA when None).  ``stream=`` is accepted for all three: torch cannot
 replay ``jax.random``, so a precomputed EventStream is how the port takes
-the reference's draws.
+the reference's draws.  ``telemetry=TelemetryConfig(enabled=True)``
+attaches the run's metrics (``repro_torch.telemetry``) to the trace.
 
-Telemetry, sharding and serving are not ported yet; each raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The spec carries every field of the JAX package's.  Sharding and serving
+are not ported yet: ``sharded=True`` and ``serve=`` raise
+``NotImplementedError`` naming the ROADMAP item that ports each; their
+knobs (``n_shards`` ... ``recompact_frac``, ``serve_batch``) are read only
+by those runners.
 """
 
 from __future__ import annotations
@@ -24,7 +28,6 @@ _ALGOS = ("mp", "cl", "joint")
 
 #: What is not ported yet, and the ROADMAP queue-1 item that ports it.
 _LATER = {
-    "telemetry": "ROADMAP queue 1 item 7 (scenario API and telemetry)",
     "serve": "ROADMAP queue 1 item 9 (serving)",
     "sharded": "ROADMAP queue 1 item 10 (multi-GPU)",
 }
@@ -46,10 +49,13 @@ class ScenarioSpec:
     events:   stream — a precomputed EventStream to replay (otherwise
               drawn from ``seed`` by the torch scheduler)
     exec:     backend (mp: fused round_step when given; all: per-op impl
-              choice), device (CUDA when None)
-
-    Telemetry, sharding and serving are fields of the JAX spec that this
-    port does not run yet.
+              choice), telemetry (TelemetryConfig), device (CUDA when None)
+    sharding: sharded plus the partitioned runner's knobs (n_shards, mesh,
+              assignment, local_batch, exchange, halo_codec,
+              partition_seed, recompact_every/frac — joint only); not
+              ported yet
+    serving:  serve (a stream of inference requests), serve_batch (decode
+              batch width); not ported yet
     """
 
     algo: str
@@ -75,8 +81,20 @@ class ScenarioSpec:
     backend: Any = None
     device: Any = None
     telemetry: Any = None
+    # sharding
     sharded: bool = False
+    n_shards: Optional[int] = None
+    mesh: Any = None
+    assignment: Any = None
+    local_batch: Optional[int] = None
+    exchange: str = "all_gather"
+    halo_codec: Any = "f32"
+    partition_seed: int = 0
+    recompact_every: Optional[int] = None
+    recompact_frac: float = 0.25
+    # serving
     serve: Any = None
+    serve_batch: int = 256
 
     def __post_init__(self):
         if self.algo not in _ALGOS:
@@ -105,9 +123,6 @@ def run_scenario(spec: ScenarioSpec):
         _not_ported("sharded")
     if spec.serve is not None:
         _not_ported("serve")
-    if spec.telemetry is not None and getattr(spec.telemetry, "enabled",
-                                              True):
-        _not_ported("telemetry")
     if spec.algo == "cl":
         spec._require(data=spec.data, mu=spec.mu, rho=spec.rho)
         if spec.state is None:
@@ -117,7 +132,7 @@ def run_scenario(spec: ScenarioSpec):
             spec.rounds, spec.batch, seed=spec.seed,
             record_every=spec.record_every, theta_sol=spec.theta_sol,
             state=spec.state, stream=spec.stream, backend=spec.backend,
-            primal=spec.primal, device=spec.device)
+            primal=spec.primal, telemetry=spec.telemetry, device=spec.device)
     spec._require(theta_sol=spec.theta_sol, c=spec.c)
     if spec.algo == "joint":
         return _engines.run_joint_scenario(
@@ -126,9 +141,10 @@ def run_scenario(spec: ScenarioSpec):
             record_every=spec.record_every, eta_graph=spec.eta_graph,
             lam=spec.lam, graph_every=spec.graph_every,
             prune_eps=spec.prune_eps, stream=spec.stream,
-            backend=spec.backend, device=spec.device)
+            backend=spec.backend, telemetry=spec.telemetry,
+            device=spec.device)
     return _engines.run_mp_scenario(
         spec.topology, spec.theta_sol, spec.c, spec.alpha, spec.conditions,
         spec.rounds, spec.batch, seed=spec.seed,
         record_every=spec.record_every, backend=spec.backend,
-        stream=spec.stream, device=spec.device)
+        stream=spec.stream, telemetry=spec.telemetry, device=spec.device)

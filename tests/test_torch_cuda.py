@@ -12,8 +12,12 @@ reference attention, and the paths without kernels of their own:
 ``edge_reweight`` on the card against the CPU, sparse against dense async
 gossip and joint learning at rate 0 against per-op MP bit for bit, and
 the inexact primal with MLP agents (p = 33) through ``cl_edge_step``
-against the reference backend.  The kernels have no CPU mode: on a host without a
-CUDA card every test here skips.
+against the reference backend; ``graph_mix`` over a trial axis (one launch
+for all trials, each trial equal to its own launch bit for bit) and the MP
+sweep through it; and telemetry on the card (theta bit-identical with it
+on, the kernels' launches unchanged, the frames' counters equal to the
+stream's).  The kernels have no CPU mode: on a host without a CUDA card
+every test here skips.
 
 Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -540,3 +544,86 @@ def test_inexact_primal_kernel_matches_reference_at_p33(cuda):
     assert (runs[0].theta_hist - runs[1].theta_hist).abs().max().item() \
         <= 1e-5
     assert torch.isfinite(runs[0].theta_hist).all()
+
+
+@pytest.mark.parametrize("T,n,D", [(300, 300, 1), (7, 129, 3),
+                                   (3, 256, 512), (2, 257, 301)])
+def test_graph_mix_kernel_trial_axis(cuda, T, n, D):
+    """One launch for T trials; each trial's result equals its own
+    unbatched launch bit for bit, and the plain version within 1e-5."""
+    rng = np.random.default_rng(T + n + D)
+    args = on(cuda, rng.standard_normal((T, n, D)),
+              rng.standard_normal((T, n, D)),
+              rng.uniform(size=(T, n, n)) / n, rng.uniform(size=(T, n)))
+    before = gm.launches
+    got = gm.graph_mix(*args)
+    assert gm.launches == before + 1
+    assert (got - gm.graph_mix_plain(*args)).abs().max().item() <= 1e-5
+    for t in (0, T // 2, T - 1):
+        assert torch.equal(got[t], gm.graph_mix(*(a[t] for a in args)))
+
+
+def test_mp_sweep_one_launch_per_step_on_the_card(cuda):
+    from repro_torch.experiments import mean_estimation_trials, run_mp_sweep
+    trials = mean_estimation_trials(seeds=[0, 1, 2], alphas=[0.5, 0.9],
+                                    n=60)
+    dispatch.reset_launch_counts()
+    got = run_mp_sweep(trials, sweeps=40, device=cuda)
+    assert dispatch.launch_counts()["graph_mix"] == 40
+    want = run_mp_sweep(trials, sweeps=40, device=cuda,
+                        backend=dispatch.ReproBackend(default="reference"))
+    assert np.abs(got.theta_final - want.theta_final).max() <= 1e-5
+    assert np.isfinite(got.objective_hist).all()
+
+
+@pytest.mark.parametrize("algo", ["mp-fused", "cl", "joint"])
+def test_telemetry_observes_only_on_the_card(cuda, algo):
+    from repro_torch.core.losses import pad_datasets, solitary_mean
+    from repro_torch.simulate import (NetworkConditions, ScenarioSpec,
+                                      run_scenario)
+    from repro_torch.telemetry import TelemetryConfig, metrics
+    n, rounds, rec = 3000, 40, 10
+    topo = random_geometric_topology(n, k=6, seed=0)
+    rng = np.random.default_rng(0)
+    kw = dict(topology=topo, conditions=NetworkConditions(
+        drop_prob=0.1, stale_prob=0.3, churn_rate=0.01,
+        partition_start=5, partition_end=20), rounds=rounds, batch=300,
+        seed=1, record_every=rec, device=cuda)
+    if algo == "cl":
+        data = pad_datasets(list(rng.standard_normal((n, 3, 8))),
+                            device=cuda)
+        kw.update(algo="cl", data=data, mu=0.1, rho=1.0,
+                  theta_sol=solitary_mean(data))
+    else:
+        kw.update(theta_sol=rng.standard_normal((n, 8)).astype(np.float32),
+                  c=rng.uniform(0.05, 1.0, n).astype(np.float32), alpha=0.9)
+        if algo == "mp-fused":
+            kw.update(algo="mp", backend=dispatch.ReproBackend())
+        else:
+            kw.update(algo="joint", eta_graph=0.3, graph_every=5,
+                      prune_eps=1e-3)
+    runs, launches = [], []
+    for tel in (None, TelemetryConfig(enabled=True)):
+        dispatch.reset_launch_counts()
+        runs.append(run_scenario(ScenarioSpec(**kw, telemetry=tel)))
+        launches.append(dispatch.launch_counts())
+    off, on_ = runs
+    assert launches[0] == launches[1]
+    assert torch.equal(off.theta_hist, on_.theta_hist)
+    f = on_.telemetry
+    assert int(f.delivered[-1]) == on_.delivered
+    assert int((f.drop_link + f.drop_churn + f.drop_partition)[-1]) == \
+        on_.dropped
+    assert np.isfinite(f.objective).all()
+    if algo != "joint":
+        from repro_torch.simulate import precompute_event_stream
+        stream = precompute_event_stream(
+            topo.device_tables(cuda), torch.as_tensor(
+                topo.partition_halves()), kw["conditions"], 300, 1, rounds,
+            device=cuda)
+        np.testing.assert_array_equal(f.staleness,
+                                      metrics.stream_staleness_chunks(
+                                          stream, n, rounds // rec, rec))
+        assert int(f.updates[-1]) == on_.delivered
+    else:
+        np.testing.assert_array_equal(f.updates + f.suppressed, f.delivered)

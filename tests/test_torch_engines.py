@@ -8,8 +8,8 @@ reproduces the inline engine's key schedule, carried across by
 ``repro_torch.convert.stream_from_arrays``.  Counters and ``active_hist``
 match exactly and ``theta_hist`` within 1e-5 (the bar of
 tests/test_round_fuse.py).  The port's own torch-drawn stream keeps the
-accounting invariant, and the spec fields not ported yet (telemetry,
-sharding, serving) raise.
+accounting invariant, and the spec fields not ported yet (sharding and
+serving, with their knobs) raise.
 """
 
 import numpy as np
@@ -158,15 +158,24 @@ def test_stream_totals_invariant(setup):
     assert s.i.dtype == torch.int32 and s.deliver_ij.dtype == torch.bool
 
 
-@pytest.mark.parametrize("field,value", [
-    ("sharded", True), ("serve", object()),
-    ("telemetry", type("T", (), {"enabled": True})()),
+@pytest.mark.parametrize("algo,fields,item", [
+    ("mp", dict(sharded=True), "item 10"),
+    ("mp", dict(serve=object()), "item 9"),
+    ("mp", dict(sharded=True, n_shards=4, exchange="halo"), "item 10"),
+    ("cl", dict(sharded=True, mesh=object(), local_batch=8), "item 10"),
+    ("joint", dict(sharded=True, recompact_every=5, recompact_frac=0.5,
+                   eta_graph=0.3), "item 10"),
+    ("mp", dict(serve=object(), serve_batch=8), "item 9"),
 ])
-def test_unported_spec_fields_raise(setup, field, value):
+def test_unported_spec_fields_raise(setup, algo, fields, item):
+    """Sharding and serving (with their knobs) raise, naming the ROADMAP
+    item that ports them; the knobs are spec fields with the JAX spec's
+    names."""
     _, tt, sol, c = setup
-    kw = dict(algo="mp", topology=tt, conditions=get_scenario(
+    kw = dict(algo=algo, topology=tt, conditions=get_scenario(
         "clean").make_conditions(ROUNDS), rounds=ROUNDS, batch=BATCH,
-        theta_sol=sol, c=c, device=CPU)
-    kw[field] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        theta_sol=sol, c=c, device=CPU, **fields)
+    if algo == "cl":
+        kw.update(c=None, data=object(), mu=0.1, rho=1.0)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         run_scenario(ScenarioSpec(**kw))

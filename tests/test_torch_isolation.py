@@ -61,6 +61,10 @@ def test_imports_with_jax_blocked():
         "import repro_torch.core.graph_learning, repro_torch.optim, "
         "repro_torch.optim.adamw, repro_torch.models.flatten, "
         "repro_torch.tree\n"
+        "import repro_torch.telemetry, repro_torch.telemetry.config, "
+        "repro_torch.telemetry.frames, repro_torch.telemetry.manifest, "
+        "repro_torch.telemetry.metrics, repro_torch.telemetry.report, "
+        "repro_torch.experiments, repro_torch.experiments.sweep\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -83,6 +87,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.core.losses import pad_datasets
     from repro_torch.data import (federated_moons_problem,
                                   linear_classification_problem)
+    from repro_torch.experiments import mean_estimation_trials, run_mp_sweep
+    from repro_torch.telemetry import TelemetryConfig
     from repro_torch.simulate import (ScenarioSpec, get_scenario,
                                       init_sparse_admm, ring_topology,
                                       run_scenario, sparse_async_admm,
@@ -123,6 +129,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
             algo="joint", topology=topo,
             conditions=get_scenario("clean").make_conditions(4), rounds=4,
             batch=2, theta_sol=sol, c=c, eta_graph=0.3)),
+        lambda: run_scenario(ScenarioSpec(
+            algo="mp", topology=topo,
+            conditions=get_scenario("clean").make_conditions(4), rounds=4,
+            batch=2, theta_sol=sol, c=c,
+            telemetry=TelemetryConfig(enabled=True))),
+        lambda: run_mp_sweep(mean_estimation_trials([0], [0.9], n=8),
+                             sweeps=2),
         lambda: federated_moons_problem(n=4, n_test=2),
         lambda: agent_rows_from_arrays(sol),
         lambda: topo.device_tables(),
