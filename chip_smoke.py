@@ -30,13 +30,20 @@ JAX package.  Phases, in order — any failure exits non-zero:
       the plain path;
    c. ``synchronous`` on ``random_geometric_graph(2048, k=8)``, D = 4096,
       100 steps through ``graph_mix``, against the plain path;
+   c'. the same problem at alpha = 0.99 for 3000 steps (the sweeps'
+      largest alpha, the JAX tests' run length), through the kernel and
+      the reference backend: within 1e-5 after steps 100, 300, 1000 and
+      3000, 3000 launches;
    j. the paper's multi-trial sweeps (§5.1 mean estimation at n = 300):
       ``run_mp_sweep`` on 100 seeds x alphas (0.5, 0.9, 0.99) = 300
       trials, 300 sweeps, exactly one ``graph_mix`` launch a sweep for all
       trials, against the plain path within 1e-5 (theta_final absolute,
       objective_hist and err_hist relative to their largest value); the
-      batched ``graph_mix`` at the sweep shape timed beside its bound and
-      ``torch.baddbmm``; ``closed_form_comparison`` on those trials; then
+      batched ``graph_mix`` at the MP and joint sweeps' shapes (T = 300
+      and 20, n = 300, D = 1) timed beside its bound and ``torch.baddbmm``
+      (device time queued behind a sleep, and the wrapper's host time a
+      call), each trial bit for bit with its own launch, a replay bit for
+      bit; ``closed_form_comparison`` on those trials; then
       ``run_joint_sweep`` (10 seeds x eta (0, 0.3), its eta = 0 column
       equal to the MP sweep's trials bit for bit) and ``run_admm_sweep``
       (5 seeds x mu (0.05, 0.2), against the CPU on two trials within
@@ -128,8 +135,8 @@ from the seed on the card), after the CL state is freed:
     share of 16 greedy tokens on which the two agree.
 
 Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all six
-kernels, with their launches on their paths; ``graph_mix`` counts both of
-its paths and carries its trial-axis reading under ``trial_axis``), the card's name and power
+kernels, with their launches on their paths; ``graph_mix`` counts its
+three paths and carries its trial-axis readings under ``trial_axis``), the card's name and power
 limit as nvidia-smi reports them, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -158,6 +165,9 @@ SWEEPS = 50
 WARM = 10          # rounds replayed before round_step is held and timed
 PROFILE_ROUNDS = 50
 N_DENSE, K_DENSE, D_DENSE, STEPS = 2048, 8, 4096, 100
+# 4c': the same problem at the sweeps' largest alpha, read at these steps
+DRIFT_ALPHA, DRIFT_MARKS = 0.99, (100, 300, 1000, 3000)
+SLEEP_CYCLES = 50_000_000   # device-side sleep that timed calls queue behind
 ALPHA, SEED = 0.9, 0
 MU, RHO = 0.1, 1.0          # CL-ADMM (the JAX benchmark's CL configuration)
 DEVICE = "cuda"
@@ -228,6 +238,29 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued(torch, fn, iters: int, warmup: int = 3):
+    """``fn``'s device ms and host µs a call: ``iters`` calls enqueued
+    behind a device-side sleep, so CUDA events around them read the device
+    alone and the host clock reads the enqueueing alone.  Returns ``(device
+    ms, host µs, whether the host had enqueued every call before the sleep
+    ended)``; without the last the events also read the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    ev[2].record()
+    ev[2].synchronize()
+    return (ev[1].elapsed_time(ev[2]) / iters, host_s * 1e6 / iters,
+            host_s * 1e3 < ev[0].elapsed_time(ev[1]))
+
+
 def check_graph_mix(torch, gm, graph_inputs):
     """graph_mix at the synchronous path's shapes and inputs.  The kernel
     meets the 1e-5 bar with three TF32 tensor-core passes (3xTF32), so its
@@ -245,7 +278,8 @@ def check_graph_mix(torch, gm, graph_inputs):
         name="graph_mix", route="cuda",
         source="src/repro_torch/kernels/csrc/graph_mix.cu",
         replaces="src/repro/kernels/graph_mix.py:28",
-        design="mma.sync 3xTF32, cp.async x3",
+        design="mma.sync 3xTF32, cp.async x3, each 8-deep step's partial "
+               "sums from zero, added in IEEE float32",
         shape=f"n={n} D={D}", max_abs_err=err, tol=1e-5,
         ms=time_ms(torch, lambda: gm.graph_mix(theta, sol, A, b), 20),
         plain_ms=time_ms(torch, lambda: gm.graph_mix_plain(theta, sol, A, b),
@@ -258,27 +292,79 @@ def check_graph_mix(torch, gm, graph_inputs):
 
 def check_graph_mix_trials(torch, gm, args):
     """graph_mix over the sweep's trial axis at its shape and inputs (the
-    first step of ``run_mp_sweep``): one launch for T problems of D = 1,
-    which take the kernel's FFMA rows path.  The work is A's T n^2 floats
-    read once, so the bound is bytes; the library call is
-    ``torch.baddbmm`` of the same function."""
+    first step of a sweep): one launch for T problems of D = 1, which take
+    the kernel's FFMA rows path.  The work is A's T n^2 floats read once, so
+    the bound is bytes; the library call is ``torch.baddbmm`` of the same
+    function.  ``ms`` is the kernel's device time with its output made
+    beforehand (the C entry launched directly, queued behind a sleep), and
+    ``host_us`` the wrapper's host time a call; ``wrapper_ms`` times
+    back-to-back wrapper calls as ``time_ms`` does, which reads the host
+    where the host is the slower.  Each trial equals its own launch bit for
+    bit, and a replay equals the first call."""
+    from repro_torch.kernels import _build
     theta, sol, A, b = args
     T, n, D = theta.shape
     got = gm.graph_mix(theta, sol, A, b)
     err = (got - gm.graph_mix_plain(theta, sol, A, b)).abs().max().item()
+    per_trial = all(torch.equal(got[t], gm.graph_mix(theta[t], sol[t], A[t],
+                                                     b[t]))
+                    for t in sorted({0, T // 2, T - 1}))
+    replay = torch.equal(got, gm.graph_mix(theta, sol, A, b))
     bsol = b[..., None] * sol
     bms, by = bound_ms(4 * (T * n * n + 3 * T * n * D + T * n),
                        2 * T * n * n * D + 2 * T * n * D)
+    out, lib_out = torch.empty_like(theta), torch.empty_like(theta)
+    ptrs = [t.data_ptr() for t in (A, theta, sol, b, out)]
+    ms, _, ok_k = queued(torch, lambda: _build.launch(
+        "repro_graph_mix", *ptrs, T, n, D, device=theta.device), 50)
+    _, host_us, ok_w = queued(torch, lambda: gm.graph_mix(theta, sol, A, b),
+                              50)
+    lib_ms, _, ok_l = queued(torch, lambda: torch.baddbmm(
+        bsol, A, theta, out=lib_out), 50)
     return dict(
-        design="warp per output row, FFMA (D <= 8)",
+        design="16 lanes a row, 5 16-byte loads a lane in flight, theta "
+               "staged in shared memory, FFMA (D <= 8)",
         shape=f"T={T} n={n} D={D}", max_abs_err=err, tol=1e-5,
-        ms=time_ms(torch, lambda: gm.graph_mix(theta, sol, A, b), 20),
+        trials_bit_for_bit=per_trial, replay_bit_for_bit=replay,
+        ms=ms, host_us=host_us, queued=ok_k and ok_w and ok_l,
+        wrapper_ms=time_ms(torch, lambda: gm.graph_mix(theta, sol, A, b),
+                           20),
         plain_ms=time_ms(torch, lambda: gm.graph_mix_plain(theta, sol, A,
                                                            b), 20),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.baddbmm(bsol, A, theta),
-                           20),
-        library_call="torch.baddbmm(b*sol, A, theta)")
+        bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        library_call="torch.baddbmm(b*sol, A, theta, out=...)")
+
+
+def check_drift(torch, dispatch, synchronous, g, sol, c, dev):
+    """4c'. ``synchronous`` at alpha = DRIFT_ALPHA for the last of
+    DRIFT_MARKS steps, through the kernel and through the reference
+    backend, each continued from its own iterate between the marks; the
+    largest |kernel - plain| at each mark, and the mean signed difference
+    (a bias shows there).  Returns ``(reading, the kernel run's launches)``.
+    """
+    plain = dispatch.ReproBackend(default="reference")
+    ker = ref = None
+    done, readings, launches, secs = 0, {}, 0, 0.0
+    for mark in DRIFT_MARKS:
+        dispatch.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ker = synchronous(g, sol, c, DRIFT_ALPHA, mark - done, theta0=ker,
+                          device=dev)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        launches += dispatch.launch_counts()["graph_mix"]
+        ref = synchronous(g, sol, c, DRIFT_ALPHA, mark - done, theta0=ref,
+                          device=dev, backend=plain)
+        diff = ker - ref
+        readings[str(mark)] = dict(max_abs=diff.abs().max().item(),
+                                   mean_signed=diff.mean().item(),
+                                   finite=bool(torch.isfinite(ker).all()))
+        done = mark
+    return dict(phase="4c'", alpha=DRIFT_ALPHA, shape=f"n={g.n} "
+                f"D={sol.shape[-1]}", tol=1e-5, steps_per_s=done / secs,
+                max_abs_ref=ref.abs().max().item(), readings=readings), \
+        launches
 
 
 def rel_err(got, want):
@@ -335,11 +421,8 @@ def check_sweeps(torch, np, dispatch, gm, dev):
                  for a in (trials.P, trials.c, trials.theta_sol))
     A_mix, b = mp_mix_operator(
         P, c, torch.as_tensor(trials.alpha, device=dev)[:, None])
-    batched = check_graph_mix_trials(torch, gm, (sol, sol, A_mix, b))
-    log("[4j] graph_mix over the trial axis: " + json.dumps(batched))
+    batched = [check_graph_mix_trials(torch, gm, (sol, sol, A_mix, b))]
     del P, A_mix, b, sol, c
-    if not batched["max_abs_err"] <= batched["tol"]:
-        return batched, launches, "4j: batched graph_mix vs plain"
 
     (e_c, e_nc, win), secs = timed(torch, lambda: closed_form_comparison(
         trials, device=dev))
@@ -352,6 +435,19 @@ def check_sweeps(torch, np, dispatch, gm, dev):
 
     jt = joint_mean_estimation_trials(range(JOINT_SWEEP_SEEDS), (0.9,),
                                       JOINT_SWEEP_ETAS, n=SWEEP_N)
+    # the batched graph_mix at the joint sweep's shape, on its first step
+    P, c, sol = (torch.as_tensor(a, device=dev)
+                 for a in (jt.P, jt.c, jt.theta_sol))
+    A_mix, b = mp_mix_operator(
+        P, c, torch.as_tensor(jt.alpha, device=dev)[:, None])
+    batched.append(check_graph_mix_trials(torch, gm, (sol, sol, A_mix, b)))
+    del P, A_mix, b, sol, c
+    for reading in batched:
+        log("[4j] graph_mix over the trial axis: " + json.dumps(reading))
+        if not reading["max_abs_err"] <= reading["tol"] \
+                or not reading["trials_bit_for_bit"] \
+                or not reading["replay_bit_for_bit"]:
+            return batched, launches, "4j: batched graph_mix vs plain"
     dispatch.reset_launch_counts()
     jr, secs = timed(torch, lambda: run_joint_sweep(
         jt, SWEEP_STEPS, graph_every=JOINT_SWEEP_EVERY, device=dev))
@@ -1359,6 +1455,16 @@ def main() -> int:
     if counts["synchronous"]["graph_mix"] != STEPS or not err <= 1e-5 \
             or not torch.isfinite(got).all():
         return fail("synchronous path")
+
+    # 4c'. the same problem over a long run at alpha = 0.99 ----------------
+    drift, counts["synchronous_long"] = check_drift(
+        torch, dispatch, synchronous, g, sol_d, c_d, dev)
+    log(json.dumps(drift))
+    if counts["synchronous_long"] != DRIFT_MARKS[-1] or not all(
+            r["max_abs"] <= 1e-5 and r["finite"]
+            for r in drift["readings"].values()):
+        return fail("4c': the long synchronous run drifted past 1e-5 or "
+                    "missed its launches")
     del got, want, graph_inputs, sol_dense, P_dense, A_mix
 
     # 4j. the multi-trial sweeps through graph_mix's trial axis ------------
@@ -1689,11 +1795,13 @@ def main() -> int:
             "name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "design")}
-        if kr["name"] == "graph_mix":           # its two paths
+        if kr["name"] == "graph_mix":           # its three paths
             row["launches_by_path"] = {
                 "synchronous": kr["launches"],
+                "synchronous_long": counts["synchronous_long"],
                 "sweep": counts["sweep"]["graph_mix"]}
-            row["launches"] += counts["sweep"]["graph_mix"]
+            row["launches"] += counts["synchronous_long"] \
+                + counts["sweep"]["graph_mix"]
             row["trial_axis"] = batched
         summary.append(row)
     log(json.dumps({"kernels": summary}))

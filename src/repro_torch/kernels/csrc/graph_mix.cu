@@ -37,35 +37,55 @@
 //     copies (source size 0), so nothing is padded in device memory.
 //   - Each fragment element is split into TF32 hi and lo in registers as it
 //     is read from shared memory (A's by ldmatrix), hi rounded to nearest
-//     by two integer instructions and lo = x - hi (hopper::split_tf32), and
-//     each 16 x 8 tile takes three mma (a_lo b_hi, a_hi b_lo, a_hi b_hi,
-//     the small terms first) into one float32 accumulator.
+//     by two integer instructions and lo = x - hi (hopper::split_tf32).
+//   - The tensor core adds into its float32 accumulator with truncation,
+//     not IEEE rounding, so a sum it carries across the whole row has an
+//     error with a sign; ``synchronous`` feeds each output back in, and near
+//     its fixed point such a bias adds up about 1 / (1 - alpha) times.  So
+//     each 8-deep step of each 16 x 8 tile starts from zero: a_hi b_hi
+//     into one fragment, a_lo b_hi + a_hi b_lo into another, and the two
+//     reach the float32 accumulator by IEEE adds (hh + sm, then acc +=).
+//     A step's a_hi b_hi products are exact (11-bit by 11-bit), so for a
+//     sparse row (a step with one or two products) nothing is truncated
+//     that matters; the small terms are 2^-11 of it.  Summing all three
+//     products in one zeroed fragment leaves the small terms' low bits to
+//     the truncation, a smaller bias that still adds up.  The two adds
+//     per accumulator and step cost about a quarter of the kernel's time.
 //   - The anchor b[i] * sol[i, d] is added in the epilogue, so theta_sol is
 //     read once and out written once.
 //   - No atomics: a replay is bit-identical.
 //   - Trials: blockIdx.z picks the trial, whose A, theta, theta_sol, b and
 //     out start n*n, n*D, n*D, n and n*D floats after the previous one's.
 //     A trial's blocks compute exactly what the same problem alone does.
-//
-// Narrow models (D <= SMALL_D, the sweeps' scalar models at D = 1) take a
-// second kernel, graph_mix_rows_kernel: one warp per output row of one
-// trial, each lane an FFMA over a strided share of the row's n products,
-// then a shuffle sum.  Two reasons.  Correctness: the tensor core adds its
-// float32 accumulator with truncation, not IEEE rounding, so the 3xTF32
-// kernel's error has a sign; a sweep feeds each step's output back in for
-// hundreds of steps, and on the card it drifted 1.0e-5 from the float32
-// plain version after 40 steps at n = 60, D = 1, the 1e-5 bar; FFMA with
-// IEEE adds has no such drift.  Cost: at D = 1 a 128-column tile is 127
-// columns of zero fill, while a row read by a warp moves A's n^2 floats a
-// trial once, coalesced, which is the bound.  Each row's sum is
-// independent of T, so a trial's result equals its own launch bit for bit
-// on both kernels.
 //   - mma.sync issues TF32 well below wgmma's rate on Hopper, and the split
 //     sits on each fragment's path from shared memory to the tensor core,
 //     so the kernel is bound by mma.sync latency and issue, not by the
 //     495 TFLOP/s above.  Next steps: wgmma with theta's tile transposed
 //     to K-major (and split) in shared memory, or more independent work per
 //     warp to hide the split's latency.
+//
+// Narrow models (D <= SMALL_D, the sweeps' scalar models at D = 1) take a
+// second kernel, graph_mix_rows_kernel, in FFMA with IEEE adds: at D = 1 a
+// 128-column tile would be 127 columns of zero fill.  Its work is A's T n^2
+// floats read once (108 MB at the sweeps' T = 300, n = 300, more than the
+// 50 MB L2), so it is bound by bytes, and the design keeps enough of A in
+// flight to stream at the HBM rate:
+//   - 16 lanes a row (two rows a warp), 16 rows a block; a block's rows
+//     belong to one trial (grid.x row blocks, grid.y = the trial).
+//   - A row is cut in 4-float chunks, chunk c to lane c % 16; each lane
+//     issues CHUNKS = 5 loads of its chunks (16 bytes each when every row
+//     starts 16-byte aligned, else four 4-byte loads) before any of their
+//     FMAs, so a row of up to 320 floats is one round of loads, 80 bytes
+//     a lane in flight; longer rows loop over rounds.  The chunk loads are
+//     streaming (__ldcs): A is read once.
+//   - theta[z] (n D floats) is staged once a block in shared memory, as
+//     chunks of 4 D floats read by 16-byte loads, while the first round of
+//     A is in flight; past 48 KB it is read through __ldg instead.
+//   - A lane adds its products in chunk and element order, then the row's
+//     16 lanes meet in a butterfly (xor 8, 4, 2, 1).  The order depends
+//     only on n and D: not on T, the block, the load width or the staging,
+//     so a trial's result equals its own launch bit for bit.
+//   - D is a template parameter (1 .. 8): the FMAs of a chunk are D wide.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -208,9 +228,14 @@ graph_mix_kernel(const float* __restrict__ A, const float* __restrict__ X,
           hopper::split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          hopper::mma_tf32(acc[i][j], al, bh[j]);
-          hopper::mma_tf32(acc[i][j], ah, bl[j]);
-          hopper::mma_tf32(acc[i][j], ah, bh[j]);
+          // this 8-deep step's partial sums start from zero, hi . hi apart
+          // from the small terms, and reach acc by IEEE adds
+          float hh[4] = {0.f, 0.f, 0.f, 0.f}, sm[4] = {0.f, 0.f, 0.f, 0.f};
+          hopper::mma_tf32(sm, al, bh[j]);
+          hopper::mma_tf32(sm, ah, bl[j]);
+          hopper::mma_tf32(hh, ah, bh[j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += hh[e] + sm[e];
         }
       }
     }
@@ -243,46 +268,110 @@ graph_mix_kernel(const float* __restrict__ A, const float* __restrict__ X,
 }
 
 constexpr int SMALL_D = 8;          // widest D the rows kernel takes
-constexpr int ROWS_THREADS = 256;   // 8 warps, one row each
+constexpr int ROWS_THREADS = 256;
+constexpr int ROW_LANES = 16;       // lanes of a row: two rows a warp
+constexpr int ROW_BLOCK = ROWS_THREADS / ROW_LANES;   // rows of a block
+constexpr int CHUNKS = 5;           // 4-float chunks a lane loads at once
+constexpr int STAGE_MAX = 48 * 1024;   // bytes of theta a block may stage
 
-// out[z, i, :] = A[z, i, :] @ theta[z] + b[z, i] * sol[z, i, :] for row
-// r = z * n + i of warp r: lanes take k = lane, lane + 32, ... (A's row
-// read coalesced), FFMA into D accumulators, then a butterfly sum
+// out[z, i, :] = A[z, i, :] @ theta[z] + b[z, i] * sol[z, i, :] for the
+// rows i of block (blockIdx.x, z = blockIdx.y), ROW_LANES lanes a row.
+// A row is cut in 4-float chunks, chunk c to lane c % ROW_LANES; a lane
+// loads CHUNKS of its chunks (16-byte loads when ``vec``, else 4-byte
+// ones), then adds their products in chunk and element order with FFMA,
+// then the row's lanes meet in a butterfly.  So a row's sum order depends
+// only on n and D.  theta[z] sits in shared memory when ``staged`` (as
+// chunks of 4 D floats, zero past row n), else it is read through __ldg.
+template <int D>
 __global__ void __launch_bounds__(ROWS_THREADS)
 graph_mix_rows_kernel(const float* __restrict__ A,
                       const float* __restrict__ X,
                       const float* __restrict__ S,
                       const float* __restrict__ b, float* __restrict__ out,
-                      int n, int D, long long rows) {
-  const long long r = ((long long)blockIdx.x * ROWS_THREADS + threadIdx.x)
-                      >> 5;
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;
-  const long long z = r / n;
-  const float* a = A + r * n;                    // (z * n + i) * n
+                      int n, int vec, int staged) {
+  extern __shared__ float4 xs4[];
+  const size_t z = blockIdx.y;
+  const int g = threadIdx.x % ROW_LANES;
+  const int i = blockIdx.x * ROW_BLOCK + threadIdx.x / ROW_LANES;
+  const bool live = i < n;          // dead rows still stage and shuffle
+  const int nc = (n + 3) / 4;       // chunks of a row
+  const float* a = A + (z * n + (live ? i : 0)) * n;
   const float* x = X + z * n * D;
-  float acc[SMALL_D];
+
+  float4 av[CHUNKS];
+  auto load = [&](int q0) {         // this lane's chunks q0 .. q0 + CHUNKS
 #pragma unroll
-  for (int d = 0; d < SMALL_D; ++d) acc[d] = 0.f;
-  for (int k = lane; k < n; k += 32) {
-    const float av = a[k];
-#pragma unroll
-    for (int d = 0; d < SMALL_D; ++d)
-      if (d < D) acc[d] = fmaf(av, x[(size_t)k * D + d], acc[d]);
-  }
-#pragma unroll
-  for (int d = 0; d < SMALL_D; ++d) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], off);
-  }
-  const float br = b[r];
-#pragma unroll
-  for (int d = 0; d < SMALL_D; ++d)
-    if (d < D && lane == d) {
-      const size_t o = (size_t)r * D + d;
-      out[o] = acc[d] + br * S[o];
+    for (int s = 0; s < CHUNKS; ++s) {
+      const int c = g + ROW_LANES * (q0 + s), k = 4 * c;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live && c < nc) {
+        if (vec) {
+          v = __ldcs(reinterpret_cast<const float4*>(a) + c);
+        } else {
+          v.x = __ldcs(a + k);
+          if (k + 1 < n) v.y = __ldcs(a + k + 1);
+          if (k + 2 < n) v.z = __ldcs(a + k + 2);
+          if (k + 3 < n) v.w = __ldcs(a + k + 3);
+        }
+      }
+      av[s] = v;
     }
+  };
+  load(0);                          // A in flight while theta is staged
+
+  if (staged) {                     // uniform over the grid
+    float* xs = reinterpret_cast<float*>(xs4);
+    for (int t = threadIdx.x; t < nc * 4 * D; t += ROWS_THREADS)
+      xs[t] = t < n * D ? x[t] : 0.f;
+    __syncthreads();
+  }
+
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  const int rounds = (nc + ROW_LANES * CHUNKS - 1) / (ROW_LANES * CHUNKS);
+  for (int r = 0; r < rounds; ++r) {
+    if (r > 0) load(r * CHUNKS);
+#pragma unroll
+    for (int s = 0; s < CHUNKS; ++s) {
+      const int c = g + ROW_LANES * (r * CHUNKS + s), k = 4 * c;
+      if (!live || c >= nc) continue;
+      float xv[4 * D];              // theta rows k .. k + 3
+      if (staged) {
+#pragma unroll
+        for (int q = 0; q < D; ++q) {
+          const float4 t = xs4[c * D + q];
+          xv[4 * q] = t.x, xv[4 * q + 1] = t.y;
+          xv[4 * q + 2] = t.z, xv[4 * q + 3] = t.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4 * D; ++j)
+          xv[j] = k + j / D < n ? __ldg(x + (size_t)k * D + j) : 0.f;
+      }
+      const float ae[4] = {av[s].x, av[s].y, av[s].z, av[s].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k + e < n) {
+#pragma unroll
+          for (int d = 0; d < D; ++d)
+            acc[d] = fmaf(ae[e], xv[e * D + d], acc[d]);
+        }
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int off = ROW_LANES / 2; off > 0; off >>= 1)
+      acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], off);
+  if (live && g < D) {              // lane g writes column g
+    float v = acc[0];
+#pragma unroll
+    for (int d = 1; d < D; ++d)
+      if (g == d) v = acc[d];
+    const size_t row = z * n + i, o = row * D + g;
+    out[o] = v + b[row] * S[o];
+  }
 }
 
 // whether every trial's base, p + z * stride floats for z < T, is
@@ -290,6 +379,18 @@ graph_mix_rows_kernel(const float* __restrict__ A,
 bool aligned(const void* p, size_t stride, int T, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0 &&
          (T == 1 || stride * sizeof(float) % bytes == 0);
+}
+
+template <int D>
+void launch_rows(const float* A, const float* theta, const float* sol,
+                 const float* b, float* out, int T, int n,
+                 cudaStream_t stream) {
+  const size_t stage = (size_t)(n + 3) / 4 * 4 * D * sizeof(float);
+  const int staged = stage <= STAGE_MAX;
+  const int vec = n % 4 == 0 && aligned(A, (size_t)n * n, T, 16);
+  dim3 grid((n + ROW_BLOCK - 1) / ROW_BLOCK, T);
+  graph_mix_rows_kernel<D><<<grid, ROWS_THREADS, staged ? stage : 0,
+                             stream>>>(A, theta, sol, b, out, n, vec, staged);
 }
 
 }  // namespace
@@ -301,10 +402,12 @@ extern "C" int repro_graph_mix(const float* A, const float* theta,
                                const float* sol, const float* b, float* out,
                                int T, int n, int D, cudaStream_t stream) {
   if (T > 0 && n > 0 && D > 0 && D <= SMALL_D) {
-    const long long rows = (long long)T * n;
-    const long long blocks = (rows * 32 + ROWS_THREADS - 1) / ROWS_THREADS;
-    graph_mix_rows_kernel<<<(unsigned)blocks, ROWS_THREADS, 0, stream>>>(
-        A, theta, sol, b, out, n, D, rows);
+    void (*const rows[SMALL_D])(const float*, const float*, const float*,
+                                const float*, float*, int, int,
+                                cudaStream_t) = {
+        launch_rows<1>, launch_rows<2>, launch_rows<3>, launch_rows<4>,
+        launch_rows<5>, launch_rows<6>, launch_rows<7>, launch_rows<8>};
+    rows[D - 1](A, theta, sol, b, out, T, n, stream);
   } else if (T > 0 && n > 0 && D > 0) {
     cudaError_t err = cudaFuncSetAttribute(
         graph_mix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

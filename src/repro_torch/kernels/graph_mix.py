@@ -4,10 +4,13 @@ trials at once along an optional leading axis (the sweeps' trial axis: one
 launch for all trials).
 
 The CUDA kernel (``csrc/graph_mix.cu``: 3xTF32 on the tensor cores with
-``mma.sync``, operands split into TF32 hi and lo in registers so that the
-result keeps float32 accuracy, a 3-stage ``cp.async`` pipeline, the anchor
-fused into the epilogue; for narrow models, D <= 8, one warp per output
-row in FFMA) replaces the Pallas TPU kernel
+``mma.sync``, operands split into TF32 hi and lo in registers and each
+8-deep step's partial sums added to the accumulator in IEEE float32, so
+that the result keeps float32 accuracy over long runs, a 3-stage
+``cp.async`` pipeline, the anchor fused into the epilogue; for narrow
+models, D <= 8, an FFMA kernel that streams A's rows, 16 lanes a row, with
+many 16-byte loads in flight and theta staged in shared memory) replaces
+the Pallas TPU kernel
 ``repro/kernels/graph_mix.py::graph_mix``; the source note there says what
 bounds it on the H100 and how the design answers that.  Beside it sits the
 plain PyTorch version (``kernels.ref.graph_mix``), which runs for tensors

@@ -13,8 +13,9 @@ reference attention, and the paths without kernels of their own:
 gossip and joint learning at rate 0 against per-op MP bit for bit, and
 the inexact primal with MLP agents (p = 33) through ``cl_edge_step``
 against the reference backend; ``graph_mix`` over a trial axis (one launch
-for all trials, each trial equal to its own launch bit for bit) and the MP
-sweep through it; and telemetry on the card (theta bit-identical with it
+for all trials, each trial equal to its own launch bit for bit, whatever
+the load width) and the MP sweep through it, and its tile kernel over
+3000 ``synchronous`` steps; and telemetry on the card (theta bit-identical with it
 on, the kernels' launches unchanged, the frames' counters equal to the
 stream's).  The kernels have no CPU mode: on a host without a CUDA card
 every test here skips.
@@ -546,21 +547,70 @@ def test_inexact_primal_kernel_matches_reference_at_p33(cuda):
     assert torch.isfinite(runs[0].theta_hist).all()
 
 
+# the rows kernel (D <= 8) on rows shorter than a warp, unaligned rows
+# (n % 4 != 0: 4-byte loads), the sweeps' n = 300 and rows longer than one
+# round of loads (n = 4099, theta too large to stage at D = 5 and 8)
+ROWS_CASES = [(T, n, D) for D in (2, 5, 8) for T, n in (
+    (300, 1), (300, 31), (20, 257), (300, 300), (1, 300), (20, 4099))]
+
+
 @pytest.mark.parametrize("T,n,D", [(300, 300, 1), (7, 129, 3),
-                                   (3, 256, 512), (2, 257, 301)])
+                                   (3, 256, 512), (2, 257, 301)]
+                         + ROWS_CASES)
 def test_graph_mix_kernel_trial_axis(cuda, T, n, D):
     """One launch for T trials; each trial's result equals its own
-    unbatched launch bit for bit, and the plain version within 1e-5."""
+    unbatched launch bit for bit, a replay equals the first call bit for
+    bit, and the plain version within 1e-5."""
     rng = np.random.default_rng(T + n + D)
-    args = on(cuda, rng.standard_normal((T, n, D)),
-              rng.standard_normal((T, n, D)),
-              rng.uniform(size=(T, n, n)) / n, rng.uniform(size=(T, n)))
+    args = on(cuda, rng.standard_normal((T, n, D), dtype=np.float32),
+              rng.standard_normal((T, n, D), dtype=np.float32),
+              rng.random((T, n, n), dtype=np.float32) / n,
+              rng.random((T, n), dtype=np.float32))
     before = gm.launches
     got = gm.graph_mix(*args)
     assert gm.launches == before + 1
     assert (got - gm.graph_mix_plain(*args)).abs().max().item() <= 1e-5
-    for t in (0, T // 2, T - 1):
+    for t in sorted({0, T // 2, T - 1}):
         assert torch.equal(got[t], gm.graph_mix(*(a[t] for a in args)))
+    assert torch.equal(got, gm.graph_mix(*args))
+
+
+@pytest.mark.parametrize("n,D", [(300, 1), (300, 5), (4100, 8)])
+def test_graph_mix_rows_load_width_keeps_the_sum(cuda, n, D):
+    """A moved 4 bytes off its 16-byte alignment takes the rows kernel's
+    4-byte loads; the result is the same bits as with 16-byte loads."""
+    T = 3
+    rng = np.random.default_rng(n + D)
+    theta, sol, A, b = on(cuda, rng.standard_normal((T, n, D)),
+                          rng.standard_normal((T, n, D)),
+                          rng.random((T, n, n)) / n, rng.random((T, n)))
+    buf = torch.empty(T * n * n + 1, device=cuda)
+    shifted = buf[1:].view(T, n, n)
+    shifted.copy_(A)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    assert torch.equal(gm.graph_mix(theta, sol, A, b),
+                       gm.graph_mix(theta, sol, shifted, b))
+
+
+@pytest.mark.parametrize("n,D", [(512, 64), (2048, 4096)])
+def test_graph_mix_tile_kernel_holds_over_3000_steps(cuda, n, D):
+    """The tile kernel (D > 8) in ``synchronous`` at alpha = 0.99 for 3000
+    steps stays within 1e-5 of the plain version: its partial sums reach
+    the accumulator by IEEE adds, so truncation in the tensor core does not
+    pile up near the fixed point.  At chip_smoke.py's 4c shape the sum
+    carried through the tensor core's own adds drifted past 1e-5."""
+    from repro_torch.core.graph import random_geometric_graph
+    from repro_torch.core.model_propagation import synchronous
+    g = random_geometric_graph(n, k=8, seed=0)
+    rng = np.random.default_rng(0)
+    sol = rng.standard_normal((n, D)).astype(np.float32)
+    c = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    dispatch.reset_launch_counts()
+    got = synchronous(g, sol, c, 0.99, 3000, device=cuda)
+    assert dispatch.launch_counts()["graph_mix"] == 3000
+    want = synchronous(g, sol, c, 0.99, 3000, device=cuda,
+                       backend=dispatch.ReproBackend(default="reference"))
+    assert (got - want).abs().max().item() <= 1e-5
 
 
 def test_mp_sweep_one_launch_per_step_on_the_card(cuda):

@@ -4,11 +4,18 @@ the JAX package before any card runs them.
 * ``graph_mix`` runs 3xTF32 on the tensor cores: each operand is split
   into a round-to-nearest TF32 ``hi`` and ``lo = x - hi``, which the
   tensor core reads as TF32 (its low 13 bits dropped), and
-  ``a . b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi`` accumulates in float32.
+  ``a . b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi``, each 8-deep step's
+  partial sums started from zero and added to a float32 accumulator.
   The emulation (TF32 rounding by integer masking, as the kernel rounds)
   stays within 1e-5 of ``repro.kernels.ref.graph_mix`` for one step
   and over 100 ``synchronous`` steps; one TF32 pass does not, which is why
   the kernel takes three.
+* ``graph_mix``'s rows kernel (D <= 8) sums in FFMA in an order of its
+  own: a row's 4-float chunks dealt to 16 lanes, each lane's products in
+  chunk and element order, then a butterfly over the lanes.  Its replay
+  here stays within 1e-5 of ``repro.kernels.ref.graph_mix`` and of the
+  port's plain version, and gives the same bits whatever the number of
+  trials and whether A is read in 16- or 4-byte loads.
 * ``flash_attention`` in bf16 rounds the softmax weights to bf16 once per
   128-key tile against the running max before P @ V (wgmma's A operand in
   bf16).  The emulation of that tile-wise online softmax stays within the
@@ -62,13 +69,26 @@ def split(x):
 
 
 def mix_3xtf32(theta, sol, A, b):
-    """The kernel's arithmetic: three TF32 products (small terms first)
-    summed in float32, then the anchor."""
-    a_hi, a_lo = split(A)
-    t_hi, t_lo = split(theta)
-    acc = a_lo @ t_hi
-    acc += a_hi @ t_lo
-    acc += a_hi @ t_hi
+    """The kernel's arithmetic: for each 8-deep step of the reduction,
+    a_hi b_hi and the two small products (a_lo b_hi + a_hi b_lo) each
+    summed from zero, their sum added to the float32 accumulator; then the
+    anchor.  (The tensor core truncates inside a step; numpy rounds.  The
+    kernel's IEEE adds across steps are what this follows.)"""
+    n, D = theta.shape
+    pad = -n % 8                         # the kernel's zero fill
+    a_hi, a_lo = (np.pad(m, ((0, 0), (0, pad))) for m in split(A))
+    t_hi, t_lo = (np.pad(m, ((0, pad), (0, 0))) for m in split(theta))
+    steps = (n + pad) // 8
+
+    def by_step(a, t):                   # (steps, n, D) partial products
+        return a.reshape(n, steps, 8).transpose(1, 0, 2) @ \
+            t.reshape(steps, 8, D)
+    hh = by_step(a_hi, t_hi)
+    sm = by_step(a_lo, t_hi)
+    sm += by_step(a_hi, t_lo)
+    acc = np.zeros((n, D), np.float32)
+    for k in range(steps):
+        acc += hh[k] + sm[k]
     return acc + b[:, None] * sol
 
 
@@ -132,6 +152,93 @@ def test_3xtf32_graph_mix_100_synchronous_steps():
     want = np.asarray(want)
     assert np.abs(three - want).max() <= 1e-5
     assert np.abs(one - want).max() > 1e-5      # one TF32 pass misses
+
+
+# --------------------------------------------------------------------------
+# graph_mix's rows kernel: FFMA in a fixed lane order
+# --------------------------------------------------------------------------
+
+ROW_LANES = 16
+
+
+def fma(a, x, acc):
+    """fmaf on float32 tensors: the product exact in float64, one add, then
+    float32 (a double rounding can differ from the card's in the last bit,
+    rarely; the replay is held to tolerances, and to itself bit for bit)."""
+    return (a.double() * x.double() + acc.double()).float()
+
+
+def mix_rows(theta, sol, A, b, *, vec):
+    """The rows kernel on (T, n, D) float32 tensors, every row of every
+    trial at once: A read from its flat buffer as the card reads it, in
+    4-float chunks (``vec``: one 16-byte load a chunk, which needs n % 4 ==
+    0) or element by element (4-byte loads, masked past the row's end);
+    chunk c to lane c % 16, each lane's FMAs in chunk and element order, a
+    butterfly (xor 8, 4, 2, 1) over the lanes, then the anchor by FMA."""
+    T, n, D = theta.shape
+    nc = (n + 3) // 4
+    flat = A.reshape(-1)
+    base = torch.arange(T * n) * n                  # each row's offset
+    x = theta.reshape(T, n, D)
+    acc = torch.zeros(T * n, ROW_LANES, D)
+    for q in range(-(-nc // ROW_LANES)):            # a lane's q-th chunk
+        c = torch.arange(ROW_LANES) + ROW_LANES * q
+        if vec:
+            assert n % 4 == 0
+            quads = flat.view(-1, 4)[(base[:, None] // 4 + c).clamp(
+                max=flat.numel() // 4 - 1)]         # (rows, lanes, 4)
+        for e in range(4):
+            k = 4 * c + e                            # (lanes,)
+            live = (c < nc) & (k < n)
+            if vec:
+                a = quads[..., e]
+            else:
+                a = flat[(base[:, None] + k).clamp(max=flat.numel() - 1)]
+            xk = x[torch.arange(T).repeat_interleave(n)[:, None],
+                   k.clamp(max=n - 1)]              # (rows, lanes, D)
+            acc = torch.where(live[None, :, None],
+                              fma(a[..., None], xk, acc), acc)
+    lane = torch.arange(ROW_LANES)
+    for off in (8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    assert (acc == acc[:, :1]).all()                # every lane alike
+    out = fma(b.reshape(-1, 1), sol.reshape(-1, D), acc[:, 0])
+    return out.reshape(T, n, D)
+
+
+def rows_inputs(T, n, D, seed):
+    rng = np.random.default_rng(seed)
+    theta, sol = (rng.standard_normal((T, n, D)).astype(np.float32)
+                  for _ in range(2))
+    A = (rng.uniform(size=(T, n, n)) / n).astype(np.float32)
+    b = rng.uniform(size=(T, n)).astype(np.float32)
+    return theta, sol, A, b
+
+
+@pytest.mark.parametrize("T,n,D", [(3, 1, 1), (2, 31, 5), (3, 300, 1),
+                                   (2, 257, 2), (2, 300, 8),
+                                   (1, 4099, 1)])
+def test_rows_kernel_order_within_bar(T, n, D):
+    args = rows_inputs(T, n, D, T * n + D)
+    tt = [torch.as_tensor(a) for a in args]
+    got = mix_rows(*tt, vec=n % 4 == 0).numpy()
+    plain = tref.graph_mix(*tt).numpy()
+    oracle = np.asarray(jax.vmap(jref.graph_mix)(*map(jnp.asarray, args)))
+    assert np.abs(got - plain).max() <= 1e-5
+    assert np.abs(got - oracle).max() <= 1e-5
+
+
+@pytest.mark.parametrize("n,D", [(300, 1), (300, 5), (32, 2), (4, 8)])
+def test_rows_kernel_order_ignores_trials_and_load_width(n, D):
+    """Bit for bit: 16- and 4-byte loads of A, and each trial alone or in
+    a batch of 5."""
+    tt = [torch.as_tensor(a) for a in rows_inputs(5, n, D, n + D)]
+    batched = mix_rows(*tt, vec=True)
+    assert torch.equal(batched, mix_rows(*tt, vec=False))
+    for t in range(5):
+        alone = [a[t:t + 1].contiguous() for a in tt]
+        assert torch.equal(batched[t:t + 1], mix_rows(*alone, vec=True))
+        assert torch.equal(batched[t:t + 1], mix_rows(*alone, vec=False))
 
 
 # --------------------------------------------------------------------------
