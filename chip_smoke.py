@@ -65,6 +65,11 @@ JAX package.  Phases, in order — any failure exits non-zero:
       the last graph step on its inputs: projection rows summing to 1 and
       the blend keeping the row's mass within 1e-5, ``edge_reweight`` on
       the card within 1e-5 of the CPU; events/s beside 4a's per-op.
+   k. the personalization service (``ScenarioSpec(serve=...)``) on 4a's
+      fused run: 1M requests (5,000 a round over 200 rounds) served in
+      batches of 65,536 from the committed record-chunk snapshots,
+      theta_hist bit for bit 4a's; requests/s, hit rate, p50 and p99
+      served staleness;
 5mp. where the time of a fused MP round goes: ``PROFILE_ROUNDS`` fused
      rounds under ``torch.profiler``, read on the device timeline from
      the first round's ``round_step`` to the last one's (no set-up): the
@@ -134,16 +139,45 @@ from the seed on the card), after the CL state is freed:
     last-position logits within ``LM_LOGIT_RTOL`` (relative L2), and the
     share of 16 greedy tokens on which the two agree.
 
+Then personalized LM training with graph coupling, after the serving
+model is freed:
+
+7a. ``graph_mix``'s agent-axis form (n <= 32, D > 8) at the coupling's
+    leaves — Llama-3-8B's embedding at n = 2, D = 525,336,576 in float32,
+    plm-100m's at n = 8, D = 16,777,216 in float32 and bf16 — against
+    its plain version (1e-5 in float32; in bf16 one bf16 ulp beyond the
+    float32 sums' error, ``graph_mix.bf16_tolerance``), a replay bit for
+    bit; kernel, plain, ``torch.addmm`` and bound ms;
+7b. Llama-3-8B at full width with its depth cut to 2 layers, one model
+    per agent for 2 agents on ``ring_graph(2)``, mp coupling every step
+    (alpha 0.99, default AdamW with bf16 moments), batch 2 a agent at
+    sequence 1024, tokens from ``personalized_token_stream`` at vocab
+    512: 5 steps through ``train_loop`` (step 0, then steps 1-4 timed),
+    the loss falling, ``graph_mix`` launched 12 leaves x 5 steps, the
+    parameters after step 0 unlike a ``mode="none"`` step from the same
+    state; tokens/s, ms a step, one more step split into forward and
+    backward, AdamW, EMA and coupling by CUDA events and one under the
+    profiler (device time by kernel), peak memory;
+7c. the repo's example model (plm-100m: 12 x 512, vocab 32768) on 8
+    agents of ``random_geometric_graph(8, k=3)``, the example's knobs
+    (alpha 0.995, mu 0.02, every 4, lr 1e-3), batch 4 at sequence 128:
+    20 steps of each coupling mode from one state, the loss falling in
+    each, consensus leaving the agents equal within 1e-6 after its last
+    coupled step, mp launching ``graph_mix`` 12 leaves x 5 times, the mp
+    state's checkpoint read back bit for bit; tokens/s per mode.
+
 Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all six
 kernels, with their launches on their paths; ``graph_mix`` counts its
-three paths and carries its trial-axis readings under ``trial_axis``), the card's name and power
-limit as nvidia-smi reports them, and last ``{"ok": true, "device":
-{...}}``.
+three paths and carries its trial-axis readings under ``trial_axis``;
+its agent-axis form has its own entry with the launches of 7b and 7c's
+mp run), the card's name and power limit as nvidia-smi reports them, and
+last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -200,6 +234,22 @@ PROFILE_TICKS = 5
 # about 2^-8 * sqrt(32) = 2 % of the logits' norm.  A wrong kernel (a
 # wrong head, mask or tile) moves them by O(1).  So: relative L2 <= 0.1.
 LM_LOGIT_RTOL = 0.1
+# 4k: the personalization service's requests on the fused MP run
+SERVE_RATE, SERVE_BATCH = 5000, 65536      # requests a round, batch width
+# 7a: graph_mix's agent-axis form at the coupling's leaves: (n, D, dtype)
+AGENT_CASES = ((2, 525_336_576, "float32"),    # Llama-3-8B's embedding
+               (8, 16_777_216, "float32"),     # plm-100m's embedding
+               (8, 16_777_216, "bfloat16"))
+# 7b: Llama-3-8B at full width, depth cut to 2, 2 agents on a ring
+TRAIN_LAYERS, TRAIN_AGENTS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = \
+    2, 2, 2, 1024, 5
+STREAM_VOCAB = 512      # the token stream's V (its generator holds A V^2)
+# 7c: the repo's example (examples/personalized_lm.py): plm-100m, 8 agents
+PLM = dict(name="plm-100m", family="dense", n_layers=12, d_model=512,
+           n_heads=8, n_kv_heads=4, d_ff=1536, vocab_size=32768,
+           attn_impl="ref", remat=False)
+PLM_AGENTS, PLM_BATCH, PLM_SEQ, PLM_STEPS, PLM_EVERY = 8, 4, 128, 20, 4
+PLM_MODES = ("none", "consensus", "mp", "cl")
 # flash_attention cases: (B, S, H, K, hd, window, dtype name)
 FA_CASES = ((1, 4096, 32, 8, 128, None, "bfloat16"),    # Llama-3-8B prefill
             (1, 8192, 48, 4, 128, 4096, "bfloat16"),    # StarCoder2 window
@@ -889,6 +939,310 @@ def check_flash(torch, fa, case, seed):
         library_call="F.scaled_dot_product_attention (kv heads repeated)")
 
 
+def check_serving(torch, np, dispatch, spec, fused_hist, fused_s, smi):
+    """4k. ``run_scenario`` of 4a's fused MP run with a ``serve`` stream
+    (``precompute_serve_stream(n, rounds, rate=SERVE_RATE)``, batch width
+    SERVE_BATCH): theta_hist bit for bit 4a's, ``round_step`` once a
+    round, every request served; requests/s (the service's seconds are the
+    run's less 4a's fused run), the hit rate and the served staleness's
+    p50 and p99.  Returns an error or None."""
+    from repro_torch.simulate import (ScenarioSpec, precompute_serve_stream,
+                                      run_scenario)
+    sv = precompute_serve_stream(N_AGENTS, ROUNDS, rate=SERVE_RATE,
+                                 seed=SEED)
+    dispatch.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = run_scenario(ScenarioSpec(**spec, backend=dispatch.ReproBackend(),
+                                   serve=sv, serve_batch=SERVE_BATCH))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dispatch.launch_counts()["round_step"]
+    same = torch.equal(tr.theta_hist, fused_hist)
+    rep = tr.serve
+    serve_s = secs - fused_s
+    log(json.dumps(dict(
+        phase="4k", serve_batch=SERVE_BATCH,
+        run_s=secs, fused_run_s=fused_s, serve_s=serve_s,
+        requests_per_s=rep.requests / serve_s if serve_s > 0 else None,
+        theta_hist_bit_for_bit=same, round_step_launches=launches,
+        **rep.summary(), device=smi)))
+    if not same:
+        return "4k: serving changed theta_hist"
+    if launches != tr.rounds or rep.requests != sv.n_requests \
+            or rep.hits + rep.misses != rep.requests:
+        return (f"4k: {launches} round_step launches for {tr.rounds} "
+                f"rounds, {rep.requests} of {sv.n_requests} requests "
+                f"served, hits + misses {rep.hits + rep.misses}")
+    return None
+
+
+def check_graph_mix_agents(torch, gm, n, D, dtype, seed):
+    """7a. graph_mix's agent-axis form (n <= 32, D > 8) at one coupling
+    leaf's shape against its plain version: 1e-5 in float32; in bf16
+    within ``gm.bf16_tolerance`` (one bf16 ulp of the plain result beyond
+    the float32 sums' own error).  Bound: each input element read once
+    and the output written once, ``(2 n D + n D) size + n^2 size + 4 n``
+    bytes; the library call is ``torch.addmm(b*sol, A, theta)``."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    theta = torch.randn((n, D), generator=gen, device="cuda").to(dt)
+    sol = torch.randn((n, D), generator=gen, device="cuda").to(dt)
+    A = (torch.rand((n, n), generator=gen, device="cuda") / n).to(dt)
+    b = torch.rand((n,), generator=gen, device="cuda")
+    got = gm.graph_mix(theta, sol, A, b)
+    want = gm.graph_mix_plain(theta, sol, A, b)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if dtype == "float32":
+        tol, ok = 1e-5, err <= 1e-5
+    else:
+        tol = "bf16_tolerance"
+        ok = bool((diff <= gm.bf16_tolerance(theta, sol, A, b)).all())
+    del want, diff
+    size = theta.element_size()
+    bms, by = bound_ms(3 * n * D * size + n * n * size + 4 * n,
+                       2 * n * n * D + 2 * n * D)
+    iters = 5 if n * D > 1e9 else 20
+    ms = time_ms(torch, lambda: gm.graph_mix(theta, sol, A, b), iters)
+    plain_ms = time_ms(torch, lambda: gm.graph_mix_plain(theta, sol, A, b),
+                       iters)
+    bsol = (b[:, None] * sol).to(dt)
+    lib_ms = time_ms(torch, lambda: torch.addmm(bsol, A, theta), iters)
+    return dict(
+        name="graph_mix (agent axis)", route="cuda",
+        source="src/repro_torch/kernels/csrc/graph_mix.cu",
+        replaces="src/repro/kernels/graph_mix.py:28",
+        design="A and b in shared memory, theta and sol streamed once in "
+               "16-byte chunks, FFMA over j ascending, float32 or bf16",
+        shape=f"n={n} D={D} {dtype}", max_abs_err=err, tol=tol, ok=ok,
+        replay_bit_for_bit=torch.equal(got, gm.graph_mix(theta, sol, A, b)),
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms, library_call="torch.addmm(b*sol, A, theta)")
+
+
+def lm_batches(np, lm_cfg, graph, n_batches, agents, batch, seq):
+    """``n_batches`` training batches of the personalized token stream,
+    each ``{"tokens", "labels"}`` of (agents * batch, seq)."""
+    from repro_torch.data import make_lm_batches
+    return [{"tokens": r[..., :-1].reshape(agents * batch, seq),
+             "labels": r[..., 1:].reshape(agents * batch, seq)}
+            for r in make_lm_batches(lm_cfg, graph, n_batches)]
+
+
+def leaf_sample(torch, state):
+    """A few of the parameters on the host: the norms and a corner of the
+    head (enough to tell two runs apart)."""
+    p = state.params
+    return [p["final_norm"].cpu(), p["groups"][0]["b0"]["norm1"].cpu(),
+            p["unembed"][:, :64, :64].cpu()]
+
+
+def check_train_llama(torch, np, dispatch, dev, smi):
+    """7b. Llama-3-8B at full width (depth cut to TRAIN_LAYERS), one
+    agent-stacked model per agent on a ring, mp coupling every step
+    through ``train_loop``: the loss falls over TRAIN_STEPS steps,
+    ``graph_mix`` launches leaves x steps, the agents' parameters after
+    one step differ from a ``mode="none"`` step from the same state;
+    tokens/s, ms a step, a step's split by phase (CUDA events) and the
+    peak device memory.  Returns ``(record, launches, error)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import ring_graph
+    from repro_torch.coupling import CouplingConfig, make_state
+    from repro_torch.data import PersonalizedLMConfig
+    from repro_torch.models import Model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, train_loop)
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    model = Model(cfg, device="meta")
+    A = TRAIN_AGENTS
+    graph = ring_graph(A)
+    batches = lm_batches(np, PersonalizedLMConfig(
+        vocab_size=STREAM_VOCAB, n_agents=A, seq_len=TRAIN_SEQ,
+        batch_per_agent=TRAIN_BATCH, seed=SEED), graph, TRAIN_STEPS + 1,
+        A, TRAIN_BATCH, TRAIN_SEQ)
+    cstate = make_state(graph, device=dev)
+    tcfg = {mode: TrainConfig(n_agents=A, steps=TRAIN_STEPS, log_every=1,
+                              coupling=CouplingConfig(mode=mode, alpha=0.99,
+                                                      every=1))
+            for mode in ("none", "mp")}
+
+    def fresh():
+        return init_train_state(model, tcfg["mp"], torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+
+    quiet = []
+    # one solitary step from the seed's state, a sample of it kept
+    state = fresh()
+    n_params = sum(leaf[0].numel() for leaf in tree_leaves(state.params))
+    state, _ = make_train_step(model, tcfg["none"], cstate)(state,
+                                                            batches[0])
+    solo = leaf_sample(torch, state)
+    del state
+    torch.cuda.empty_cache()
+    # the mp run from the same state: step 0, then steps 1 .. 4 timed
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    dispatch.reset_launch_counts()
+    state, hist = train_loop(model, tcfg["mp"], cstate, batches[:1],
+                             state=state, log=quiet.append)
+    coupled = leaf_sample(torch, state)
+    differ = any(not torch.equal(a, b) for a, b in zip(coupled, solo))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, more = train_loop(model, tcfg["mp"], cstate,
+                             batches[1:TRAIN_STEPS], state=state,
+                             log=quiet.append)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dispatch.launch_counts()["graph_mix"]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist + more]
+    # one more step, split by phase
+    marks = {}
+
+    def mark(name):
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    make_train_step(model, tcfg["mp"], cstate)(state, batches[TRAIN_STEPS],
+                                               mark=mark)
+    torch.cuda.synchronize()
+    split, prev = {}, start
+    for name, ev in marks.items():
+        split[name] = prev.elapsed_time(ev)
+        prev = ev
+    # and one under the profiler: device time by kernel (a reading)
+    wall_ms, busy_ms, rows = profile_device(torch, lambda: make_train_step(
+        model, tcfg["mp"], cstate)(state, batches[TRAIN_STEPS]))
+    if busy_ms > 0:
+        log(f"[7b] one step under the profiler: wall {wall_ms:.3f} ms, "
+            f"device busy {busy_ms:.3f} ms "
+            f"({100 * busy_ms / wall_ms:.1f} %)")
+        for ms, key, count in rows[:16]:
+            log(f"[7b]   {ms:9.3f} ms  {count:6d} x  {key[:100]}")
+    else:
+        log("[7b] the profiler recorded no device time: not measured")
+    n_leaves = len(tree_leaves(state.params))
+    del state
+    torch.cuda.empty_cache()
+    steps_timed = TRAIN_STEPS - 1
+    tokens = A * TRAIN_BATCH * TRAIN_SEQ
+    rec = dict(
+        phase="7b", model=cfg.name, n_layers=cfg.n_layers,
+        params_per_agent=n_params, agents=A, graph="ring_graph(2)",
+        coupling="mp alpha=0.99 every=1", batch_per_agent=TRAIN_BATCH,
+        seq=TRAIN_SEQ, stream_vocab=STREAM_VOCAB, steps=TRAIN_STEPS,
+        losses=losses, tokens_per_step=tokens,
+        tokens_per_s=steps_timed * tokens / secs,
+        ms_per_step=secs * 1e3 / steps_timed, step_split_ms=split,
+        max_memory_allocated=peak, allocated_before=before,
+        graph_mix_launches=launches,
+        leaves=n_leaves, differs_from_none=differ, device=smi)
+    bad = None
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        bad = f"7b: losses {losses} not finite or not falling"
+    elif launches != n_leaves * TRAIN_STEPS:
+        bad = (f"7b: graph_mix launched {launches} times, not {n_leaves} "
+               f"leaves x {TRAIN_STEPS} steps")
+    elif not differ:
+        bad = "7b: the mp step left the parameters of a mode='none' step"
+    return rec, launches, bad
+
+
+def check_train_modes(torch, np, dispatch, dev, smi):
+    """7c. The example's plm-100m on 8 agents, every coupling mode for
+    PLM_STEPS steps from one state: the loss falls in each; consensus
+    leaves the agents equal within 1e-6 right after a coupled step; mp
+    launches ``graph_mix`` leaves x ceil(steps / every) times; the mp
+    state's checkpoint round-trips bit for bit.  Returns ``(record,
+    mp launches, error)``."""
+    import tempfile
+    from repro_torch.core.graph import random_geometric_graph
+    from repro_torch.coupling import CouplingConfig, make_state
+    from repro_torch.data import PersonalizedLMConfig
+    from repro_torch.models import Model, ModelConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   load_checkpoint, save_checkpoint,
+                                   train_loop)
+    from repro_torch.tree import tree_leaves
+    model = Model(ModelConfig(**PLM), device="meta")
+    A = PLM_AGENTS
+    graph = random_geometric_graph(A, k=3, seed=0)
+    batches = lm_batches(np, PersonalizedLMConfig(
+        vocab_size=STREAM_VOCAB, n_agents=A, seq_len=PLM_SEQ,
+        batch_per_agent=PLM_BATCH, seed=SEED), graph, PLM_STEPS, A,
+        PLM_BATCH, PLM_SEQ)
+    cstate = make_state(graph, np.ones(A), 0.995, device=dev)
+    rec = dict(phase="7c", model=PLM["name"], agents=A,
+               graph="random_geometric_graph(8, k=3, seed=0)",
+               batch_per_agent=PLM_BATCH, seq=PLM_SEQ, steps=PLM_STEPS,
+               every=PLM_EVERY, modes={}, device=smi)
+    quiet, mp_launches, bad = [], 0, None
+    last_mix = (PLM_STEPS - 1) // PLM_EVERY * PLM_EVERY
+    for mode in PLM_MODES:
+        tcfg = TrainConfig(
+            n_agents=A, steps=PLM_STEPS, log_every=1,
+            optimizer=AdamWConfig(lr=1e-3, weight_decay=0.01),
+            coupling=CouplingConfig(mode=mode, alpha=0.995, mu=0.02,
+                                    every=PLM_EVERY))
+        state = init_train_state(model, tcfg, torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        dispatch.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # through the last coupled step, then the rest
+        state, h1 = train_loop(model, tcfg, cstate, batches[:last_mix + 1],
+                               state=state, log=quiet.append)
+        spread = max((leaf - leaf[:1]).abs().max().item()
+                     for leaf in tree_leaves(state.params))
+        state, h2 = train_loop(model, tcfg, cstate, batches[last_mix + 1:],
+                               state=state, log=quiet.append)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dispatch.launch_counts()["graph_mix"]
+        losses = [h["loss"] for h in h1 + h2]
+        rec["modes"][mode] = dict(
+            first_loss=losses[0], last_loss=losses[-1],
+            tokens_per_s=PLM_STEPS * A * PLM_BATCH * PLM_SEQ / secs,
+            ms_per_step=secs * 1e3 / PLM_STEPS, graph_mix_launches=launches,
+            agent_spread_after_last_mix=spread)
+        n_leaves = len(tree_leaves(state.params))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            bad = bad or f"7c {mode}: losses {losses} not falling"
+        if mode == "consensus" and not spread <= 1e-6:
+            bad = bad or f"7c consensus: agents differ by {spread}"
+        if mode == "mp":
+            mp_launches = launches
+            want = n_leaves * -(-PLM_STEPS // PLM_EVERY)
+            if launches != want:
+                bad = bad or f"7c mp: {launches} graph_mix launches, not {want}"
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                t0 = time.perf_counter()
+                save_checkpoint(state, d, PLM_STEPS)
+                back, step = load_checkpoint(state, d)
+                same = step == PLM_STEPS and all(
+                    a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+                        tree_leaves((back.params, back.opt_state,
+                                     back.solitary, back.step)),
+                        tree_leaves((state.params, state.opt_state,
+                                     state.solitary, state.step))))
+                rec["checkpoint_s"] = time.perf_counter() - t0
+            rec["checkpoint_bit_for_bit"] = same
+            del back
+            if not same:
+                bad = bad or "7c: the mp checkpoint did not round-trip"
+        elif launches:
+            bad = bad or f"7c {mode}: graph_mix launched {launches} times"
+        del state
+        torch.cuda.empty_cache()
+    return rec, mp_launches, bad
+
+
 def profile_device(torch, run):
     """Device time by kernel over ``run()``, and the device's busy share of
     its wall time, from ``torch.profiler`` (CPU and CUDA activity; only
@@ -1355,7 +1709,7 @@ def main() -> int:
     spec = dict(algo="mp", topology=topo, conditions=cond, rounds=ROUNDS,
                 batch=BATCH, seed=SEED, record_every=RECORD, theta_sol=sol,
                 c=c, alpha=ALPHA, stream=stream, device=dev)
-    runs, counts, rates = {}, {}, {}
+    runs, counts, rates, runs_s = {}, {}, {}, {}
     for name, backend in (("fused", dispatch.ReproBackend()),
                           ("per-op", None)):
         dispatch.reset_launch_counts()
@@ -1367,6 +1721,7 @@ def main() -> int:
         counts[name] = dispatch.launch_counts()
         runs[name] = tr
         rates[name] = tr.events / secs
+        runs_s[name] = secs
         log(f"[4a] {name}: {tr.rounds} rounds, {tr.events} events in "
             f"{secs:.3f} s = {tr.events / secs:.4g} events/s; "
             f"delivered={tr.delivered} dropped={tr.dropped} "
@@ -1393,7 +1748,14 @@ def main() -> int:
         f"(tol 1e-5); max |theta - theta_sol| = {moved:.3g}")
     if not hist_err <= 1e-5 or not moved > 0:
         return fail("fused trajectory disagrees with the per-op one")
+    fused_hist, fused_s = fu.theta_hist, runs_s["fused"]
     del runs, fu                  # 4g holds joint learning against ``po``
+
+    # 4k. the personalization service on the fused MP run -----------------
+    bad = check_serving(torch, np, dispatch, spec, fused_hist, fused_s, smi)
+    if bad:
+        return fail(bad)
+    del fused_hist
 
     # 5mp. where a fused MP round's time goes (a reading; nothing is
     # checked): the device timeline from round 0's round_step to the last
@@ -1744,7 +2106,7 @@ def main() -> int:
         else:
             log(f"[6b] {what}: the profiler recorded no device time: "
                 f"not measured")
-    del eng, results
+    del eng, results, run, tok4, longest      # ``run`` holds the model
 
     # 6c. the kernel path against the reference path ------------------------
     check = lm_rng.integers(0, cfg.vocab_size, LM_CHECK_PROMPT)
@@ -1783,7 +2145,39 @@ def main() -> int:
         return fail(f"kernel path logits {tuple(lk.shape)} off the "
                     f"reference path's by {rel} (relative L2 > "
                     f"{LM_LOGIT_RTOL}) or not finite")
-    del model, paths, lk, lr
+    del model, paths, lk, lr, e1, logits     # ``e1`` holds the model
+    gc.collect()     # the engine's timed methods close a reference cycle
+    torch.cuda.empty_cache()
+
+    # 7a. graph_mix's agent-axis form at the coupling's leaves ------------
+    agent_cases = []
+    for i, (n, D, dtype) in enumerate(AGENT_CASES):
+        kr = check_graph_mix_agents(torch, gm, n, D, dtype, SEED + i)
+        ok = kr.pop("ok")
+        log(json.dumps(kr))
+        if not ok or not kr["replay_bit_for_bit"]:
+            return fail(f"graph_mix agent axis {kr['shape']}: max abs err "
+                        f"{kr['max_abs_err']} outside {kr['tol']}, or a "
+                        f"replay differed")
+        agent_cases.append(kr)
+        torch.cuda.empty_cache()
+    log(f"[7a] graph_mix's agent-axis form agrees with its plain version on "
+        f"all {len(AGENT_CASES)} cases")
+
+    # 7b. Llama-3-8B (full width, 2 layers) trained on 2 agents, mp ------
+    train, counts["train_llama"], bad = check_train_llama(torch, np,
+                                                          dispatch, dev, smi)
+    log(json.dumps(train))
+    if bad:
+        return fail(bad)
+
+    # 7c. plm-100m on 8 agents, every coupling mode -----------------------
+    modes, counts["train_plm_mp"], bad = check_train_modes(torch, np,
+                                                           dispatch, dev,
+                                                           smi)
+    log(json.dumps(modes))
+    if bad:
+        return fail(bad)
 
     path_of = {"round_step": "fused", "sparse_gather_mix": "sparse_sync_mp",
                "graph_mix": "synchronous", "cl_edge_step": "cl-kernel",
@@ -1804,6 +2198,17 @@ def main() -> int:
                 + counts["sweep"]["graph_mix"]
             row["trial_axis"] = batched
         summary.append(row)
+    agent = {k: agent_cases[0][k] for k in (
+        "name", "route", "source", "replaces", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "design")}
+    agent["launches"] = counts["train_llama"] + counts["train_plm_mp"]
+    agent["launches_by_path"] = {"train_llama": counts["train_llama"],
+                                 "train_plm_mp": counts["train_plm_mp"]}
+    agent["cases"] = [{k: kr[k] for k in ("shape", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms",
+                                          "library_ms")}
+                      for kr in agent_cases]
+    summary.append(agent)
     log(json.dumps({"kernels": summary}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 Each function takes the JAX side's arrays (anything ``np.asarray`` reads:
 numpy arrays, or JAX arrays, which convert to numpy) and returns the
 port's tensors on a given device (CUDA when None): the simulator's tables,
-streams, models and states, agents' flat parameter rows, and an LM's
-parameter tree.  Objects are read by
+streams, models and states, agents' flat parameter rows, an LM's
+parameter tree, and an LM training state.  Objects are read by
 field name only, so this module imports nothing of ``repro``.
 """
 
@@ -21,7 +21,7 @@ from repro_torch.core.losses import AgentData
 from repro_torch.core.sparse import DeviceTables, to_device
 from repro_torch.simulate.engines import SparseADMMState
 from repro_torch.simulate.scheduler import EventStream
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def tables_from_arrays(tables, device=None) -> DeviceTables:
@@ -136,3 +136,35 @@ def model_params_from_arrays(cfg, params, device=None, dtype=None):
                     state[f"layers.{layer}.{name}"] = t(np.asarray(leaf)[r])
                 layer += 1
     return state
+
+
+def tensor_from_array(a, device=None) -> torch.Tensor:
+    """One array as a tensor of the same dtype on ``device`` (CUDA when
+    None); bf16 (``ml_dtypes``' numpy type, as JAX arrays convert) is
+    carried over by its bits."""
+    device = resolve_device(device)
+    arr = np.ascontiguousarray(np.asarray(a))
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def train_state_from_arrays(state, device=None):
+    """An LM training state (an object with ``params``, ``opt_state``,
+    ``solitary`` and ``step``, e.g. the JAX package's TrainState, whose
+    moments are bf16) as the port's ``train.TrainState``: every leaf its
+    own tensor of the same dtype on ``device`` (the trainer updates them
+    in place), ``step`` an int32 tensor on the CPU.  ``jax.random``
+    initialisations cannot be replayed, so this is how a JAX state is
+    carried across."""
+    from repro_torch.train import TrainState
+    device = resolve_device(device)
+
+    def conv(tree):
+        return tree_map(lambda a: tensor_from_array(a, device), tree)
+    return TrainState(params=conv(state.params),
+                      opt_state=conv(state.opt_state),
+                      solitary=conv(state.solitary),
+                      step=tensor_from_array(state.step, "cpu").to(
+                          torch.int32))

@@ -60,10 +60,47 @@ class Graph:
         """(n,) weighted degrees D_ii = sum_j W_ij (paper §2.1)."""
         return self.W.sum(axis=1)
 
+    @property
+    def D(self) -> np.ndarray:
+        """Degree diagonal matrix D (paper Prop. 1)."""
+        return np.diag(self.degrees)
+
+    @property
+    def laplacian(self) -> np.ndarray:
+        """Graph Laplacian L = D - W (the smoothness operator of
+        Eq. (1)'s quadratic term)."""
+        return self.D - self.W
+
     def edges(self) -> List[Tuple[int, int]]:
         """Undirected edges (i < j) with positive weight."""
         iu, ju = np.nonzero(np.triu(self.W, k=1))
         return list(zip(iu.tolist(), ju.tolist()))
+
+    def neighbors(self, i: int) -> np.ndarray:
+        """Ids of N_i — agents sharing a positive-weight edge with i."""
+        return np.nonzero(self.W[i])[0]
+
+    def edge_coloring(self) -> List[List[Tuple[int, int]]]:
+        """Greedy proper edge coloring -> list of matchings covering E.
+
+        Each matching is a set of vertex-disjoint edges (agent pairs that
+        can gossip at once).  Edges are placed heaviest first (Python's
+        stable sort, so ties keep ``edges()`` order), each into the first
+        matching where both ends are free: the JAX package's matchings in
+        the same order.
+        """
+        matchings: List[List[Tuple[int, int]]] = []
+        used: List[set] = []
+        for (i, j) in sorted(self.edges(), key=lambda e: -self.W[e[0], e[1]]):
+            for color, busy in enumerate(used):
+                if i not in busy and j not in busy:
+                    matchings[color].append((i, j))
+                    busy.update((i, j))
+                    break
+            else:
+                matchings.append([(i, j)])
+                used.append({i, j})
+        return matchings
 
     @property
     def P(self) -> np.ndarray:

@@ -1,5 +1,5 @@
 """Synthetic problems of the paper's experiments (counterpart of
-``repro.data.synthetic``, without the LM streams).
+``repro.data.synthetic``).
 
 The numpy draws are exactly those of the JAX package from the same seed:
 ``mean_estimation_problem`` (§5.1: two-moons auxiliary information,
@@ -8,17 +8,20 @@ N(+-1, 40) sample streams, c_i ~ U(1/2 +- eps/2), m_i = round(100 c_i)),
 opposite mean targets), ``linear_classification_problem`` (§5.2:
 target models in a 2-D subspace of R^p, angular-kernel graph,
 m_i ~ U{1..20}, 5% label flips) and ``federated_moons_problem``
-(per-cluster nonlinear two-moons boundaries for the nonlinear agents).
+(per-cluster nonlinear two-moons boundaries for the nonlinear agents),
+and the personalized LM token streams (per-agent bigram processes that
+neighbors share structure in).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.graph import (angular_kernel_graph,
+from repro_torch.core.graph import (Graph, angular_kernel_graph,
                                     gaussian_kernel_graph,
                                     knn_graph_from_similarity, two_moons)
 from repro_torch.core.losses import AgentData, pad_datasets
@@ -176,3 +179,75 @@ def model_accuracy(theta_all, predict_fn, x, y) -> np.ndarray:
                         device=theta.device)
     scores = torch.func.vmap(predict_fn)(theta, x).cpu().numpy()
     return (np.sign(scores) == np.sign(np.asarray(y))).mean(axis=1)
+
+
+# ---------------------------------------------------------------------------
+# Personalized LM streams
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PersonalizedLMConfig:
+    vocab_size: int
+    n_agents: int
+    seq_len: int
+    batch_per_agent: int
+    share: float = 0.9          # transition mass shared by every agent
+    concentration: float = 0.3  # Dirichlet concentration of private structure
+    seed: int = 0
+
+
+def _agent_bigrams(cfg: PersonalizedLMConfig, graph: Graph) -> np.ndarray:
+    """Per-agent bigram transition matrices (n_agents, V, V) float64.
+
+    A shared base, blended with a cluster tilt chosen by the sign of the
+    agent's entry in the Laplacian's Fiedler vector and a small private
+    tilt, so neighbors end up statistically similar.  It holds
+    ``n_agents * V**2`` float64s (8 GB at V = 8192 and 16 agents): the
+    stream is drawn at a small ``vocab_size``.
+    """
+    rng = np.random.default_rng(cfg.seed)
+    V = cfg.vocab_size
+    base = rng.dirichlet(np.full(V, 1.0), size=V)
+    lap = graph.laplacian
+    _, vecs = np.linalg.eigh(lap)
+    fiedler = vecs[:, 1] if lap.shape[0] > 1 else np.zeros(1)
+    tilts = {s: rng.dirichlet(np.full(V, cfg.concentration), size=V)
+             for s in (-1, 1)}
+    out = np.empty((cfg.n_agents, V, V))
+    for a in range(cfg.n_agents):
+        s = 1 if fiedler[a] >= 0 else -1
+        private = rng.dirichlet(np.full(V, cfg.concentration), size=V)
+        out[a] = (cfg.share * base + (1 - cfg.share) *
+                  (0.8 * tilts[s] + 0.2 * private))
+    return out / out.sum(-1, keepdims=True)
+
+
+def personalized_token_stream(cfg: PersonalizedLMConfig, graph: Graph
+                              ) -> Iterator[np.ndarray]:
+    """Yields batches (n_agents, batch_per_agent, seq_len + 1) of int32
+    token ids, the JAX package's draws from the same seed;
+    tokens = batch[..., :-1], labels = batch[..., 1:]."""
+    trans = _agent_bigrams(cfg, graph)
+    cum = np.cumsum(trans, axis=-1)
+    rng = np.random.default_rng(cfg.seed + 1)
+    A, b, S = cfg.n_agents, cfg.batch_per_agent, cfg.seq_len + 1
+    agent_idx = np.arange(A)[:, None]                      # (A, 1)
+    while True:
+        out = np.empty((A, b, S), np.int32)
+        state = rng.integers(0, cfg.vocab_size, (A, b))
+        out[..., 0] = state
+        u = rng.uniform(size=(A, b, S - 1))
+        for t in range(1, S):
+            rows = cum[agent_idx, state]                   # (A, b, V)
+            state = (rows >= u[..., t - 1:t]).argmax(-1)
+            state = np.minimum(state, cfg.vocab_size - 1)
+            out[..., t] = state
+        yield out
+
+
+def make_lm_batches(cfg: PersonalizedLMConfig, graph: Graph,
+                    n_batches: int):
+    """The first ``n_batches`` batches of the stream, as a list."""
+    it = personalized_token_stream(cfg, graph)
+    return [next(it) for _ in range(n_batches)]

@@ -8,8 +8,8 @@ library with a plain C interface.  The library lives under
 flags, so an edited source
 rebuilds and an unchanged one loads the cached library.  It is loaded with
 ``ctypes``; every entry point declares its ``argtypes`` (``c_void_p`` for
-pointers and the CUDA stream, ``c_int`` for sizes, ``c_float`` for
-scalars) and returns ``cudaGetLastError()``, which :func:`launch` turns
+pointers and the CUDA stream, ``c_int`` for sizes — ``c_longlong`` for one
+that may pass 2^31 —, ``c_float`` for scalars) and returns ``cudaGetLastError()``, which :func:`launch` turns
 into an exception.
 
 Nothing here runs at import time: the CPU-only tests import every module
@@ -35,11 +35,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+L = ctypes.c_longlong
 #: C entry points and their argument types (pointers, sizes, scalars,
 #: stream last for those that launch).
 SIGNATURES = {
     # A, theta, sol, b, out, T, n, D, stream
     "repro_graph_mix": (P, P, P, P, P, I, I, I, P),
+    # A, theta, sol, b, out, T, n, D (long long), is_bf16, stream
+    "repro_graph_mix_agents": (P, P, P, P, P, I, I, L, I, P),
     # table, idx, w, b, sol, order (or NULL), out, N, n, k, p, stream
     "repro_sparse_gather_mix": (P,) * 7 + (I,) * 4 + (P,),
     # theta, Ke, got_ever, msg, k_old, tgt_row, enc, theta_base, a_w,

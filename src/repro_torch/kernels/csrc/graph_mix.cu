@@ -86,7 +86,34 @@
 //     only on n and D: not on T, the block, the load width or the staging,
 //     so a trial's result equals its own launch bit for bit.
 //   - D is a template parameter (1 .. 8): the FMAs of a chunk are D wide.
+//
+// Few agents, wide models (n <= 32, D > 8: the LM coupling's shape, one
+// launch a parameter leaf, n the agent count and D the leaf's size per
+// agent, up to 525,336,576 at Llama-3-8B's embedding) take a third kernel,
+// graph_mix_agents_kernel, the shape the Pallas kernel was written for (A
+// resident, D streamed).  The tile kernel would zero-fill all but n of its
+// 128 rows and 32 - n of each 32-deep step there.  The work is 2 n^2 D
+// FMA operations on (3 n D) elements moved, n / 6 operations a byte in
+// float32: bound by bytes at every n <= 32 (at n = 32, 18 TFLOP/s of FFMA
+// at the HBM rate, a quarter of the card's 67).  So the design streams:
+//   - A (converted to float32, transposed: row j holds column j of A,
+//     zero past n) and b sit in shared memory, read as broadcasts.
+//   - Each thread owns COLS adjacent columns (a 16-byte load of theta's
+//     dtype, or 8 bytes where 16 would need more than 128 accumulators)
+//     and computes all n output rows of them: for j ascending it loads
+//     theta[j, cols] once and adds A[i, j] * theta[j, col] into acc[i][col]
+//     with fmaf for every i; then out = fmaf(b[i], sol[i, col], acc).  So
+//     each element is read once and written once, and an output's sum
+//     order depends only on n: a replay, any D tiling and a slice of D
+//     give the same bits.
+//   - Blocks walk D's column groups on grid.x with a grid stride (indices
+//     in size_t); grid.y is the trial.
+//   - float32 or bf16 theta, sol, A and out (the coupling's mix_dtype), b
+//     float32, float32 accumulation, the result rounded to the element
+//     type once.  NMAX (4, 8, 16, 32) is n rounded up: the unrolled
+//     accumulators of rows past n are never stored.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -393,11 +420,190 @@ void launch_rows(const float* A, const float* theta, const float* sol,
                              stream>>>(A, theta, sol, b, out, n, vec, staged);
 }
 
+
+// ---------------------------------------------------------------------------
+// agent axis: n <= 32, D > SMALL_D
+// ---------------------------------------------------------------------------
+
+constexpr int AGENT_MAX = 32;       // widest n the agents kernel takes
+constexpr int AGENT_THREADS = 256;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f32(float v, float* p) { *p = v; }
+__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// COLS elements of E at p (16- or 8-byte aligned when vec) as floats;
+// past ``left`` elements they read as zero
+template <typename E, int COLS>
+__device__ __forceinline__ void load_cols(const E* __restrict__ p, bool vec,
+                                          size_t left, float (&v)[COLS]) {
+  if (vec) {
+    constexpr int WORDS = COLS * sizeof(E) / 4;   // 32-bit words: 2 or 4
+    uint32_t w[WORDS];
+    if constexpr (WORDS == 4) {
+      const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+      w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
+    } else {
+      const uint2 q = __ldcs(reinterpret_cast<const uint2*>(p));
+      w[0] = q.x, w[1] = q.y;
+    }
+    const E* e = reinterpret_cast<const E*>(w);
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) v[c] = to_f32(e[c]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+      v[c] = (size_t)c < left ? to_f32(p[c]) : 0.f;
+  }
+}
+
+// COLS floats to p as E (one 16- or 8-byte store when vec), the first
+// ``left`` of them otherwise
+template <typename E, int COLS>
+__device__ __forceinline__ void store_cols(E* __restrict__ p, bool vec,
+                                           size_t left,
+                                           const float (&v)[COLS]) {
+  if (vec) {
+    constexpr int WORDS = COLS * sizeof(E) / 4;
+    uint32_t w[WORDS];
+    E* e = reinterpret_cast<E*>(w);
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) from_f32(v[c], e + c);
+    if constexpr (WORDS == 4)
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    else
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+      if ((size_t)c < left) from_f32(v[c], p + c);
+  }
+}
+
+template <typename E, int NMAX, int COLS>
+__global__ void __launch_bounds__(AGENT_THREADS)
+graph_mix_agents_kernel(const E* __restrict__ A, const E* __restrict__ X,
+                        const E* __restrict__ S, const float* __restrict__ b,
+                        E* __restrict__ out, int n, size_t D, int vec) {
+  __shared__ float at[NMAX * NMAX];   // at[j * NMAX + i] = A[i, j]
+  __shared__ float bs[NMAX];
+  const size_t z = blockIdx.y, nd = (size_t)n * D;
+  A += z * n * n;
+  X += z * nd;
+  S += z * nd;
+  b += z * n;
+  out += z * nd;
+  for (int t = threadIdx.x; t < NMAX * NMAX; t += AGENT_THREADS) {
+    const int j = t / NMAX, i = t % NMAX;
+    at[t] = i < n && j < n ? to_f32(A[i * n + j]) : 0.f;
+  }
+  for (int t = threadIdx.x; t < NMAX; t += AGENT_THREADS)
+    bs[t] = t < n ? b[t] : 0.f;
+  __syncthreads();
+
+  const size_t groups = (D + COLS - 1) / COLS;
+  for (size_t gi = (size_t)blockIdx.x * AGENT_THREADS + threadIdx.x;
+       gi < groups; gi += (size_t)gridDim.x * AGENT_THREADS) {
+    const size_t c0 = gi * COLS, left = D - c0;
+    float acc[NMAX][COLS];
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i)
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) {
+      if (j >= n) break;
+      float x[COLS];
+      load_cols<E, COLS>(X + (size_t)j * D + c0, vec, left, x);
+#pragma unroll
+      for (int i = 0; i < NMAX; ++i) {
+        const float a = at[j * NMAX + i];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[i][c] = fmaf(a, x[c], acc[i][c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) {
+      if (i >= n) break;
+      float s[COLS];
+      load_cols<E, COLS>(S + (size_t)i * D + c0, vec, left, s);
+      float v[COLS];
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) v[c] = fmaf(bs[i], s[c], acc[i][c]);
+      store_cols<E, COLS>(out + (size_t)i * D + c0, vec, left, v);
+    }
+  }
+}
+
+template <typename E, int NMAX>
+int launch_agents(const E* A, const E* theta, const E* sol, const float* b,
+                  E* out, int T, int n, size_t D, cudaStream_t stream) {
+  // 16 bytes of E a thread, unless that needs more than 128 accumulators
+  constexpr int COLS16 = 16 / sizeof(E);
+  constexpr int COLS = NMAX * COLS16 <= 128 ? COLS16 : 128 / NMAX;
+  const size_t bytes = COLS * sizeof(E), trial = (size_t)n * D * sizeof(E);
+  auto ok = [&](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0 &&
+           (T == 1 || trial % bytes == 0);
+  };
+  const int vec = D % COLS == 0 && ok(theta) && ok(sol) && ok(out);
+  const size_t groups = (D + COLS - 1) / COLS;
+  const size_t want = (groups + AGENT_THREADS - 1) / AGENT_THREADS;
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t cap = (size_t)sms * 16;       // a grid stride past that
+  dim3 grid((unsigned)(want < cap ? want : cap), T);
+  graph_mix_agents_kernel<E, NMAX, COLS><<<grid, AGENT_THREADS, 0, stream>>>(
+      A, theta, sol, b, out, n, D, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int graph_mix_agents(const E* A, const E* theta, const E* sol,
+                     const float* b, E* out, int T, int n, size_t D,
+                     cudaStream_t stream) {
+  if (n <= 4) return launch_agents<E, 4>(A, theta, sol, b, out, T, n, D,
+                                         stream);
+  if (n <= 8) return launch_agents<E, 8>(A, theta, sol, b, out, T, n, D,
+                                         stream);
+  if (n <= 16) return launch_agents<E, 16>(A, theta, sol, b, out, T, n, D,
+                                           stream);
+  return launch_agents<E, 32>(A, theta, sol, b, out, T, n, D, stream);
+}
+
 }  // namespace
 
+// The agent-axis form alone, in float32 (is_bf16 = 0) or bf16 (1): A
+// (T, n, n), theta, sol and out (T, n, D) of that type, b (T, n) float32;
+// 1 <= n <= 32.  Returns cudaGetLastError() after the launch.
+extern "C" int repro_graph_mix_agents(const void* A, const void* theta,
+                                      const void* sol, const float* b,
+                                      void* out, int T, int n, long long D,
+                                      int is_bf16, cudaStream_t stream) {
+  if (T < 1 || n < 1 || n > AGENT_MAX || D < 1)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return graph_mix_agents(static_cast<const __nv_bfloat16*>(A),
+                            static_cast<const __nv_bfloat16*>(theta),
+                            static_cast<const __nv_bfloat16*>(sol), b,
+                            static_cast<__nv_bfloat16*>(out), T, n,
+                            (size_t)D, stream);
+  return graph_mix_agents(static_cast<const float*>(A),
+                          static_cast<const float*>(theta),
+                          static_cast<const float*>(sol), b,
+                          static_cast<float*>(out), T, n, (size_t)D, stream);
+}
+
 // A (T, n, n), theta (T, n, D), sol (T, n, D), b (T, n), out (T, n, D):
-// contiguous f32 on the device, T <= 65535.  Returns cudaGetLastError()
-// after the launch.
+// contiguous f32 on the device, T <= 65535.  D <= 8 takes the rows
+// kernel, n <= 32 the agents kernel, the rest the tile kernel.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_graph_mix(const float* A, const float* theta,
                                const float* sol, const float* b, float* out,
                                int T, int n, int D, cudaStream_t stream) {
@@ -408,6 +614,8 @@ extern "C" int repro_graph_mix(const float* A, const float* theta,
         launch_rows<1>, launch_rows<2>, launch_rows<3>, launch_rows<4>,
         launch_rows<5>, launch_rows<6>, launch_rows<7>, launch_rows<8>};
     rows[D - 1](A, theta, sol, b, out, T, n, stream);
+  } else if (T > 0 && n > 0 && D > 0 && n <= AGENT_MAX) {
+    return graph_mix_agents(A, theta, sol, b, out, T, n, (size_t)D, stream);
   } else if (T > 0 && n > 0 && D > 0) {
     cudaError_t err = cudaFuncSetAttribute(
         graph_mix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -30,7 +30,9 @@ Canonical signatures (shared by every impl of an op):
 
     mix:        (theta (T?,n,D), theta_sol (T?,n,D), A (T?,n,n), b (T?,n))
                 -> (T?,n,D); the leading trial axis is optional, and the
-                kernel takes all trials in one launch
+                kernel takes all trials in one launch; float32, or for
+                n <= 32 and D > 8 (the LM coupling) theta, theta_sol and
+                A in bf16 with b float32, the sums float32
     sparse_mix: (table (N,p), idx (n,k) int32, w (n,k), b (n,),
                  sol (n,p), *, order=None) -> (n,p); order, an (n,)
                  int32 row permutation, is the kernel's row schedule

@@ -4,9 +4,9 @@
 ``ModelConfig`` is a copy of the JAX package's, field for field and default
 for default, with torch dtypes in place of ``jnp`` ones.  The layers are
 plain functions on tensors and compute what their JAX namesakes compute:
-``rms_norm`` and ``apply_rope`` in float32, cast back to the input's dtype.
-``apply_mrope`` and ``cross_entropy`` wait for the VLM family and for
-training (ROADMAP queue 1 item 9).
+``rms_norm`` and ``apply_rope`` in float32, cast back to the input's dtype,
+and the training loss ``cross_entropy``.  ``apply_mrope`` waits for the
+VLM family (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -156,3 +156,19 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean cross-entropy over valid positions, in float32; labels < 0
+    (and positions where ``mask`` is False) are ignored."""
+    valid = labels >= 0 if mask is None else mask & (labels >= 0)
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = torch.where(valid, logz - gold, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)

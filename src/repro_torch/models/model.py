@@ -1,20 +1,27 @@
 """The decoder model (counterpart of ``repro.models.model``), dense
-family, for serving.
+family, for serving and for training.
 
-``Model`` is an ``nn.Module`` holding the embedding, one :class:`Block`
-per layer and the head, each weight laid out as in the JAX package's
-parameter tree (``(d_in, d_out)``, ``x @ w``).  It runs the layers in a
-Python loop: the JAX package's scan over stacked groups and its remat are
-compile-time and training devices with nothing to port for serving.
+Serving: ``Model`` is an ``nn.Module`` holding the embedding, one
+:class:`Block` per layer and the head, each weight laid out as in the JAX
+package's parameter tree (``(d_in, d_out)``, ``x @ w``).  It runs the
+layers in a Python loop.  The JAX package keeps float32 master weights and
+casts them to ``compute_dtype`` on every call; for serving, this model
+holds them already cast (``dtype``, by default ``cfg.compute_dtype``),
+which gives the same values.
 
-The JAX package keeps float32 master weights and casts them to
-``compute_dtype`` on every call; for serving, this model holds them
-already cast (``dtype``, by default ``cfg.compute_dtype``), which gives the
-same values.  Logits are float32 (the head multiplies in float32, as the
-JAX package's ``preferred_element_type`` asks).
+Training: :meth:`Model.loss` and :meth:`Model.apply` run over an explicit
+parameter tree laid out as the JAX package's (``embed``, ``unembed``,
+``final_norm`` and ``groups``: one dict per scan group whose ``b{i}``
+leaves are stacked over the group's repetitions, ``(L, ...)``), float32
+master weights cast to ``compute_dtype`` on every call, differentiable by
+autograd.  ``cfg.remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` with
+nothing saveable does.  The module's own weights are not read there: a
+``Model`` on the ``meta`` device holds none and trains as well.
 
-Vision, audio and MoE models, the loss and training wait for ROADMAP
-queue 1 item 9.
+Logits are float32 (the head multiplies in float32, as the JAX package's
+``preferred_element_type`` asks).  Vision, audio and MoE models wait for
+ROADMAP queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -24,12 +31,39 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.tree import (tree_flatten, tree_map, tree_paths,
+                              tree_unflatten)
 
 from .blocks import (NOT_PORTED, Block, Ctx, attn_init_cache,
                      block_apply_dec, block_apply_seq)
-from .common import ModelConfig, rms_norm
+from .common import ModelConfig, cross_entropy, rms_norm
+
+
+class _Params(dict):
+    """A parameter dict read by attribute, as the blocks read a
+    :class:`Block`'s weights."""
+
+    __getattr__ = dict.__getitem__
+
+
+def _as_block(tree):
+    return _Params({k: _as_block(v) if isinstance(v, dict) else v
+                    for k, v in tree.items()})
+
+
+def _nest(named):
+    """``{"a.b": x}`` -> ``{"a": {"b": x}}``."""
+    out: Dict = {}
+    for name, val in named:
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = val  # scatter: unique targets (parameter names)
+    return out
 
 
 class Model(nn.Module):
@@ -105,6 +139,93 @@ class Model(nn.Module):
         for layer in self.layers:
             x, _ = block_apply_seq(self.cfg, layer.kind, layer, x, ctx)
         return self._head(rms_norm(x, self.final_norm))
+
+    # -- training: a forward over an explicit parameter tree ------------------
+
+    def abstract_params(self) -> Dict:
+        """The JAX package's parameter tree of this config as ``meta``
+        tensors in ``cfg.param_dtype`` (shapes only): the blocks' weights
+        stacked over their group's repetitions."""
+        cfg = self.cfg
+        dm, V = cfg.d_model, cfg.vocab_size
+
+        def leaf(*shape):
+            return torch.empty(shape, dtype=cfg.param_dtype, device="meta")
+
+        groups = []
+        for unit, reps in cfg.scan_groups():
+            groups.append({f"b{i}": _nest(
+                (name, leaf(reps, *p.shape)) for name, p in
+                Block(cfg, kind, "meta", cfg.param_dtype).named_parameters())
+                for i, kind in enumerate(unit)})
+        return {"embed": leaf(V, dm), "unembed": leaf(dm, V),
+                "final_norm": leaf(dm), "groups": groups}
+
+    def init_params(self, generator: torch.Generator, device=None) -> Dict:
+        """Master weights in ``cfg.param_dtype`` on ``device`` (CUDA when
+        None), drawn from ``generator`` leaf by leaf in the tree's order:
+        the JAX package's rule (``_init_leaf``) — norms (1-D before
+        stacking) zero, the embedding ``0.02 * normal``, every other
+        matrix ``normal / sqrt(fan_in)`` with fan_in its second-to-last
+        dim; its draws differ."""
+        device = resolve_device(device)
+        abstract = self.abstract_params()
+        _, treedef = tree_flatten(abstract)
+        leaves = []
+        for name, a in tree_paths(abstract):
+            if a.dim() - name.startswith("groups/") == 1:
+                leaf = torch.zeros(a.shape, device=device)
+            else:
+                scale = 0.02 if name == "embed" \
+                    else 1.0 / math.sqrt(max(a.shape[-2], 1))
+                leaf = torch.randn(a.shape, generator=generator,
+                                   device=device).mul_(scale)
+            leaves.append(leaf.to(a.dtype))
+        return tree_unflatten(treedef, leaves)
+
+    def apply(self, params: Dict, batch: Dict, *, window="auto"):
+        """``batch["tokens"]`` (B, S) -> (logits (B, S, V) float32, aux),
+        differentiable in ``params`` (a tree like :meth:`abstract_params`);
+        aux is the MoE router loss, 0 for the dense family."""
+        cfg = self.cfg
+        if cfg.attn_impl == "flash":
+            raise NotImplementedError(
+                "attn_impl='flash' cannot train: the flash_attention kernel "
+                "has no backward (neither has the JAX package's); train "
+                "with attn_impl='chunked' or 'ref'")
+        cdt = cfg.compute_dtype
+        embed = params["embed"]
+        # gather, then cast: the same values as casting the whole table
+        x = embed[batch["tokens"].to(embed.device).long()].to(cdt)
+        Btot, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None].expand(Btot, S)
+        ctx = Ctx(positions=positions, window=window, cache_len=0,
+                  backend=self.backend)
+
+        def cast(a):
+            return a.to(cdt) if a.dtype == cfg.param_dtype else a
+
+        for (unit, reps), gp in zip(cfg.scan_groups(), params["groups"]):
+            for r in range(reps):
+                def unit_apply(x, r=r, unit=unit, gp=gp):
+                    pr = tree_map(lambda a: cast(a[r]), gp)
+                    for i, kind in enumerate(unit):
+                        x, _ = block_apply_seq(cfg, kind,
+                                               _as_block(pr[f"b{i}"]), x,
+                                               ctx)
+                    return x
+                x = checkpoint(unit_apply, x, use_reentrant=False) \
+                    if cfg.remat else unit_apply(x)
+        x = rms_norm(x, params["final_norm"])
+        logits = x.float() @ cast(params["unembed"]).float()
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, params: Dict, batch: Dict, *, window="auto"):
+        """The training objective: (ce + router_aux_weight * aux,
+        {"ce", "aux"}), ce the mean over labels >= 0."""
+        logits, aux = self.apply(params, batch, window=window)
+        ce = cross_entropy(logits, batch["labels"].to(logits.device))
+        return ce + self.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     # -- serving -------------------------------------------------------------
 

@@ -8,6 +8,12 @@ math runs in float32, in the JAX package's order of operations: bias
 terms ``1 - b**count`` in float32, an optional clip by the global norm,
 decoupled weight decay.  Adam is elementwise, so agent-stacked leaves
 need no special handling.
+
+:func:`adamw_update_` updates in place over flat lists of tensors, a
+slab of at most ``CHUNK`` elements at a time, so that an update of a
+model of billions of parameters holds no full-size float32 temporaries
+(the LM trainer's path); :func:`adamw_update` runs it on copies and
+returns new trees, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -18,8 +24,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
-    tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,53 +50,73 @@ def adamw_init(params, cfg: AdamWConfig):
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in tree_leaves(tree)))
-
-
 def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
                  lr_scale=1.0):
     """One AdamW step: ``(new_params, new_state, grad_norm)``
-    (``grad_norm`` is 0 when the clip is off)."""
+    (``grad_norm`` is 0 when the clip is off): :func:`adamw_update_` on
+    copies of the parameters and moments."""
+    def copy(t):
+        return t.clone(memory_format=torch.contiguous_format)
+    new_p = tree_map(copy, params)
+    new_m, new_v = (tree_map(copy, opt_state[k]) for k in ("m", "v"))
+    count, gn = adamw_update_(
+        tree_leaves(new_p), [g.contiguous() for g in tree_leaves(grads)],
+        tree_leaves(new_m), tree_leaves(new_v), opt_state["count"], cfg,
+        lr_scale)
+    return new_p, {"m": new_m, "v": new_v, "count": count}, gn
+
+
+#: Elements a slab of :func:`adamw_update_` (and the trainer's EMA) holds:
+#: its float32 temporaries stay at a few hundred MB whatever the leaf.
+CHUNK = 1 << 25
+
+
+def slabs(*tensors, size: int = CHUNK):
+    """Matching flat slices of at most ``size`` elements of contiguous
+    tensors of one size: views, so writing a slab writes the tensor."""
+    flat = [t.view(-1) for t in tensors]
+    for lo in range(0, flat[0].numel(), size):
+        yield [f[lo:lo + size] for f in flat]
+
+
+def adamw_update_(params, grads, ms, vs, count, cfg: AdamWConfig,
+                  lr_scale=1.0):
+    """:func:`adamw_update` in place: ``params``, ``grads``, ``ms`` and
+    ``vs`` are equal-length lists of contiguous tensors (the leaves, or
+    slices of them, in any grouping), ``count`` the state's step count.
+    Writes the new parameters and moments into ``params``, ``ms`` and
+    ``vs`` and returns ``(count + 1, grad_norm)``: the same values as
+    :func:`adamw_update` on the trees those lists make up, the norm over
+    every gradient given."""
     f = torch.float32
-    count = opt_state["count"] + 1
+    count = count + 1
     if cfg.grad_clip:
-        gn = _global_norm(grads)
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.to(f)))
+                            for g in grads))
         # a tensor numerator: torch computes ``float / tensor`` as a
         # reciprocal times the float, which rounds differently
         scale = torch.clamp(torch.full_like(gn, cfg.grad_clip)
                             / torch.clamp(gn, min=1e-9), max=1.0)
-        grads = tree_map(lambda g: g.to(f) * scale, grads)
     else:
         gn = torch.zeros((), dtype=f, device=count.device)
-        grads = tree_map(lambda g: g.to(f), grads)
-
+        scale = None
     b1, b2 = cfg.b1, cfg.b2
     c = count.to(f)
     bias1 = 1.0 - b1 ** c
     bias2 = 1.0 - b2 ** c
     lr = cfg.lr * lr_scale
-
-    def upd(p, g, m, v):
-        m32 = b1 * m.to(f) + (1 - b1) * g
-        v32 = b2 * v.to(f) + (1 - b2) * (g * g)
-        mhat = m32 / bias1
-        vhat = v32 / bias2
-        step = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if cfg.weight_decay:
-            step = step + cfg.weight_decay * p.to(f)
-        newp = p.to(f) - lr * step
-        return (newp.to(p.dtype), m32.to(cfg.moment_dtype),
-                v32.to(cfg.moment_dtype))
-
-    leaves, treedef = tree_flatten(params)
-    out = [upd(*xs) for xs in zip(leaves, tree_leaves(grads),
-                                  tree_leaves(opt_state["m"]),
-                                  tree_leaves(opt_state["v"]))]
-    new_p, new_m, new_v = (tree_unflatten(treedef, [o[q] for o in out])
-                           for q in range(3))
-    return new_p, {"m": new_m, "v": new_v, "count": count}, gn
+    for p, g, m, v in zip(params, grads, ms, vs):
+        for p_, g_, m_, v_ in slabs(p, g, m, v):
+            g32 = g_.to(f) * scale if scale is not None else g_.to(f)
+            m32 = b1 * m_.to(f) + (1 - b1) * g32
+            v32 = b2 * v_.to(f) + (1 - b2) * (g32 * g32)
+            step = (m32 / bias1) / (torch.sqrt(v32 / bias2) + cfg.eps)
+            if cfg.weight_decay:
+                step = step + cfg.weight_decay * p_.to(f)
+            p_.copy_(p_.to(f) - lr * step)
+            m_.copy_(m32)
+            v_.copy_(v32)
+    return count, gn
 
 
 def adamw_rows(objective, theta0, steps: int, cfg: AdamWConfig):

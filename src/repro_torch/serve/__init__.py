@@ -1,7 +1,11 @@
-"""Serving: the batched decode engine with slot-based continuous batching
-(counterpart of ``repro.serve``; the gossip-backed personalization
-service waits for the scenario-API slice)."""
+"""Serving (counterpart of ``repro.serve``): the batched decode engine
+with slot-based continuous batching, and the gossip-backed
+personalization service over an agent-state store."""
 
-from .engine import Engine, ServeConfig, sample_token
+from .engine import CollabServeEngine, Engine, ServeConfig, sample_token
+from .store import (AgentStateStore, CommittedState, MixedModelCache,
+                    ServeReport, ShardedAgentStateStore)
 
-__all__ = ["ServeConfig", "Engine", "sample_token"]
+__all__ = ["ServeConfig", "Engine", "sample_token", "AgentStateStore",
+           "CollabServeEngine", "CommittedState", "MixedModelCache",
+           "ServeReport", "ShardedAgentStateStore"]

@@ -10,6 +10,10 @@ Slot-based continuous batching over a fixed decode batch B:
 
 Prefill takes the model's attention route (the ``flash`` route runs the
 CUDA ``flash_attention`` kernel on the card); decode is plain torch.
+
+:class:`CollabServeEngine` is the gossip-backed personalization service:
+batched reads of users' personalized models from an agent-state store
+that a scenario run commits to (DESIGN.md §16).
 """
 
 from __future__ import annotations
@@ -20,7 +24,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.sparse import personalized_predict
 from repro_torch.models import Model
+
+from .store import MixedModelCache, ServeReport
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +161,88 @@ class Engine:
                                        and t == self.cfg.eos_id):
                 self._results[slot.request_id] = slot.generated
                 slot.active = False
+
+
+class CollabServeEngine:
+    """Personalization service over a gossip-backed agent-state store.
+
+    The scenario run is the writer: it commits each record chunk's
+    models, staleness and dirty set (:meth:`commit`).  Inference
+    requests are readers: :meth:`serve` takes ``batch_size`` users at a
+    time, gathers their rows through the :class:`MixedModelCache` (the
+    store for misses) and predicts with ``personalized_predict`` over the
+    whole (B, p) row block on the store's device.
+    """
+
+    def __init__(self, store, n: int, p: int, batch_size: int = 256):
+        self.store = store
+        self.n = int(n)
+        self.p = int(p)
+        self.batch_size = int(batch_size)
+        self.cache = MixedModelCache(n, p, device=store.device)
+        self._served_staleness: List[np.ndarray] = []
+        self.requests = 0
+
+    # -- writer side ---------------------------------------------------------
+
+    def commit(self, round_: int, theta, staleness, dirty=None) -> int:
+        """Publish a chunk's snapshot and void its dirty cache entries
+        (``dirty`` an (n,) bool model-update delivery mask); returns how
+        many live entries it voided."""
+        self.store.commit(round_, theta, staleness)
+        return self.cache.invalidate(dirty) if dirty is not None else 0
+
+    # -- reader side ---------------------------------------------------------
+
+    def serve(self, users, x=None):
+        """Serve a batch of requests from the committed state.
+
+        ``users`` (R,) user ids; ``x`` optional (R, p) feature rows (all
+        ones by default: the prediction is the row sum, the linear model
+        family of paper §5 with trivial features).  Returns ``(preds (R,)
+        float32, staleness (R,) int32)`` as numpy; the staleness is kept
+        for :meth:`report`.
+        """
+        dev = self.store.device
+        users = torch.as_tensor(np.asarray(users, np.int64), device=dev)
+        preds, stale = [], []
+        for lo in range(0, users.shape[0], self.batch_size):
+            u = users[lo:lo + self.batch_size]
+            hit, rows, stl = self.cache.lookup(u, self.store.snapshot_round())
+            if not bool(hit.all()):
+                miss = ~hit
+                read = self.store.read_rows(u[miss])
+                rows[miss] = read.theta  # scatter: unique targets (mask)
+                stl[miss] = read.staleness  # scatter: unique targets (mask)
+                self.cache.fill(u[miss], read.theta, read.staleness,
+                                read.round)
+            xb = (torch.ones_like(rows) if x is None else torch.as_tensor(
+                np.asarray(x[lo:lo + self.batch_size], np.float32),
+                device=dev))
+            preds.append(personalized_predict(rows, xb))
+            stale.append(stl)
+        R = int(users.shape[0])
+        preds = torch.cat(preds).cpu().numpy() if preds else \
+            np.zeros(0, np.float32)
+        stale = torch.cat(stale).cpu().numpy() if stale else \
+            np.zeros(0, np.int32)
+        self.requests += R
+        self._served_staleness.append(stale)
+        return preds, stale
+
+    def report(self, requests_c=None, hits_c=None, misses_c=None,
+               invalidations_c=None) -> ServeReport:
+        """The engine's accounting as a :class:`ServeReport`."""
+        served = (np.concatenate(self._served_staleness)
+                  if self._served_staleness else np.zeros(0, np.int32))
+
+        def col(c):
+            return np.asarray(c, np.int64) if c is not None \
+                else np.zeros(0, np.int64)
+        return ServeReport(
+            requests=self.requests, hits=self.cache.hits,
+            misses=self.cache.misses,
+            invalidations=self.cache.invalidations,
+            served_staleness=served, requests_c=col(requests_c),
+            hits_c=col(hits_c), misses_c=col(misses_c),
+            invalidations_c=col(invalidations_c))

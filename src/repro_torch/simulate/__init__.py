@@ -5,9 +5,10 @@ from .topology import (SparseTopology, cluster_topology,
                        planted_partition_topology, random_geometric_topology,
                        ring_topology)
 from .scheduler import (EventBatch, EventStream, NetworkConditions,
-                        churn_step, draw_events, draw_slots, draw_wakeups,
-                        precompute_event_stream, straggler_rates,
-                        stream_totals)
+                        ServeStream, churn_step, draw_events, draw_slots,
+                        draw_wakeups, precompute_event_stream,
+                        precompute_serve_stream, serve_chunk_requests,
+                        straggler_rates, stream_totals)
 from .engines import (CLSimTrace, JointSimTrace, SimTrace, SparseADMMState,
                       SparseCLTrace, SparseTrace, init_sparse_admm,
                       run_cl_scenario, run_joint_scenario, run_mp_scenario,

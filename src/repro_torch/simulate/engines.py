@@ -184,6 +184,10 @@ class SimTrace:
                   dropped, so  delivered + dropped == 2 * (events - invalid)
     telemetry:    TelemetryFrames when the run was launched with
                   ``TelemetryConfig(enabled=True)``, else None
+    serve:        ``repro_torch.serve.ServeReport`` when the run carried
+                  an inference-request stream (``ScenarioSpec.serve``),
+                  else None; serving reads committed snapshots only, so
+                  it never changes theta_hist
     """
 
     theta_hist: torch.Tensor
@@ -194,6 +198,7 @@ class SimTrace:
     events: int
     invalid: int = 0
     telemetry: Optional[TelemetryFrames] = None
+    serve: Optional[object] = None
 
 
 class _Telemetry:

@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -218,3 +219,56 @@ def precompute_event_stream(tabs, part_half, conditions: NetworkConditions,
         fracs.append(active.float().mean())
     cols = [torch.stack(f) for f in zip(*evs)]
     return EventStream(*cols, torch.stack(fracs))
+
+
+# ---------------------------------------------------------------------------
+# Inference requests of the personalization service
+# ---------------------------------------------------------------------------
+
+
+class ServeStream(NamedTuple):
+    """A scenario's inference requests, drawn up front (DESIGN.md §16).
+
+    Request ``q`` asks for user ``user[q]``'s current personalized model
+    during round ``round[q]`` (sorted ascending).  Requests are reads:
+    they touch no model state, no generator and no event of the gossip
+    stream, which is why a run that serves replays the serve-free
+    trajectory bit for bit.  A request is served from the committed
+    snapshot of the record chunk its round falls in.
+    """
+
+    user: np.ndarray     # (R,) int32 requested agent/user id
+    round: np.ndarray    # (R,) int32 arrival round, sorted ascending
+
+    @property
+    def n_requests(self) -> int:
+        """Total request count R."""
+        return int(self.user.shape[0])
+
+
+def precompute_serve_stream(n: int, rounds: int, rate: float,
+                            seed: int = 0) -> ServeStream:
+    """``rate`` requests a round for ``rounds`` rounds over ``n`` users:
+    uniform arrival rounds (sorted) and users from a numpy generator of
+    its own, the JAX package's draws from the same seed.  The request
+    count is ``round(rate * rounds)``."""
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    n_req = int(round(rate * rounds))
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.integers(0, rounds, size=n_req)).astype(np.int32)
+    user = rng.integers(0, n, size=n_req).astype(np.int32)
+    return ServeStream(user=user, round=t)
+
+
+def serve_chunk_requests(serve: ServeStream, n_rec: int,
+                         record_every: int) -> list:
+    """The requests of each record chunk: ``n_rec`` (user, round) int32
+    array pairs, chunk ``ci`` holding the rounds ``[ci * record_every,
+    (ci + 1) * record_every)`` that snapshot ``ci`` commits; requests past
+    the recorded horizon are dropped."""
+    edges = np.searchsorted(serve.round,
+                            np.arange(n_rec + 1) * record_every)
+    return [(serve.user[edges[ci]:edges[ci + 1]],
+             serve.round[edges[ci]:edges[ci + 1]])
+            for ci in range(n_rec)]

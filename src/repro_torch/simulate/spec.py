@@ -9,11 +9,18 @@ replay ``jax.random``, so a precomputed EventStream is how the port takes
 the reference's draws.  ``telemetry=TelemetryConfig(enabled=True)``
 attaches the run's metrics (``repro_torch.telemetry``) to the trace.
 
-The spec carries every field of the JAX package's.  Sharding and serving
-are not ported yet: ``sharded=True`` and ``serve=`` raise
-``NotImplementedError`` naming the ROADMAP item that ports each; their
-knobs (``n_shards`` ... ``recompact_frac``, ``serve_batch``) are read only
-by those runners.
+``serve=`` (a ``ServeStream`` of inference requests) runs the
+personalization service against the run's committed record-chunk
+snapshots — the read/write split of ``repro_torch.serve.store``: requests
+read committed state only, so ``trace.theta_hist`` is the serve-free
+run's bit for bit — and attaches its ``ServeReport`` as ``trace.serve``
+(and the per-chunk ``serve_*`` counters to the telemetry frames when
+telemetry is on).
+
+The spec carries every field of the JAX package's.  Sharding is not
+ported yet: ``sharded=True`` raises ``NotImplementedError`` naming the
+ROADMAP item that ports it; its knobs (``n_shards`` ...
+``recompact_frac``) are read only by that runner.
 """
 
 from __future__ import annotations
@@ -21,14 +28,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
+import torch
+
+from repro_torch.core.sparse import record_chunks
+from repro_torch.telemetry.metrics import (stream_dirty_chunks,
+                                           stream_staleness_chunks)
+
 from . import engines as _engines
-from .scheduler import EventStream, NetworkConditions
+from .scheduler import (EventStream, NetworkConditions,
+                        precompute_event_stream, serve_chunk_requests)
 
 _ALGOS = ("mp", "cl", "joint")
 
 #: What is not ported yet, and the ROADMAP queue-1 item that ports it.
 _LATER = {
-    "serve": "ROADMAP queue 1 item 9 (serving)",
     "sharded": "ROADMAP queue 1 item 10 (multi-GPU)",
 }
 
@@ -54,8 +68,9 @@ class ScenarioSpec:
               assignment, local_batch, exchange, halo_codec,
               partition_seed, recompact_every/frac — joint only); not
               ported yet
-    serving:  serve (a stream of inference requests), serve_batch (decode
-              batch width); not ported yet
+    serving:  serve (a ServeStream of inference requests interleaved
+              with the gossip rounds), serve_batch (the service's batch
+              width)
     """
 
     algo: str
@@ -118,11 +133,17 @@ def _not_ported(what: str):
 def run_scenario(spec: ScenarioSpec):
     """Run the scenario a :class:`ScenarioSpec` describes; returns the
     engine's :class:`~repro_torch.simulate.engines.SimTrace` (a
-    ``CLSimTrace`` for ``cl``, a ``JointSimTrace`` for ``joint``)."""
+    ``CLSimTrace`` for ``cl``, a ``JointSimTrace`` for ``joint``), with
+    ``trace.serve`` set when the spec carries a ``serve`` stream."""
     if spec.sharded:
         _not_ported("sharded")
+    trace = _run_engine(spec)
     if spec.serve is not None:
-        _not_ported("serve")
+        trace = _drive_serve(spec, trace)
+    return trace
+
+
+def _run_engine(spec: ScenarioSpec):
     if spec.algo == "cl":
         spec._require(data=spec.data, mu=spec.mu, rho=spec.rho)
         if spec.state is None:
@@ -148,3 +169,52 @@ def run_scenario(spec: ScenarioSpec):
         spec.rounds, spec.batch, seed=spec.seed,
         record_every=spec.record_every, backend=spec.backend,
         stream=spec.stream, telemetry=spec.telemetry, device=spec.device)
+
+
+def _drive_serve(spec: ScenarioSpec, trace):
+    """Serve the spec's request stream from the finished trace.
+
+    Per record chunk this commits the chunk's snapshot (theta rows
+    and the staleness the stream implies) to an agent-state store on the
+    trace's device, voids the cache at the agents the chunk's deliveries
+    rewrote, and serves every request whose round falls in the chunk from
+    the committed state.  Reads never touch the run, so
+    ``trace.theta_hist`` is unchanged.
+    """
+    from repro_torch.serve import AgentStateStore, CollabServeEngine
+
+    topo = spec.topology
+    n = topo.n
+    record_every, n_rec = record_chunks(spec.rounds, spec.record_every)
+    device = trace.theta_hist.device
+    stream = spec.stream
+    if stream is None:
+        # the engines' own schedule: precompute_event_stream reproduces
+        # the draws they make inline
+        stream = precompute_event_stream(
+            topo.device_tables(device),
+            torch.as_tensor(topo.partition_halves()), spec.conditions,
+            spec.batch, spec.seed, n_rec * record_every, device=device)
+    dirty = stream_dirty_chunks(stream, n, n_rec, record_every)
+    staleness = stream_staleness_chunks(stream, n, n_rec, record_every)
+    requests = serve_chunk_requests(spec.serve, n_rec, record_every)
+
+    p = int(trace.theta_hist.shape[-1])
+    eng = CollabServeEngine(AgentStateStore(n, p, device=device), n, p,
+                            batch_size=spec.serve_batch)
+    counters = np.zeros((4, n_rec), np.int64)
+    for ci in range(n_rec):
+        eng.commit((ci + 1) * record_every, trace.theta_hist[ci],
+                   staleness[ci], dirty[ci])
+        users, _rounds = requests[ci]
+        if users.size:
+            eng.serve(users)
+        counters[:, ci] = (eng.requests, eng.cache.hits, eng.cache.misses,
+                           eng.cache.invalidations)
+    trace = dataclasses.replace(trace, serve=eng.report(*counters))
+    if trace.telemetry is not None:
+        trace.telemetry.serve_requests = counters[0]
+        trace.telemetry.serve_hits = counters[1]
+        trace.telemetry.serve_misses = counters[2]
+        trace.telemetry.serve_invalidations = counters[3]
+    return trace

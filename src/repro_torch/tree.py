@@ -51,3 +51,17 @@ def tree_map(fn, tree, *rest):
     leaves, treedef = tree_flatten(tree)
     others = [tree_leaves(r) for r in rest]
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_paths(tree, prefix=""):
+    """``(path, leaf)`` pairs in leaf order, the path the keys and indices
+    from the root joined by "/" — the names the JAX package's checkpoints
+    give leaves (``groups/0/b0/ffn/w_up``)."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_paths(tree[key], f"{prefix}{key}/")
+    elif isinstance(tree, (tuple, list)):
+        for i, sub in enumerate(tree):
+            yield from tree_paths(sub, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree

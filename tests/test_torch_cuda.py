@@ -12,7 +12,11 @@ reference attention, and the paths without kernels of their own:
 ``edge_reweight`` on the card against the CPU, sparse against dense async
 gossip and joint learning at rate 0 against per-op MP bit for bit, and
 the inexact primal with MLP agents (p = 33) through ``cl_edge_step``
-against the reference backend; ``graph_mix`` over a trial axis (one launch
+against the reference backend; ``graph_mix``'s agent-axis form (n <= 32,
+D > 8, float32 within 1e-5 and bf16 within ``gm.bf16_tolerance``, a replay
+and a slice of D bit for bit) and one personalized training step of a
+small LM on the card against the same step on the CPU; ``graph_mix`` over
+a trial axis (one launch
 for all trials, each trial equal to its own launch bit for bit, whatever
 the load width) and the MP sweep through it, and its tile kernel over
 3000 ``synchronous`` steps; and telemetry on the card (theta bit-identical with it
@@ -677,3 +681,110 @@ def test_telemetry_observes_only_on_the_card(cuda, algo):
         assert int(f.updates[-1]) == on_.delivered
     else:
         np.testing.assert_array_equal(f.updates + f.suppressed, f.delivered)
+
+
+# the agent-axis form: n <= 32 agents, D > 8 (the LM coupling's shape),
+# ragged D (4-byte and 2-byte element loads) and aligned D (16-byte loads)
+AGENT_CASES = [(n, D) for n in (2, 3, 8, 32) for D in (9, 1001, 4096,
+                                                       65536 + 3)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,D", AGENT_CASES)
+def test_graph_mix_agent_axis(cuda, n, D, dtype):
+    rng = np.random.default_rng(n * D)
+    dt = getattr(torch, dtype)
+    args = on(cuda, rng.standard_normal((n, D)), rng.standard_normal((n, D)),
+              rng.random((n, n)) / n, dtype=dt)
+    args.append(torch.as_tensor(rng.random(n), dtype=torch.float32,
+                                device=cuda))
+    before = gm.launches
+    got = gm.graph_mix(*args)
+    assert gm.launches == before + 1 and got.dtype == dt
+    want = gm.graph_mix_plain(*args)
+    if dtype == "float32":
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert ((got.float() - want.float()).abs()
+                <= gm.bf16_tolerance(*args)).all()
+    assert torch.equal(got, gm.graph_mix(*args))              # a replay
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_mix_agent_axis_slice_of_d_is_its_own_launch(cuda, dtype):
+    """An output element's sum order depends only on n: columns lo..hi of
+    a launch equal a launch on those columns alone, bit for bit, and so
+    do the trials of a trial-axis launch."""
+    rng = np.random.default_rng(3)
+    dt = getattr(torch, dtype)
+    n, D, lo, hi = 8, 100_003, 777, 50_777
+    theta, sol, A = on(cuda, rng.standard_normal((n, D)),
+                       rng.standard_normal((n, D)), rng.random((n, n)) / n,
+                       dtype=dt)
+    b = torch.as_tensor(rng.random(n), dtype=torch.float32, device=cuda)
+    full = gm.graph_mix(theta, sol, A, b)
+    part = gm.graph_mix(theta[:, lo:hi].contiguous(),
+                        sol[:, lo:hi].contiguous(), A, b)
+    assert torch.equal(full[:, lo:hi], part)
+    stack = [torch.stack([x, x.flip(0)]) for x in (theta, sol, A)]
+    both = gm.graph_mix(*stack, torch.stack([b, b.flip(0)]))
+    assert torch.equal(both[0], full)
+
+
+def test_graph_mix_bf16_outside_the_agent_axis_raises(cuda):
+    x = torch.zeros((40, 16), dtype=torch.bfloat16, device=cuda)
+    A = torch.zeros((40, 40), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="n <= 32"):
+        gm.graph_mix(x, x, A, torch.zeros(40, device=cuda))
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One mp-coupled step of a small LM (float32 compute) on the card,
+    through the agent-axis kernel, against the same step on the CPU:
+    losses within 1e-4 relative (cuBLAS and the CPU sum in other orders),
+    parameters within 2 * lr * 2**-8 (a bf16 moment may round one ulp the
+    other way)."""
+    from repro_torch.core.graph import random_geometric_graph
+    from repro_torch.coupling import CouplingConfig, make_state
+    from repro_torch.models import Model, ModelConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=96,
+                      attn_impl="chunked", attn_chunk=8,
+                      compute_dtype=torch.float32)
+    model = Model(cfg, device="meta")
+    lr, A = 1e-2, 4
+    tcfg = TrainConfig(n_agents=A, steps=5, optimizer=AdamWConfig(lr=lr),
+                       coupling=CouplingConfig(mode="mp", alpha=0.9))
+    g = random_geometric_graph(A, k=2, seed=0)
+    cpu = init_train_state(model, tcfg, torch.Generator().manual_seed(0),
+                           perturb=0.01, device="cpu")
+    card = state_to(cpu, cuda)
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, 96, (A * 2, 17))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    dispatch.reset_launch_counts()
+    card, mc = make_train_step(model, tcfg, make_state(g, device=cuda))(
+        card, batch)
+    assert dispatch.launch_counts()["graph_mix"] == len(
+        tree_leaves(cpu.params))
+    cpu, mh = make_train_step(model, tcfg, make_state(g, device="cpu"))(
+        cpu, batch)
+    np.testing.assert_allclose(mc["loss_per_agent"].cpu().numpy(),
+                               mh["loss_per_agent"].numpy(), rtol=1e-4)
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        assert (a.cpu() - b).abs().max().item() <= 2 * lr * 2 ** -8
+
+
+def state_to(state, device):
+    """A copy of a TrainState with its trees on ``device``."""
+    from repro_torch.train import TrainState
+    from repro_torch.tree import tree_map
+
+    def to(tree):
+        return tree_map(lambda t: t.to(device, copy=True), tree)
+    return TrainState(params=to(state.params), opt_state=to(state.opt_state),
+                      solitary=to(state.solitary), step=state.step.clone())

@@ -160,17 +160,19 @@ def test_stream_totals_invariant(setup):
 
 @pytest.mark.parametrize("algo,fields,item", [
     ("mp", dict(sharded=True), "item 10"),
-    ("mp", dict(serve=object()), "item 9"),
+    ("mp", dict(serve=object(), sharded=True), "item 10"),
     ("mp", dict(sharded=True, n_shards=4, exchange="halo"), "item 10"),
     ("cl", dict(sharded=True, mesh=object(), local_batch=8), "item 10"),
     ("joint", dict(sharded=True, recompact_every=5, recompact_frac=0.5,
                    eta_graph=0.3), "item 10"),
-    ("mp", dict(serve=object(), serve_batch=8), "item 9"),
+    ("joint", dict(serve=object(), serve_batch=8, sharded=True),
+     "item 10"),
 ])
 def test_unported_spec_fields_raise(setup, algo, fields, item):
-    """Sharding and serving (with their knobs) raise, naming the ROADMAP
-    item that ports them; the knobs are spec fields with the JAX spec's
-    names."""
+    """Sharding (with its knobs, and with a serve stream, which the
+    sharded store would serve) raises, naming the ROADMAP item that ports
+    it; the knobs are spec fields with the JAX spec's names.  Serving on
+    one device is ported (tests/test_torch_serve_collab.py)."""
     _, tt, sol, c = setup
     kw = dict(algo=algo, topology=tt, conditions=get_scenario(
         "clean").make_conditions(ROUNDS), rounds=ROUNDS, batch=BATCH,

@@ -1,0 +1,184 @@
+"""The port's gossip-backed personalization service on the CPU against the
+JAX package (DESIGN.md §16).
+
+* ``precompute_serve_stream`` and ``serve_chunk_requests``: JAX's draws
+  and chunks, exactly;
+* ``run_scenario(ScenarioSpec(serve=...))`` for mp, cl and joint on JAX's
+  event stream (``convert.stream_from_arrays``): the ``ServeReport``'s
+  counters, per-chunk columns and every served staleness exactly equal
+  to JAX's ``_drive_serve``; ``theta_hist`` bit for bit the serve-free
+  run's; the telemetry frames' ``serve_*`` columns equal to JAX's;
+* ``CollabServeEngine.serve`` on one committed state: predictions within
+  1e-5 of JAX's (float32 row sums of values up to ~50 in another order),
+  staleness and the cache's counters exactly;
+* the store's snapshots never torn, and ``ShardedAgentStateStore``
+  waiting for ROADMAP queue 1 item 10.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro import serve as jserve  # noqa: E402
+from repro import simulate as jsim  # noqa: E402
+from repro import telemetry as jtel  # noqa: E402
+from repro.core.losses import AgentData as JAgentData  # noqa: E402
+
+from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from repro_torch import convert  # noqa: E402
+from repro_torch.core.losses import pad_datasets, solitary_mean  # noqa: E402
+from repro_torch.serve import (AgentStateStore,  # noqa: E402
+                               CollabServeEngine, ShardedAgentStateStore)
+from repro_torch.simulate import (NetworkConditions,  # noqa: E402
+                                  ScenarioSpec, precompute_serve_stream,
+                                  random_geometric_topology, run_scenario,
+                                  serve_chunk_requests)
+from repro_torch.telemetry import TelemetryConfig  # noqa: E402
+
+CPU = "cpu"
+N, P, SEED = 80, 3, 7
+RUN = dict(rounds=60, batch=8, seed=SEED, record_every=10)
+COND = dict(drop_prob=0.2, churn_rate=0.01, stale_prob=0.2)
+LEARN_KW = dict(eta_graph=0.3, lam=1.0, graph_every=5, prune_eps=1e-3)
+REPORT = ("requests", "hits", "misses", "invalidations")
+COLUMNS = ("requests_c", "hits_c", "misses_c", "invalidations_c",
+           "served_staleness")
+
+
+@pytest.fixture(scope="module")
+def problem():
+    jt = jsim.random_geometric_topology(N, k=4, seed=0)
+    tt = random_geometric_topology(N, k=4, seed=0)
+    rng = np.random.default_rng(0)
+    sol = rng.standard_normal((N, P)).astype(np.float32)
+    c = np.full(N, 0.8, np.float32)
+    xs = [rng.standard_normal((int(rng.integers(1, 5)), P))
+          for _ in range(N)]
+    data = pad_datasets(xs, [np.zeros(len(x)) for x in xs], device=CPU)
+    js = jsim.precompute_event_stream(
+        jt.device_tables(), jnp.asarray(jt.partition_halves()),
+        jsim.NetworkConditions(**COND), RUN["batch"], SEED, RUN["rounds"])
+    return dict(jt=jt, tt=tt, sol=sol, c=c, data=data,
+                cl_sol=solitary_mean(data).numpy(), js=js,
+                ts=convert.stream_from_arrays(js, CPU),
+                serve=precompute_serve_stream(N, RUN["rounds"], rate=6.0,
+                                              seed=5))
+
+
+def specs(pb, algo, **kw):
+    """(JAX spec, port spec) of one algo on the same stream."""
+    payload = dict(theta_sol=pb["sol"], c=pb["c"], alpha=0.9)
+    tpay = dict(payload)
+    if algo == "cl":
+        d = pb["data"]
+        jdata = JAgentData(*(jnp.asarray(getattr(d, f).numpy())
+                             for f in ("x", "y", "mask")))
+        payload = dict(data=jdata, mu=0.1, rho=1.0, theta_sol=pb["cl_sol"])
+        tpay = dict(data=d, mu=0.1, rho=1.0, theta_sol=pb["cl_sol"])
+    elif algo == "joint":
+        payload.update(LEARN_KW)
+        tpay.update(LEARN_KW)
+    jstream = {} if algo == "mp" else dict(stream=pb["js"])  # mp draws inline
+    jkw = {k: v for k, v in kw.items() if k != "telemetry"}
+    if "telemetry" in kw:
+        jkw["telemetry"] = jtel.TelemetryConfig(enabled=True)
+    return (jsim.ScenarioSpec(algo=algo, topology=pb["jt"],
+                              conditions=jsim.NetworkConditions(**COND),
+                              **RUN, **payload, **jstream, **jkw),
+            ScenarioSpec(algo=algo, topology=pb["tt"],
+                         conditions=NetworkConditions(**COND), **RUN,
+                         **tpay, stream=pb["ts"], device=CPU, **kw))
+
+
+def test_serve_stream_and_chunks_match_jax():
+    for rounds, rate, seed in ((40, 3.0, 0), (60, 2.5, 5), (7, 0.4, 1)):
+        got = precompute_serve_stream(N, rounds, rate, seed)
+        want = jsim.precompute_serve_stream(N, rounds, rate, seed)
+        assert got.n_requests == want.n_requests
+        for f in ("user", "round"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+            assert getattr(got, f).dtype == np.int32
+        for (gu, gr), (wu, wr) in zip(serve_chunk_requests(got, 4, 10),
+                                      jsim.serve_chunk_requests(want, 4,
+                                                                10)):
+            np.testing.assert_array_equal(gu, wu)
+            np.testing.assert_array_equal(gr, wr)
+    with pytest.raises(ValueError):
+        precompute_serve_stream(N, 0, 1.0)
+
+
+@pytest.mark.parametrize("algo", ["mp", "cl", "joint"])
+def test_service_matches_jax_and_leaves_the_run_untouched(problem, algo):
+    jspec, tspec = specs(problem, algo, serve=problem["serve"],
+                         serve_batch=16)
+    want = jsim.run_scenario(jspec).serve
+    got_trace = run_scenario(tspec)
+    got = got_trace.serve
+    for f in REPORT:
+        assert getattr(got, f) == getattr(want, f), f
+    for f in COLUMNS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    assert got.served_staleness.dtype == np.int32
+    assert got.summary() == want.summary()
+    assert got.hits > 0 and got.misses > 0 and got.invalidations > 0
+    plain = run_scenario(specs(problem, algo)[1])
+    assert plain.serve is None
+    assert torch.equal(got_trace.theta_hist, plain.theta_hist)
+
+
+def test_serve_counters_reach_the_frames_as_in_jax(problem):
+    jspec, tspec = specs(problem, "mp", serve=problem["serve"],
+                         telemetry=TelemetryConfig(enabled=True))
+    want = jsim.run_scenario(jspec).telemetry
+    tr = run_scenario(tspec)
+    got = tr.telemetry
+    for f in ("serve_requests", "serve_hits", "serve_misses",
+              "serve_invalidations"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.serve_requests[-1] == tr.serve.requests
+    rows, wrows = got.summarize(), want.summarize()
+    assert [r["serve_hits"] for r in rows] == \
+        [r["serve_hits"] for r in wrows]
+
+
+def test_engine_predictions_and_cache_match_jax():
+    rng = np.random.default_rng(3)
+    theta = rng.standard_normal((N, P)).astype(np.float32)
+    stale = rng.integers(0, 9, N).astype(np.int32)
+    dirty = rng.random(N) < 0.3
+    users = rng.integers(0, N, 300)
+    x = rng.standard_normal((300, P)).astype(np.float32)
+    t = CollabServeEngine(AgentStateStore(N, P, device=CPU), N, P,
+                          batch_size=64)
+    j = jserve.CollabServeEngine(jserve.AgentStateStore(N, P), N, P,
+                                 batch_size=64)
+    for rnd, xx in ((10, None), (20, x), (30, None)):
+        assert t.commit(rnd, theta + rnd, stale + rnd % 3, dirty) == \
+            j.commit(rnd, theta + rnd, stale + rnd % 3, dirty)
+        gp, gs = t.serve(users, xx)
+        wp, ws = j.serve(users, xx)
+        np.testing.assert_allclose(gp, wp, rtol=1e-6, atol=1e-5)
+        np.testing.assert_array_equal(gs, ws)
+        assert (t.cache.hits, t.cache.misses, t.cache.invalidations) == \
+            (j.cache.hits, j.cache.misses, j.cache.invalidations)
+    assert t.report().summary() == j.report().summary()
+
+
+def test_store_reads_one_snapshot_and_sharding_waits():
+    store = AgentStateStore(4, 2, device=CPU)
+    store.commit(3, np.ones((4, 2)), np.arange(4))
+    snap = store.snapshot()
+    store.commit(4, np.zeros((4, 2)), np.zeros(4))
+    assert snap.round == 3 and bool((snap.theta == 1).all())
+    got = store.read_rows([2, 0, 2])
+    assert got.round == 4 and got.staleness.tolist() == [0, 0, 0]
+    assert store.commits == 2
+    with pytest.raises(ValueError, match="commit shape"):
+        store.commit(5, np.zeros((3, 2)), np.zeros(3))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ShardedAgentStateStore(np.zeros(4, np.int32),
+                               np.arange(4, dtype=np.int32), 2)
