@@ -122,10 +122,16 @@ from the seed on the card), after the CL state is freed:
 6a. ``flash_attention`` held against its plain version on the card at
     the main path's shape (B = 1, S = 4096, H = 32, K = 8, hd = 128,
     bf16), at StarCoder2-15B's window (S = 8192, H = 48, K = 4, window
-    4096) and on a small float32 case; kernel, plain, SDPA and bound ms.
-    bf16 runs the wgmma kernel, which rounds the softmax weights to bf16
-    per 128-key tile (the plain version keeps them in float32): 1e-2 abs
-    and rel; float32 runs the FFMA kernel: 1e-5;
+    4096), at RecurrentGemma-2B's (S = 4096, H = 10, K = 1, hd = 256,
+    window 2048), at each other family's served shape (OLMoE-1B-7B S 2048,
+    H = K = 16; Qwen2-VL-7B S 4096, H 28, K 4; MusicGen-medium S 1024,
+    H = K = 24, hd 64; Phi-3.5-MoE's is Llama's) and on two small float32
+    cases (hd 64 and 256); kernel,
+    plain, SDPA (kv heads repeated, a boolean band mask for a window) and
+    bound ms (the band's operations).  bf16 runs the wgmma kernel, which
+    rounds the softmax weights to bf16 per kv tile (128 keys, 64 at hd
+    256; the plain version keeps them in float32): 1e-2 abs and rel;
+    float32 runs the FFMA kernel: 1e-5;
 6b. ``Engine(ServeConfig(batch_size=4, cache_len=8192, max_new_tokens=32))``
     serving six prompts (512 to 4096 tokens) through four slots with
     ``attn_impl="flash"``: every request finishes with 32 tokens in the
@@ -166,12 +172,50 @@ model is freed:
     coupled step, mp launching ``graph_mix`` 12 leaves x 5 times, the mp
     state's checkpoint read back bit for bit; tokens/s per mode.
 
+Then the model families at their published widths (random bf16 weights
+from the seed, ``attn_impl="flash"``), one at a time, each freed before
+the next (``FAMILY_PHASES``); each asserts ``flash_attention``'s launches
+(one per attention layer a prefill), holds its last prefill's logits
+within ``LM_LOGIT_RTOL`` of the same model with ``attn_impl="chunked"``
+(for MoE with the routing pinned, the kernel path's expert ids replayed:
+capacity is taken in token order, so a routing choice that flips under
+another rounding moves the later tokens' drops, and two plain attention
+paths already put the last position 0.12 apart unpinned;
+``tools/probe_moe_paths.py``), and reports
+prefill and decode tokens/s, wall seconds and peak memory:
+
+8a. OLMoE-1B-7B (64 experts, top 8; all 16 layers): ``Engine`` serving
+    four prompts of 512-2048 tokens through four slots, 16 new tokens
+    each; the ``gather`` MoE form's logits equal ``scatter``'s bit for bit
+    on one 2048-token prefill;
+8b. Phi-3.5-MoE (16 experts, top 2) with its depth cut from 32 to 8 (84
+    GB of bf16 weights would not fit): one 4096-token prefill and 16
+    decode steps, the two MoE forms bit for bit as in 8a;
+8c. RecurrentGemma-2B (RG-LRU and local attention, MQA, hd 256, window
+    2048; all 26 layers): ``Engine``, four prompts of 1024-4096 tokens,
+    16 new tokens each;
+8d. xLSTM-1.3B (the ``parallel`` mLSTM and the sLSTM; all 48 layers):
+    ``Engine``, four prompts of 512-1024 tokens, 16 new tokens each; no
+    attention, so no launch; then the last prompt through a float32 copy:
+    at three mLSTM layers both forms on that layer's own input,
+    ``parallel`` against ``scan`` within ``XLSTM_FORMS_RTOL``;
+8e. Qwen2-VL-7B (M-RoPE; all 28 layers): ``Model.prefill`` of 256 random
+    patch embeddings on a 16 x 16 grid and 3,840 text tokens, then 16
+    greedy ``decode_step``s;
+8f. MusicGen-medium (4 codebooks, hd 64; all 48 layers): ``Model.prefill``
+    of 64 random conditioning embeddings and 960 delay-patterned codes,
+    then 16 ``decode_step``s of (B, 4) tokens.
+
 Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all six
 kernels, with their launches on their paths; ``graph_mix`` counts its
 three paths and carries its trial-axis readings under ``trial_axis``;
 its agent-axis form has its own entry with the launches of 7b and 7c's
-mp run), the card's name and power limit as nvidia-smi reports them, and
-last ``{"ok": true, "device": {...}}``.
+mp run; ``flash_attention``'s launches (6b's and 8a-8f's) are split by
+head dim: its hd-128 entry (Llama-3-8B's shape,
+with OLMoE's and Qwen2-VL's under ``cases``) counts 6b, 8a, 8b and 8e,
+its hd-256 entry 8c and its hd-64 entry 8f, each with its registers),
+the card's name and power limit as nvidia-smi reports them, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -250,10 +294,39 @@ PLM = dict(name="plm-100m", family="dense", n_layers=12, d_model=512,
            attn_impl="ref", remat=False)
 PLM_AGENTS, PLM_BATCH, PLM_SEQ, PLM_STEPS, PLM_EVERY = 8, 4, 128, 20, 4
 PLM_MODES = ("none", "consensus", "mp", "cl")
+# 8a-8f: the model families at full published width (random bf16 weights,
+# attn_impl="flash"), one at a time: (phase, arch, depth or None, traffic).
+# "engine": prompt lengths served by Engine through FAMILY_SLOTS slots;
+# "prefill": Model.prefill of one sequence of that many positions (prefix
+# included), then FAMILY_NEW decode_steps.  Every sequence through an
+# attention layer is a multiple of attn_chunk (512), or attn_apply_seq
+# takes the ref route instead of the kernel.
+FAMILY_PHASES = (
+    ("8a", "olmoe-1b-7b", None, "engine", (512, 1024, 2048, 1536)),
+    # 32 layers of bf16 weights are 84 GB: the depth is cut to 8 (~21 GB)
+    ("8b", "phi3.5-moe", 8, "prefill", 4096),
+    ("8c", "recurrentgemma-2b", None, "engine", (1024, 2560, 4096, 3072)),
+    ("8d", "xlstm-1.3b", None, "engine", (512, 1024, 768, 640)),
+    ("8e", "qwen2-vl-7b", None, "prefill", 4096),    # 256 patches + 3840
+    ("8f", "musicgen-medium", None, "prefill", 1024))  # 64 cond + 960 codes
+FAMILY_SLOTS, FAMILY_NEW, MOE_CHECK_PROMPT = 4, 16, 2048
+# 8d: the mLSTM's parallel and scan forms in float32, layer by layer on the
+# same inputs: the JAX package's bar for the same two forms
+# (tests/test_parallel_forms.py:30, 1e-4).  The parallel form takes
+# F_i - F_j from one cumsum of the log forget gates, which loses about
+# S |f| 2^-24 to cancellation (3e-5 at S = 640)
+XLSTM_FORMS_RTOL, XLSTM_CHECK_LAYERS = 1e-4, (0, 22, 46)
+VLM_GRID = 16                      # 8e: 256 patches on a 16 x 16 grid, t = 0
 # flash_attention cases: (B, S, H, K, hd, window, dtype name)
+# (Phi-3.5-MoE's 8b prefill has Llama-3-8B's shape)
 FA_CASES = ((1, 4096, 32, 8, 128, None, "bfloat16"),    # Llama-3-8B prefill
             (1, 8192, 48, 4, 128, 4096, "bfloat16"),    # StarCoder2 window
-            (2, 512, 8, 2, 64, None, "float32"))
+            (2, 512, 8, 2, 64, None, "float32"),
+            (1, 4096, 10, 1, 256, 2048, "bfloat16"),    # RecurrentGemma-2B
+            (1, 512, 4, 2, 256, 128, "float32"),
+            (1, 2048, 16, 16, 128, None, "bfloat16"),   # OLMoE-1B-7B
+            (1, 4096, 28, 4, 128, None, "bfloat16"),    # Qwen2-VL-7B
+            (1, 1024, 24, 24, 64, None, "bfloat16"))    # MusicGen-medium
 
 
 def log(*a):
@@ -926,8 +999,8 @@ def check_flash(torch, fa, case, seed):
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:31",
-        design=("wgmma+TMA bf16, P in bf16" if dtype == torch.bfloat16
-                else "FFMA f32"),
+        design=(f"wgmma+TMA bf16, {64 if hd > 128 else 128}-key tiles, "
+                f"P in bf16" if dtype == torch.bfloat16 else "FFMA f32"),
         shape=f"B={B} S={S} H={H} K={K} hd={hd} window={window} {dname}",
         max_abs_err=err, tol=tol, ok=excess <= tol,
         ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, window=window),
@@ -1241,6 +1314,306 @@ def check_train_modes(torch, np, dispatch, dev, smi):
         del state
         torch.cuda.empty_cache()
     return rec, mp_launches, bad
+
+
+def rel_l2(torch, got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def family_batch(torch, np, cfg, S, dev):
+    """8b/8e/8f: one sequence of S positions in all.  Text: uniform
+    tokens.  VLM: 0.02 * normal patch
+    embeddings with M-RoPE ids on a VLM_GRID x VLM_GRID grid (t = 0),
+    then text tokens whose ids continue from the grid's largest + 1 on all
+    three planes.  Audio: 0.02 * normal conditioning embeddings, then
+    uniform codes of every codebook in MusicGen's delay pattern (the pad
+    is the last id: the config has no row of its own for one)."""
+    from repro_torch.data import delay_pattern
+    rng = np.random.default_rng(SEED + 8)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    d, V = cfg.d_model, cfg.vocab_size
+    if cfg.family not in ("vlm", "audio"):
+        return {"tokens": torch.as_tensor(rng.integers(0, V, (1, S)),
+                                          device=dev)}
+    if cfg.family == "vlm":
+        n = cfg.n_media_tokens
+        p3 = np.zeros((3, 1, S), np.int64)
+        p3[1, 0, :n] = np.arange(n) // VLM_GRID
+        p3[2, 0, :n] = np.arange(n) % VLM_GRID
+        p3[:, 0, n:] = np.arange(S - n) + VLM_GRID
+        return {"tokens": torch.as_tensor(rng.integers(0, V, (1, S - n)),
+                                          device=dev),
+                "patch_embeds": 0.02 * torch.randn(
+                    (1, n, d), generator=g, device=dev).to(cfg.compute_dtype),
+                "positions3": torch.as_tensor(p3, device=dev)}
+    n, K = cfg.n_cond_tokens, cfg.n_codebooks
+    codes = rng.integers(0, V - 1, (1, K, S - n - K + 1))
+    return {"tokens": torch.as_tensor(delay_pattern(codes, V - 1),
+                                      device=dev),
+            "cond_embeds": 0.02 * torch.randn(
+                (1, n, d), generator=g, device=dev).to(cfg.compute_dtype)}
+
+
+def check_mlstm_forms(torch, dev, cfg, batch):
+    """8d: the mLSTM's ``parallel`` and ``scan`` forms layer by layer, in
+    a float32 copy of the model (weights from the same seed) on the last
+    prompt: at each layer of XLSTM_CHECK_LAYERS both forms take that
+    layer's own input from the ``parallel`` run, and their outputs and
+    final states are compared: relative L2 of the output, C and n, the
+    largest absolute difference of the log-domain stabilizer m (the
+    worst of these is reported).  Layer
+    by layer, because through the 48 layers any two roundings part ways:
+    the whole model's logits read 0.33 apart in bf16 and 1.1e-3 in
+    float32."""
+    from repro_torch.models import Model
+    from repro_torch.models.blocks import (Ctx, block_apply_seq,
+                                           mlstm_apply_seq)
+    from repro_torch.models.common import rms_norm
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                              mlstm_impl="parallel")
+    scan = dataclasses.replace(f32, mlstm_impl="scan")
+    model = Model(f32, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    x = model.embed[batch["tokens"].long()]
+    S = x.shape[1]
+    ctx = Ctx(positions=torch.arange(S, device=dev)[None], window="auto",
+              cache_len=1)
+    errs = {}
+    with torch.no_grad():
+        for i, layer in enumerate(model.layers):
+            if i in XLSTM_CHECK_LAYERS:
+                assert layer.kind == "mlstm", (i, layer.kind)
+                h = rms_norm(x, layer.norm1)
+                ya, ca = mlstm_apply_seq(f32, "mlstm", layer.mixer, h, ctx)
+                yb, cb = mlstm_apply_seq(scan, "mlstm", layer.mixer, h, ctx)
+                errs[i] = [rel_l2(torch, ya, yb),
+                           rel_l2(torch, ca["C"], cb["C"]),
+                           rel_l2(torch, ca["n"], cb["n"]),
+                           (ca["m"] - cb["m"]).abs().max().item()]
+            x, _, _ = block_apply_seq(f32, layer.kind, layer, x, ctx)
+    del model, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    flat = [e for v in errs.values() for e in v]
+    # a NaN anywhere is the worst reading (max() would pass it over)
+    worst = max(flat) if all(e == e for e in flat) else float("nan")
+    return dict(mlstm_forms_err=worst, mlstm_forms_by_layer=errs,
+                mlstm_forms_tol=XLSTM_FORMS_RTOL)
+
+
+def check_family(torch, np, dispatch, dev, smi, phase, arch, depth, kind,
+                 traffic):
+    """One of 8a-8f: ``arch`` at its published width (depth cut to
+    ``depth`` where given), random bf16 weights from the seed and
+    ``attn_impl="flash"``, driven through ``Engine`` (kind "engine") or
+    ``Model.prefill`` and FAMILY_NEW greedy ``decode_step``s ("prefill"),
+    the launch counts set to 0 just before and read just after.  Checks:
+    every request finishes in the vocab with finite logits;
+    ``flash_attention`` launched once per attention layer a prefill; the
+    last prefill's logits within LM_LOGIT_RTOL (relative L2) of the same
+    model with ``attn_impl="chunked"`` (MoE: with the kernel path's expert
+    ids replayed in the chunked path); MoE: the ``gather`` form's
+    logits equal to ``scatter``'s bit for bit on one MOE_CHECK_PROMPT-token
+    prefill; xLSTM (no attention, so the chunked path is the same
+    computation): its ``parallel`` and ``scan`` mLSTM in float32 within
+    XLSTM_FORMS_RTOL layer by layer (``check_mlstm_forms``).  Returns
+    (record, launches, error or None)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, blocks
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_attn = sum(k.startswith("attn") for k in cfg.layer_kinds)
+    rec = dict(phase=phase, model=cfg.name, family=cfg.family,
+               n_layers=cfg.n_layers, published_layers=get_config(arch)
+               .n_layers, d_model=cfg.d_model, head_dim=cfg.hd,
+               params=model.param_count(), init_s=init_s)
+    st = dict(prefill_s=0.0, prefill_tok=0, decode_s=0.0, decode_tok=0)
+    last = {}
+
+    def timed(fn, secs, count, n):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            st[secs] += time.perf_counter() - t
+            st[count] += n(*args)
+            return out
+        return run
+
+    def greedy(logits):
+        return torch.argmax(logits, dim=-1)
+
+    if kind == "engine":
+        prompts = [np.random.default_rng(SEED + len(phase) + i).integers(
+            0, cfg.vocab_size, n) for i, n in enumerate(traffic)]
+        cache_len = max(traffic) + FAMILY_NEW
+        model.prefill({"tokens": torch.as_tensor(prompts[0][None],
+                                                 device=dev)},
+                      cache_len=cache_len)                    # warm-up
+        eng = Engine(model, ServeConfig(batch_size=FAMILY_SLOTS,
+                                        cache_len=cache_len,
+                                        max_new_tokens=FAMILY_NEW))
+        prefill_one = timed(eng._prefill_one, "prefill_s", "prefill_tok",
+                            lambda tokens: tokens.shape[1])
+
+        def keep_last(tokens):
+            last["batch"] = {"tokens": tokens}
+            last["logits"], cache = prefill_one(tokens)
+            return last["logits"], cache
+        eng._prefill_one = keep_last
+        eng._decode = timed(eng._decode, "decode_s", "decode_tok",
+                            lambda tok: 0)
+        rids = [eng.submit(p) for p in prompts]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dispatch.launch_counts()["flash_attention"]
+        st["decode_tok"] = sum(len(results.get(r, [])) - 1 for r in rids)
+        n_prefills = len(prompts)
+        rec.update(prompts=list(traffic), slots=FAMILY_SLOTS,
+                   cache_len=cache_len)
+        bad = None
+        if eng.exhausted or sorted(results) != sorted(rids) or any(
+                len(results[r]) != FAMILY_NEW for r in rids):
+            bad = (f"exhausted={eng.exhausted}, lengths "
+                   f"{[len(results.get(r, [])) for r in rids]}")
+        elif not all(0 <= t < cfg.vocab_size for r in rids
+                     for t in results[r]):
+            bad = "a token outside the vocab"
+        del eng
+    else:
+        batch = family_batch(torch, np, cfg, traffic, dev)
+        cache_len = traffic + FAMILY_NEW
+        model.prefill(batch, cache_len=cache_len)               # warm-up
+        prefill = timed(model.prefill, "prefill_s", "prefill_tok",
+                        lambda b, cache_len: traffic)
+        decode = timed(model.decode_step, "decode_s", "decode_tok",
+                       lambda c, b: b["token"].numel() // (
+                           cfg.n_codebooks if cfg.family == "audio" else 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(batch, cache_len)
+        tok = greedy(logits[..., -1, :])
+        finite = bool(torch.isfinite(logits).all())
+        for _ in range(FAMILY_NEW):
+            step, cache = decode(cache, {"token": tok})
+            finite &= bool(torch.isfinite(step).all())
+            tok = greedy(step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dispatch.launch_counts()["flash_attention"]
+        last.update(batch=batch, logits=logits)
+        n_prefills = 1
+        want_shape = (1, cfg.n_codebooks, 1, cfg.vocab_size) \
+            if cfg.family == "audio" else (1, 1, cfg.vocab_size)
+        rec.update(positions=traffic, cache_len=cache_len,
+                   pos_after=int(cache["pos"][0]))
+        bad = None
+        if not finite or tuple(logits.shape) != want_shape \
+                or int(cache["pos"][0]) != traffic + FAMILY_NEW:
+            bad = (f"logits {tuple(logits.shape)} finite={finite}, "
+                   f"pos {int(cache['pos'][0])}")
+        del cache, step
+    peak = torch.cuda.max_memory_allocated()
+    rec.update(wall_s=wall, prefill_s=st["prefill_s"],
+               prefill_tokens=st["prefill_tok"],
+               prefill_tokens_per_s=st["prefill_tok"] / st["prefill_s"],
+               decode_s=st["decode_s"], decode_tokens=st["decode_tok"],
+               decode_tokens_per_s=st["decode_tok"] / st["decode_s"],
+               max_memory_allocated=peak, flash_attention_launches=launches,
+               want_launches=n_attn * n_prefills, device=smi)
+    if bad is None and launches != n_attn * n_prefills:
+        bad = (f"flash_attention launched {launches} times, not {n_attn} "
+               f"attention layers x {n_prefills} prefills")
+
+    # the last prefill against the reference attention path
+    model.cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    ref, _ = model.prefill(last["batch"], cache_len=cache_len)
+    rel = rel_l2(torch, last["logits"][..., -1, :], ref[..., -1, :])
+    rec.update(check="attn_impl chunked", logits_rel_l2=rel,
+               tol=LM_LOGIT_RTOL)
+    if cfg.n_experts:
+        # capacity is taken in token order: a top-k choice that flips under
+        # another rounding (any two attention paths round apart in bf16)
+        # moves every later token's drops, the last token's most.  So the
+        # bar holds the last position with the routing pinned: the kernel
+        # path's expert ids, layer by layer, replayed in the chunked path,
+        # each path weighing them by its own gates.  The unpinned reading
+        # above stays in the record.
+        routes, route = [], blocks.moe_route
+
+        def record(gates, k):
+            topv, topi = route(gates, k)
+            routes.append(topi)
+            return topv, topi
+
+        def replay(gates, k):
+            topi = routes.pop(0)
+            return torch.gather(gates, 1, topi), topi
+        del ref
+        try:
+            blocks.moe_route = record
+            model.cfg = dataclasses.replace(cfg, attn_impl="flash")
+            got, _ = model.prefill(last["batch"], cache_len=cache_len)
+            n_routes = len(routes)
+            blocks.moe_route = replay
+            model.cfg = dataclasses.replace(cfg, attn_impl="chunked")
+            ref, _ = model.prefill(last["batch"], cache_len=cache_len)
+        finally:
+            blocks.moe_route = route
+        rel = rel_l2(torch, got[..., -1, :], ref[..., -1, :])
+        rec.update(unpinned_logits_rel_l2=rec["logits_rel_l2"],
+                   logits_rel_l2=rel, routing="pinned",
+                   routes_replayed=n_routes - len(routes))
+        del got
+        if bad is None and (routes or n_routes != n_attn):
+            bad = (f"{n_routes} MoE routings recorded, {len(routes)} not "
+                   f"replayed, for {n_attn} MoE layers")
+    model.cfg = cfg
+    if bad is None and not (torch.isfinite(ref).all() and
+                            rel <= LM_LOGIT_RTOL):
+        bad = (f"the last prefill's logits off the chunked path's by "
+               f"{rel} (relative L2 > {LM_LOGIT_RTOL})")
+    del ref
+    if cfg.n_experts:
+        tok = torch.as_tensor(np.random.default_rng(SEED + 9).integers(
+            0, cfg.vocab_size, (1, MOE_CHECK_PROMPT)), device=dev)
+        forms = {}
+        for impl in ("scatter", "gather"):
+            model.cfg = dataclasses.replace(cfg, moe_impl=impl)
+            forms[impl] = model.prefill({"tokens": tok}, cache_len=0)[0]
+        model.cfg = cfg
+        same = torch.equal(forms["scatter"], forms["gather"])
+        rec.update(moe_forms_bit_for_bit=same,
+                   moe_check_prompt=MOE_CHECK_PROMPT)
+        if bad is None and not same:
+            bad = ("the gather form's logits differ from scatter's by "
+                   f"{(forms['scatter'] - forms['gather']).abs().max()}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not n_attn:
+        rec.update(check_mlstm_forms(torch, dev, cfg, last["batch"]))
+        if bad is None and not rec["mlstm_forms_err"] <= \
+                XLSTM_FORMS_RTOL:
+            bad = (f"float32 parallel and scan mLSTM apart by "
+                   f"{rec['mlstm_forms_err']} (> {XLSTM_FORMS_RTOL})")
+    return rec, launches, bad and f"{phase} {arch}: {bad}"
 
 
 def profile_device(torch, run):
@@ -2179,6 +2552,21 @@ def main() -> int:
     if bad:
         return fail(bad)
 
+    # 8a-8f. the model families at full width, one at a time ---------------
+    families = {}
+    for family in FAMILY_PHASES:
+        phase = family[0]
+        t0 = time.perf_counter()
+        rec, counts[phase], bad = check_family(torch, np, dispatch, dev,
+                                               smi, *family)
+        rec["phase_s"] = time.perf_counter() - t0
+        log(json.dumps(rec))
+        if bad:
+            return fail(bad)
+        families[phase] = rec
+    log(f"[8] {len(families)} model families served at full width in "
+        f"{sum(r['phase_s'] for r in families.values()):.1f} s")
+
     path_of = {"round_step": "fused", "sparse_gather_mix": "sparse_sync_mp",
                "graph_mix": "synchronous", "cl_edge_step": "cl-kernel",
                "admm_edge_update": "admm_edge", "flash_attention": "serve"}
@@ -2189,6 +2577,15 @@ def main() -> int:
             "name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "design")}
+        if kr["name"] == "flash_attention":     # 6b and the hd-128 families
+            row["launches_by_path"] = {"serve": kr["launches"], **{
+                phase: counts[phase] for phase, rec in families.items()
+                if rec["head_dim"] == 128 and counts[phase]}}
+            row["launches"] = sum(row["launches_by_path"].values())
+            row["cases"] = [{k: c[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "library_ms")} for c in fa_cases
+                if "hd=128" in c["shape"] and "bfloat16" in c["shape"]]
         if kr["name"] == "graph_mix":           # its three paths
             row["launches_by_path"] = {
                 "synchronous": kr["launches"],
@@ -2209,6 +2606,22 @@ def main() -> int:
                                           "library_ms")}
                       for kr in agent_cases]
     summary.append(agent)
+    # the bf16 kernel's other head dims, each at its family's shape with
+    # that family's launches: hd 256 (8c, RecurrentGemma's MQA heads,
+    # 64-key tiles) and hd 64 (8f, MusicGen's MHA heads)
+    for hd in (256, 64):
+        case = next(kr for kr in fa_cases if f"hd={hd} " in kr["shape"]
+                    and "bfloat16" in kr["shape"])
+        row = {k: case[k] for k in (
+            "name", "route", "source", "replaces", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "design",
+            "shape")}
+        row["launches_by_path"] = {phase: counts[phase]
+                                   for phase, rec in families.items()
+                                   if rec["head_dim"] == hd}
+        row["launches"] = sum(row["launches_by_path"].values())
+        row["resources"] = fa.flash_attention_resources(hd, torch.bfloat16)
+        summary.append(row)
     log(json.dumps({"kernels": summary}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

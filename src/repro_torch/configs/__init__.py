@@ -1,10 +1,7 @@
-"""Architecture configs of the dense family (counterpart of
-``repro.configs``): FULL (the published configuration) and REDUCED (a
-smoke variant of the same family) for each arch the port runs.
-
-The MoE, hybrid, SSM, VLM and audio archs of the JAX package wait for
-their mixers (ROADMAP queue 1 item 9); ``get_config`` raises
-``NotImplementedError`` for them.
+"""Architecture configs (counterpart of ``repro.configs``): FULL (the
+published configuration) and REDUCED (a smoke variant of the same family:
+<= 2 scan units, d_model <= 512, <= 4 experts) for each arch of the JAX
+package, copied field for field.
 """
 
 import importlib
@@ -12,8 +9,11 @@ from typing import List
 
 from repro_torch.models.common import ModelConfig
 
-ARCHS: List[str] = ["deepseek_7b", "starcoder2_15b", "llama3_8b",
-                    "minitron_8b"]
+ARCHS: List[str] = [
+    "deepseek_7b", "starcoder2_15b", "olmoe_1b_7b", "xlstm_1_3b",
+    "qwen2_vl_7b", "recurrentgemma_2b", "phi3_5_moe", "llama3_8b",
+    "minitron_8b", "musicgen_medium",
+]
 
 # canonical CLI ids (--arch <id>) -> module name, as in the JAX package
 ALIASES = {
@@ -30,16 +30,9 @@ ALIASES = {
     "musicgen-medium": "musicgen_medium",
 }
 
-_NOT_PORTED = {"olmoe_1b_7b", "xlstm_1_3b", "qwen2_vl_7b",
-               "recurrentgemma_2b", "phi3_5_moe", "musicgen_medium"}
-
 
 def get_config(name: str, variant: str = "full") -> ModelConfig:
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
-    if mod_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: its mixer family waits for "
-            f"ROADMAP queue 1 item 9; ported: {sorted(ARCHS)}")
     if mod_name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ALIASES)}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")

@@ -117,7 +117,11 @@ def model_params_from_arrays(cfg, params, device=None, dtype=None):
     """The JAX package's model parameters (its ``Model.init`` tree, with
     each group's leaves stacked over repetitions) as a state dict of the
     port's ``Model(cfg)``: layer ``offset + r * len(unit) + i`` takes
-    ``groups[g]["b{i}"][...][r]``.  Tensors in ``dtype`` (by default
+    ``groups[g]["b{i}"][...][r]``, group after group (a pattern's tail
+    group, as recurrentgemma's (rec, rec) after (rec, rec, attn) x 8,
+    included).  Leaves keep their shapes: MoE expert stacks (E, d, f),
+    sLSTM's ``r_*`` (H, hd, hd), audio's (K, V, d) embedding and
+    (K, d, V) head.  Tensors in ``dtype`` (by default
     ``cfg.compute_dtype``), for ``Model.load_state_dict``."""
     device = resolve_device(device)
     dtype = dtype or cfg.compute_dtype

@@ -10,7 +10,8 @@ target models in a 2-D subspace of R^p, angular-kernel graph,
 m_i ~ U{1..20}, 5% label flips) and ``federated_moons_problem``
 (per-cluster nonlinear two-moons boundaries for the nonlinear agents),
 and the personalized LM token streams (per-agent bigram processes that
-neighbors share structure in).
+neighbors share structure in); MusicGen's codebook delay pattern
+(``delay_pattern`` / ``undelay_pattern``), numpy as there.
 """
 
 from __future__ import annotations
@@ -251,3 +252,30 @@ def make_lm_batches(cfg: PersonalizedLMConfig, graph: Graph,
     """The first ``n_batches`` batches of the stream, as a list."""
     it = personalized_token_stream(cfg, graph)
     return [next(it) for _ in range(n_batches)]
+
+
+# ---------------------------------------------------------------------------
+# MusicGen delay pattern (audio arch)
+# ---------------------------------------------------------------------------
+
+
+def delay_pattern(tokens: np.ndarray, pad_id: int) -> np.ndarray:
+    """Apply the MusicGen codebook delay: codebook k is shifted right by k.
+
+    tokens: (B, K, S) -> (B, K, S + K - 1) padded with pad_id.
+    """
+    B, K, S = tokens.shape
+    out = np.full((B, K, S + K - 1), pad_id, tokens.dtype)
+    for k in range(K):
+        out[:, k, k:k + S] = tokens[:, k]
+    return out
+
+
+def undelay_pattern(tokens: np.ndarray) -> np.ndarray:
+    """Inverse of delay_pattern. tokens: (B, K, S + K - 1) -> (B, K, S)."""
+    B, K, Sp = tokens.shape
+    S = Sp - K + 1
+    out = np.empty((B, K, S), tokens.dtype)
+    for k in range(K):
+        out[:, k] = tokens[:, k, k:k + S]
+    return out

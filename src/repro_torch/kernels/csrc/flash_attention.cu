@@ -22,7 +22,7 @@
 //
 // bf16: wgmma + TMA (flash_fwd_wgmma).  One block of two warpgroups per
 //   (batch * head, 128-query tile); each warpgroup owns 64 query rows,
-//   wgmma's M.  kv tiles are BK = 128 keys.
+//   wgmma's M.  kv tiles are BK = 128 keys (64 at hd = 256).
 //   - Copies by TMA, with 4-D tensor maps (hd, heads, S, B) built on the
 //     host per call, 64-element (128-byte) boxes and 128-byte swizzle, so
 //     tiles land in the layout the wgmma descriptors read.  Q is loaded
@@ -37,11 +37,17 @@
 //     last queries) of every head launched first, so the short tiles fill
 //     the end of the run.
 //   - Shared memory at hd = 128: Q 32 KB, K and V 2 x 32 KB each: 160 KB
-//     (80 KB at hd = 64), above 48 KB by cudaFuncSetAttribute.
-//   - S = Q K^T: hd / 16 wgmma.m64n128k16, A and B from shared memory,
-//     both K-major (hd is contiguous in q and k).
+//     (80 KB at hd = 64), above 48 KB by cudaFuncSetAttribute.  At hd =
+//     256 (RecurrentGemma's heads) 128-key stages would take Q 64 KB +
+//     4 x 64 KB = 320 KB, over the 227 KB a block may have, so kv tiles
+//     are 64 keys there: 64 KB + 4 x 32 KB = 192 KB.  The 64 x 256 float32
+//     O accumulator is then 128 registers a thread, kept as two 128-column
+//     wgmma accumulators (repro_flash_attention_attrs reports registers
+//     and spills).
+//   - S = Q K^T: hd / 16 wgmma.m64n128k16 (m64n64k16 at hd = 256), A and
+//     B from shared memory, both K-major (hd is contiguous in q and k).
 //   - Online softmax in registers, in the log2 domain (scale * log2 e is
-//     folded into one multiply, exp2): masks only on the diagonal tile and
+//     folded into one multiply, exp2): masks only on the diagonal tiles and
 //     the window's edge tiles; m and l in float32, a row's max over the 4
 //     threads that share it in the accumulator layout (l is summed per
 //     thread and reduced once at the end).  A masked logit is -1e30, as in
@@ -51,8 +57,8 @@
 //   - O += P V: P is rounded to bf16 once, in registers, and fed as
 //     wgmma's A operand from registers (for 16-bit types the accumulator
 //     layout of S is the A-fragment layout, so no shuffle is needed); V is
-//     read from shared memory as an MN-major B (the transposed-B form);
-//     O accumulates in float32.  The output is O / max(l, 1e-20), l summed
+//     read from shared memory as an MN-major B (the transposed-B form), at
+//     hd = 256 as two 128-column products; O accumulates in float32.  The output is O / max(l, 1e-20), l summed
 //     from the unrounded weights, rounded to bf16 and stored from
 //     registers (rows < S only).
 //   - Rounding P to bf16 per 128-key tile against the running max is what
@@ -75,7 +81,8 @@
 //   4 ty .. +3 and, of the 64 x 64 logit tile, keys 4 tx .. +3; the row
 //   max and sum are reduced over the 16 threads of a row by warp shuffles;
 //   the weights go through shared memory for P @ V, all in float32 (the
-//   1e-5 bar).  Only the card tests and a float32 model run it.
+//   1e-5 bar).  At hd = 256 its shared memory is 208 KB.  Only the card
+//   tests and a float32 model run it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -286,13 +293,19 @@ namespace tc {
 using hopper::desc_sw128;
 
 constexpr int BQ = 128;                 // queries per block: 2 x wgmma M
-constexpr int BK = 128;                 // keys per kv tile: wgmma N of S
 constexpr int THREADS = 256;            // two warpgroups
 constexpr int BOX = 64;                 // bf16 per 128-byte swizzle row
 constexpr uint32_t ATOM_ROWS_BYTES = 1024;   // 8 rows x 128 bytes
 
+// keys per kv tile (wgmma N of S): 128, or 64 at hd = 256, where 128-key
+// stages would take 320 KB of shared memory and the 64 x 256 float32 O
+// accumulator already takes 128 registers a thread
+template <int HD>
+constexpr int kv_tile() { return HD > 128 ? 64 : 128; }
+
 template <int HD>
 struct Smem {
+  static constexpr int BK = kv_tile<HD>();
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;      // one stage of K or V
   static constexpr int BARS = 4;           // q, full x 2, 2 warp counters
@@ -325,7 +338,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 __nv_bfloat16* __restrict__ o, int S, int H, int KH,
                 int window, float scale_log2) {
   using L = Smem<HD>;
-  constexpr int NO = HD / 2;            // O accumulator floats per thread
+  constexpr int BK = L::BK;
+  // O accumulator, HD / 2 floats a thread, as NPART wgmma accumulators of
+  // at most 128 columns (NP floats) each
+  constexpr int NPART = HD > 128 ? HD / 128 : 1;
+  constexpr int NP = HD / 2 / NPART;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -375,9 +392,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // layout: warpgroup wg rows 64 wg .. +63, warp rows 16 warp .. +15
   const int r0 = 64 * wg + 16 * warp + (lane >> 2);
   const int row0 = q0 + r0, row1 = row0 + 8;
-  float o_acc[NO];
+  float o_acc[NPART][NP];
 #pragma unroll
-  for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+  for (int p = 0; p < NPART; ++p)
+#pragma unroll
+    for (int i = 0; i < NP; ++i) o_acc[p][i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
   const uint32_t q_addr = hopper::smem_addr(sQ) + wg * 64 * 128;
@@ -390,10 +409,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     hopper::mbar_wait(&full[stage], parity);
     __syncwarp();          // wgmma is .aligned: the warp must be converged
 
-    // S = Q K^T (64 x 128 per warpgroup), K-major operands; a k-step of
+    // S = Q K^T (64 x BK per warpgroup), K-major operands; a k-step of
     // 16 bf16 is 32 bytes inside a 128-byte swizzle row
     const uint32_t k_addr = hopper::smem_addr(sK + stage * L::KV_BYTES);
-    float s[64];
+    float s[BK / 2];
     hopper::fence_regs(s);
     hopper::wgmma_fence();
 #pragma unroll
@@ -403,19 +422,24 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
           q_addr + (kk / 4) * BQ * 128 + off, 0, ATOM_ROWS_BYTES);
       const uint64_t db = desc_sw128(
           k_addr + (kk / 4) * BK * 128 + off, 0, ATOM_ROWS_BYTES);
-      hopper::wgmma_m64n128k16_ss(s, da, db, kk > 0);
+      if constexpr (BK == 128)
+        hopper::wgmma_m64n128k16_ss(s, da, db, kk > 0);
+      else
+        hopper::wgmma_m64n64k16_ss(s, da, db, kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(s);
 
     // online softmax, log2 domain.  s[4j + e]: row row0 (e < 2) or row1,
-    // key k0 + 8 j + 2 quad + (e & 1)
-    const bool masked = kt == kt_end ||
+    // key k0 + 8 j + 2 quad + (e & 1).  A tile is masked where a key lies
+    // past the block's first query (the diagonal: the last tile, and at
+    // BK = 64 the one before it) or at the window's edge
+    const bool masked = k0 + BK - 1 > q0 ||
                         (window > 0 && k0 <= q0 + BQ - 1 - window);
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[4 * j + e] * scale_log2;
@@ -440,7 +464,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     m1 = mn1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(s[4 * j + e] - (e < 2 ? mn0 : mn1));
@@ -451,12 +475,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     l0 = l0 * alpha0 + rs0;
     l1 = l1 * alpha1 + rs1;
 #pragma unroll
-    for (int j = 0; j < NO / 4; ++j) {
-      o_acc[4 * j] *= alpha0;
-      o_acc[4 * j + 1] *= alpha0;
-      o_acc[4 * j + 2] *= alpha1;
-      o_acc[4 * j + 3] *= alpha1;
-    }
+    for (int p = 0; p < NPART; ++p)
+#pragma unroll
+      for (int j = 0; j < NP / 4; ++j) {
+        o_acc[p][4 * j] *= alpha0;
+        o_acc[p][4 * j + 1] *= alpha0;
+        o_acc[p][4 * j + 2] *= alpha1;
+        o_acc[p][4 * j + 3] *= alpha1;
+      }
 
     // P in bf16 as wgmma A fragments: keys 16 kk .. +15 are the
     // accumulator's column blocks 2 kk and 2 kk + 1
@@ -470,23 +496,29 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // O += P V: V MN-major (hd contiguous), 16 keys = 2 x 8 rows of
-    // 128 bytes per k-step; at hd = 128 the second 64-column block of V
-    // lies BK * 128 bytes further (the descriptor's leading offset)
+    // 128 bytes per k-step; the next 64-column block of V lies BK * 128
+    // bytes further (the descriptor's leading offset), and at hd = 256 the
+    // second 128 columns (part 1) start two blocks on
     const uint32_t v_addr = hopper::smem_addr(sV + stage * L::KV_BYTES);
-    hopper::fence_regs(o_acc);
+#pragma unroll
+    for (int p = 0; p < NPART; ++p) hopper::fence_regs(o_acc[p]);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t db = desc_sw128(v_addr + kk * 16 * 128, BK * 128,
-                                     ATOM_ROWS_BYTES);
-      if constexpr (HD == 128)
-        hopper::wgmma_m64n128k16_rs_tb(o_acc, pa[kk], db);
-      else
-        hopper::wgmma_m64n64k16_rs_tb(o_acc, pa[kk], db);
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NPART; ++p) {
+        const uint64_t db = desc_sw128(
+            v_addr + p * 2 * BK * 128 + kk * 16 * 128, BK * 128,
+            ATOM_ROWS_BYTES);
+        if constexpr (NP == 64)
+          hopper::wgmma_m64n128k16_rs_tb(o_acc[p], pa[kk], db);
+        else
+          hopper::wgmma_m64n64k16_rs_tb(o_acc[p], pa[kk], db);
+      }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
-    hopper::fence_regs(o_acc);
+#pragma unroll
+    for (int p = 0; p < NPART; ++p) hopper::fence_regs(o_acc[p]);
 
     // release the stage: the warp that finishes it last refills it with
     // tile i + 2 (its wgmma reads are complete: wait_group 0 above)
@@ -513,15 +545,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   __nv_bfloat16* ob = o + (size_t)b * S * q_stride + (size_t)h * HD +
                       2 * quad;
 #pragma unroll
-  for (int j = 0; j < NO / 4; ++j) {
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + 8 * j) =
-          __floats2bfloat162_rn(o_acc[4 * j] * inv0, o_acc[4 * j + 1] * inv0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + 8 * j) =
-          __floats2bfloat162_rn(o_acc[4 * j + 2] * inv1,
-                                o_acc[4 * j + 3] * inv1);
-  }
+  for (int p = 0; p < NPART; ++p)
+#pragma unroll
+    for (int j = 0; j < NP / 4; ++j) {
+      const int col = p * 128 + 8 * j;
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + col) =
+            __floats2bfloat162_rn(o_acc[p][4 * j] * inv0,
+                                  o_acc[p][4 * j + 1] * inv0);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + col) =
+            __floats2bfloat162_rn(o_acc[p][4 * j + 2] * inv1,
+                                  o_acc[p][4 * j + 3] * inv1);
+    }
 }
 
 // cuTensorMapEncodeTiled, a driver function, reached through the runtime
@@ -580,6 +616,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   if (!encode) return ERR_NO_ENCODE;
   CUtensorMap tq, tk, tv;
   CUresult r = make_map(&tq, encode, q, B, S, H, HD, BQ);
+  constexpr int BK = Smem<HD>::BK;
   if (r == CUDA_SUCCESS) r = make_map(&tk, encode, k, B, S, KH, HD, BK);
   if (r == CUDA_SUCCESS) r = make_map(&tv, encode, v, B, S, KH, HD, BK);
   if (r != CUDA_SUCCESS) return ERR_NO_ENCODE + (int)r;
@@ -601,7 +638,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // q, o (B, S, H, hd) and k, v (B, S, KH, hd), contiguous and 16-byte
 // aligned, all float32 (is_bf16 = 0, the FFMA kernel) or all bfloat16
-// (is_bf16 = 1, the wgmma kernel); hd in {64, 128}, S % 64 == 0, KH | H;
+// (is_bf16 = 1, the wgmma kernel); hd in {64, 128, 256}, S % 64 == 0, KH | H;
 // window <= 0 means none; scale multiplies q . k.  Returns 1
 // (cudaErrorInvalidValue) for a shape outside that contract, 10000 when the
 // driver has no cuTensorMapEncodeTiled and 10000 + its CUresult when it
@@ -612,6 +649,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int is_bf16, float scale,
                                      cudaStream_t stream) {
   if (S <= 0 || S % ffma::BQ || KH <= 0 || H % KH || B <= 0) return 1;
+  if (hd == 256)
+    return is_bf16 ? tc::launch<256>(q, k, v, o, B, S, H, KH, window, scale,
+                                     stream)
+                   : ffma::launch<float, 256>(q, k, v, o, B, S, H, KH,
+                                              window, scale, stream);
   if (hd == 128)
     return is_bf16 ? tc::launch<128>(q, k, v, o, B, S, H, KH, window, scale,
                                      stream)
@@ -623,4 +665,27 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                    : ffma::launch<float, 64>(q, k, v, o, B, S, H, KH, window,
                                              scale, stream);
   return 1;
+}
+
+// Registers and local memory bytes (spills included) a thread of the kernel
+// that repro_flash_attention runs for (hd, is_bf16), as cudaFuncGetAttributes
+// reports them, into out[0] and out[1]; 1 for an hd outside the contract.
+extern "C" int repro_flash_attention_attrs(int hd, int is_bf16, int* out) {
+  const void* fn = nullptr;
+  if (hd == 256)
+    fn = is_bf16 ? (const void*)tc::flash_fwd_wgmma<256>
+                 : (const void*)ffma::flash_fwd_kernel<float, 256>;
+  else if (hd == 128)
+    fn = is_bf16 ? (const void*)tc::flash_fwd_wgmma<128>
+                 : (const void*)ffma::flash_fwd_kernel<float, 128>;
+  else if (hd == 64)
+    fn = is_bf16 ? (const void*)tc::flash_fwd_wgmma<64>
+                 : (const void*)ffma::flash_fwd_kernel<float, 64>;
+  if (!fn) return 1;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  return 0;
 }

@@ -3,13 +3,15 @@ grouped kv heads, ``(q (B, S, H, hd), k, v (B, S, K, hd), *, window) ->
 (B, S, H, hd)``.
 
 The CUDA kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU
-kernel ``repro/kernels/flash_attention.py::flash_attention``.  In bf16 it
+kernel ``repro/kernels/flash_attention.py::flash_attention``, at head dims
+64, 128 and 256 (RecurrentGemma's).  In bf16 it
 runs on the tensor cores: one block of two warpgroups per (batch * head,
 128-query tile), Q once and K, V through a 2-stage ring brought in by TMA,
 S = Q K^T and O += P V by ``wgmma`` with the online softmax in registers
-and the weights P rounded to bf16 once per 128-key tile (as the JAX oracle
-``repro.kernels.ref.flash_attention`` rounds them).  In float32 it is the
-FFMA kernel (64-query tiles, all in float32).  Both read the kv heads in
+and the weights P rounded to bf16 once per kv tile of 128 keys (64 at
+head dim 256; the JAX oracle ``repro.kernels.ref.flash_attention`` rounds
+them too).  In float32 it is the FFMA kernel (64-query tiles, all in
+float32).  Both read the kv heads in
 place and never load a fully masked kv tile; the source note says what
 bounds the kernel on the H100 and how the design answers that.  Beside it
 sits the plain PyTorch version (``kernels.ref.flash_attention``), which
@@ -18,6 +20,8 @@ the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -30,7 +34,7 @@ launches = 0
 #: S must be a multiple (the float32 kernel's query tile; the bf16
 #: kernel's 128-query tiles may end half full).
 BLOCK = 64
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -75,7 +79,7 @@ def flash_attention(q, k, v, *, window=None):
     """q: (B, S, H, hd); k, v: (B, S, K, hd) with K | H -> (B, S, H, hd)
     in q's dtype (``kernels.ref.flash_attention``).
 
-    CUDA tensors launch the kernel (bf16 or float32, hd in {64, 128},
+    CUDA tensors launch the kernel (bf16 or float32, hd in {64, 128, 256},
     S % 64 == 0, else it raises); CPU tensors take the plain version.
     """
     global launches
@@ -93,3 +97,16 @@ def flash_attention(q, k, v, *, window=None):
                   device=q.device)
     launches += 1
     return out
+
+
+def flash_attention_resources(hd: int, dtype) -> dict:
+    """Registers and local memory bytes (spills included) a thread of the
+    kernel that :func:`flash_attention` launches for head dim ``hd`` and
+    ``dtype``, as the CUDA runtime reports them
+    (``cudaFuncGetAttributes``)."""
+    out = (ctypes.c_int * 2)()
+    err = _build.library().repro_flash_attention_attrs(
+        hd, int(dtype == torch.bfloat16), ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"repro_flash_attention_attrs: CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1]}

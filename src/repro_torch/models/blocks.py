@@ -1,35 +1,42 @@
-"""Transformer blocks, dense subset (counterpart of
+"""Transformer and recurrent blocks (counterpart of
 ``repro.models.blocks``).
 
-A block is norm -> mixer -> residual -> norm -> FFN -> residual.  Each
-block kind has a sequence form (``*_apply_seq``: prefill or forward,
-returning the kv cache entry when ``ctx.cache_len`` asks for one) and a
-one-token decode form (``*_apply_dec``).  The weights live in
-``nn.Module``s laid out as the JAX package's parameter tree —
-``(d_in, d_out)`` matrices used as ``x @ w`` — so carrying weights across
-is a copy (``convert.model_params_from_arrays``).
+A block is norm -> mixer -> residual [-> norm -> FFN or MoE ->
+residual].  Each mixer kind has a sequence form (``*_apply_seq``:
+prefill or forward, returning its cache entry when ``ctx.cache_len`` asks
+for one) and a one-token decode form (``*_apply_dec``).  The weights live
+in ``nn.Module``s laid out as the JAX package's parameter tree —
+``(d_in, d_out)`` matrices used as ``x @ w``, expert stacks ``(E, d, f)``
+— so carrying weights across is a copy
+(``convert.model_params_from_arrays``).
 
-Kinds: ``attn`` and ``attn_local``.  The MoE FFN and the RG-LRU, mLSTM
-and sLSTM mixers are not ported yet and raise ``NotImplementedError``.
+Kinds: ``attn`` and ``attn_local`` (with the MoE FFN where the config has
+experts), ``rglru`` (RecurrentGemma's RG-LRU), ``mlstm`` and ``slstm``
+(xLSTM, whose blocks carry their own projections: no FFN).  The JAX
+package's ``lax.scan`` over time becomes a Python loop (sLSTM, the mLSTM
+``scan`` form) and its ``associative_scan`` a log-depth scan of torch ops
+(RG-LRU); none of these reaches a Pallas kernel there, so none is a
+kernel here.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import dispatch
 from .attention import chunked_attention, decode_attention, ref_attention
-from .common import ModelConfig, apply_rope, gelu, gelu_glu, rms_norm, swiglu
-
-NOT_PORTED = ("is not ported yet: the MoE, RG-LRU, mLSTM and sLSTM blocks "
-              "wait for ROADMAP queue 1 item 9")
+from .common import (ModelConfig, apply_mrope, apply_rope, gelu, gelu_glu,
+                     rms_norm, swiglu)
 
 
 class Ctx(NamedTuple):
     positions: Any = None        # (B, S) int (seq mode) or (B,) / () (decode)
+    positions3: Any = None       # (3, B, S) for M-RoPE (vlm), seq mode only
     window: Any = None           # per-call window override ("auto" = cfg)
     cache_len: int = 0           # 0 => no cache wanted
     ring: bool = False           # decode cache is a ring buffer
@@ -99,6 +106,10 @@ def _qkv(cfg: ModelConfig, p: Attention, x, ctx: Ctx, decode: bool):
     xq = (x @ p.wq).reshape(B, S, H, hd)
     xk = (x @ p.wk).reshape(B, S, K, hd)
     xv = (x @ p.wv).reshape(B, S, K, hd)
+    if cfg.family == "vlm" and ctx.positions3 is not None:
+        p3, sec = ctx.positions3, cfg.mrope_sections
+        return (apply_mrope(xq, p3, cfg.rope_theta, sec),
+                apply_mrope(xk, p3, cfg.rope_theta, sec), xv)
     pos = ctx.positions
     if pos is None:
         pos = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -189,48 +200,464 @@ def attn_init_cache(cfg: ModelConfig, B: int, cache_len: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# Block = norm -> mixer -> residual -> norm -> ffn -> residual
+# MoE FFN (token-choice top-k with capacity)
 # ---------------------------------------------------------------------------
 
-_MIXERS = ("attn", "attn_local")
+
+class MoE(nn.Module):
+    """``router`` (d, E), expert stacks ``w_gate`` and ``w_up`` (E, d, f)
+    and ``w_down`` (E, f, d)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = _param((d, E), device, dtype)
+        self.w_gate = _param((E, d, f), device, dtype)
+        self.w_up = _param((E, d, f), device, dtype)
+        self.w_down = _param((E, f, d), device, dtype)
 
 
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in _MIXERS:
-        raise NotImplementedError(f"block kind {kind!r} {NOT_PORTED}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(f"the MoE FFN of {cfg.name!r} "
-                                  f"{NOT_PORTED}")
-    if cfg.family == "ssm":
-        raise NotImplementedError(f"family {cfg.family!r} {NOT_PORTED}")
+def moe_route(gates, k: int):
+    """The top ``k`` of the (T, E) gates: (values, expert ids), each (T, k),
+    by a stable descending sort (``jax.lax.top_k`` breaks ties by the
+    lower index; ``torch.topk`` promises no order)."""
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return topv[:, :k], topi[:, :k]
+
+
+def moe_apply(cfg: ModelConfig, p: MoE, x):
+    """x (B, S, d) -> (y (B, S, d), aux float32): token-choice top-k
+    routing into (E, C, d) expert buffers of capacity
+    ``C = min(ceil(T k / E * cf), T)``; a token's choices past its
+    expert's capacity are dropped.  aux is the Switch load-balance loss.
+
+    Top-k is :func:`moe_route`.  A choice's position in its expert's
+    queue is the exclusive integer cumsum of the one-hots in token order,
+    exact on every device.  ``cfg.moe_impl``:
+    ``gather`` scatters token ids into the slots and gathers the tokens,
+    ``scatter`` adds every choice's token, times 0 or 1, into its slot.
+    Both give the same buffers (up to the sign of a zero), so the same
+    output bit for bit.
+    """
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    gates = torch.softmax((xt @ p.router).float(), dim=-1)        # (T, E)
+    topv, topi = moe_route(gates, k)                               # (T, k)
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+
+    C = min(int(math.ceil(T * k / E * cfg.capacity_factor)), T)
+    onehot = F.one_hot(topi.reshape(-1), E)                        # (T k, E)
+    pos_flat = torch.cumsum(onehot, dim=0) - onehot                # exclusive
+    pos = torch.gather(pos_flat, 1, topi.reshape(-1, 1)).reshape(T, k)
+    keep = pos < C
+    slot = (topi * C + torch.clamp_max(pos, C - 1)).reshape(-1)    # (T k,)
+
+    if cfg.moe_impl == "gather":
+        src = torch.full((E * C + 1,), T, dtype=torch.long, device=x.device)
+        write = torch.where(keep.reshape(-1), slot, E * C)  # dropped: spill
+        tok = torch.arange(T * k, device=x.device) // k
+        # scatter: unique targets — kept choices own distinct slots; the
+        # dropped ones meet only on the spill slot E*C, cut off below
+        src.index_put_((write,), tok)
+        xt_pad = torch.cat([xt, xt.new_zeros(1, d)])
+        buf = xt_pad[src[:E * C]]                                  # (E C, d)
+    else:
+        # each dropped choice lands on its expert's last slot (kept by an
+        # earlier token) with its token times 0: an exact zero, so the
+        # sum is exact whatever order index_add_ adds in on the card
+        contrib = keep.to(x.dtype)
+        buf = xt.new_zeros(E * C, d).index_add_(
+            0, slot, (xt[:, None, :] * contrib[:, :, None]).reshape(T * k, d))
+    expert_in = buf.reshape(E, C, d)
+    h = F.silu(torch.bmm(expert_in, p.w_gate)) \
+        * torch.bmm(expert_in, p.w_up)
+    expert_out = torch.bmm(h, p.w_down).reshape(E * C, d)
+    gathered = expert_out[slot].reshape(T, k, d)
+    y = torch.sum(gathered * (topv * keep).to(x.dtype)[..., None], dim=1)
+
+    me = gates.mean(dim=0)                                         # (E,)
+    ce = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    aux = E * torch.sum(me * ce)
+    return y.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU mixer (RecurrentGemma / Griffin)
+# ---------------------------------------------------------------------------
+
+
+class RGLRU(nn.Module):
+    """``w_x`` and ``w_gate`` (d, r), ``conv_w`` (cw, r), ``lam`` (r,),
+    ``w_inp`` and ``w_rec`` (r, r), ``w_out`` (r, d)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d, r, cw = cfg.d_model, cfg.r_dim, cfg.conv_width
+        self.w_x = _param((d, r), device, dtype)
+        self.w_gate = _param((d, r), device, dtype)
+        self.conv_w = _param((cw, r), device, dtype)
+        self.lam = _param((r,), device, dtype)
+        self.w_inp = _param((r, r), device, dtype)
+        self.w_rec = _param((r, r), device, dtype)
+        self.w_out = _param((r, d), device, dtype)
+
+
+_LRU_C = 8.0
+
+
+def _rglru_gates(p: RGLRU, xb):
+    """a_t and the gated input b_t of the recurrence, in xb's dtype."""
+    r_t = torch.sigmoid(xb @ p.w_rec)
+    i_t = torch.sigmoid(xb @ p.w_inp)
+    log_a = -_LRU_C * r_t * F.softplus(p.lam)                 # log a_t < 0
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    b = mult * (i_t * xb)
+    return a.to(xb.dtype), b.to(xb.dtype)
+
+
+def linear_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 over axis 1, by a
+    Hillis–Steele scan of the pairs (a, b) under (a1, b1) . (a2, b2) =
+    (a1 a2, a2 b1 + b2): log2(S) passes of whole-tensor ops.  The same
+    operator as the JAX package's ``associative_scan``, applied in
+    another order, so equal within rounding."""
+    S = a.shape[1]
+    step = 1
+    while step < S:
+        a_prev, b_prev = a[:, :-step], b[:, :-step]
+        b = torch.cat([b[:, :step], a[:, step:] * b_prev + b[:, step:]], 1)
+        a = torch.cat([a[:, :step], a[:, step:] * a_prev], 1)
+        step *= 2
+    return b
+
+
+def rglru_apply_seq(cfg: ModelConfig, kind: str, p: RGLRU, x, ctx: Ctx):
+    B, S, d = x.shape
+    cw = cfg.conv_width
+    xb = x @ p.w_x                                             # (B, S, r)
+    gate = gelu(x @ p.w_gate)
+    pad = F.pad(xb, (0, 0, cw - 1, 0))       # causal depthwise conv
+    conv = sum(pad[:, i:i + S] * p.conv_w[i] for i in range(cw))
+    a, b = _rglru_gates(p, conv)
+    h = linear_scan(a, b)
+    y = (h * gate) @ p.w_out
+    cache = None
+    if ctx.cache_len:
+        cache = {"h": h[:, -1].float(),
+                 "conv": pad[:, pad.shape[1] - (cw - 1):]}
+    return y, cache
+
+
+def rglru_apply_dec(cfg: ModelConfig, kind: str, p: RGLRU, x, cache,
+                    ctx: Ctx):
+    xb = x @ p.w_x                                             # (B, r)
+    gate = gelu(x @ p.w_gate)
+    hist = torch.cat([cache["conv"], xb[:, None]], dim=1)      # (B, cw, r)
+    conv = torch.einsum("bcr,cr->br", hist, p.conv_w)
+    a, b = _rglru_gates(p, conv)
+    h = a * cache["h"].to(a.dtype) + b
+    y = (h * gate) @ p.w_out
+    return y, {"h": h.float(), "conv": hist[:, 1:]}
+
+
+def rglru_init_cache(cfg: ModelConfig, B: int, cache_len: int, dtype,
+                     device):
+    return {"h": torch.zeros((B, cfg.r_dim), device=device),
+            "conv": torch.zeros((B, cfg.conv_width - 1, cfg.r_dim),
+                                dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM mixer (xLSTM): matrix memory
+# ---------------------------------------------------------------------------
+
+
+class MLSTM(nn.Module):
+    """``w_up`` (d, 2 di), ``wq``/``wk``/``wv`` (di, di), ``w_igate`` and
+    ``w_fgate`` (di, H), ``skip_gamma`` (di,), ``w_down`` (di, d)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d, di, H = cfg.d_model, cfg.mlstm_inner, cfg.n_heads
+        self.w_up = _param((d, 2 * di), device, dtype)
+        self.wq = _param((di, di), device, dtype)
+        self.wk = _param((di, di), device, dtype)
+        self.wv = _param((di, di), device, dtype)
+        self.w_igate = _param((di, H), device, dtype)
+        self.w_fgate = _param((di, H), device, dtype)
+        self.skip_gamma = _param((di,), device, dtype)
+        self.w_down = _param((di, d), device, dtype)
+
+
+def _mlstm_cell(q, k, v, igate, fgate, state):
+    """One step; q, k, v (B, H, hd), gate pre-activations (B, H), state
+    (C, n, m).  Stabilized exponential gating (xLSTM eqs. 19-27):
+    m_t = max(f + m, i), f' = exp(f + m - m_t), i' = exp(i - m_t),
+    C_t = f' C + i' v k^T, n_t = f' n + i' k, h = C_t q / max(|n_t q|, 1).
+    """
+    C, n, m = state
+    k = k / math.sqrt(q.shape[-1])
+    m_new = torch.maximum(fgate + m, igate)
+    fp = torch.exp(fgate + m - m_new)
+    ip = torch.exp(igate - m_new)
+    C_new = fp[..., None, None] * C + ip[..., None, None] * (
+        v[..., :, None] * k[..., None, :])
+    n_new = fp[..., None] * n + ip[..., None] * k
+    denom = torch.clamp_min(torch.abs(torch.einsum("bhd,bhd->bh", n_new, q)),
+                            1.0)
+    h = torch.einsum("bhde,bhe->bhd", C_new, q) / denom[..., None]
+    return h, (C_new, n_new, m_new)
+
+
+def _mlstm_state0(B, H, hd, device):
+    return (torch.zeros((B, H, hd, hd), device=device),
+            torch.zeros((B, H, hd), device=device),
+            torch.zeros((B, H), device=device))
+
+
+def _mlstm_parallel(q, k, v, ig, fg):
+    """The quadratic form of the mLSTM over a sequence, with the scan's
+    running-max stabilizer m_i = F_i + max(0, cummax_{j<=i}(i_j - F_j)),
+    F the cumulative log forget gate (the zero initial state is a virtual
+    j = -1 with i = 0, F = 0).  Returns (h (B, S, H, hd), the state after
+    the last step)."""
+    B, S, H, hd = q.shape
+    k = k / math.sqrt(hd)
+    Fc = torch.cumsum(fg, dim=1)                                # (B, S, H)
+    m = Fc + torch.clamp_min(torch.cummax(ig - Fc, dim=1).values, 0.0)
+    logD = Fc[:, :, None, :] - Fc[:, None, :, :] + ig[:, None, :, :] \
+        - m[:, :, None, :]                                      # (B, Si, Sj, H)
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    D = torch.where(causal[None, :, :, None], torch.exp(logD), 0.0)
+    del logD
+    scores = torch.einsum("bihd,bjhd->bijh", q, k) * D
+    del D
+    denom = torch.clamp_min(torch.abs(scores.sum(dim=2)), 1.0)  # (B, S, H)
+    h = torch.einsum("bijh,bjhd->bihd", scores, v) / denom[..., None]
+    wC = torch.exp(Fc[:, -1:, :] - Fc + ig - m[:, -1:, :])      # (B, S, H)
+    C = torch.einsum("bjh,bjhd,bjhe->bhde", wC, v, k)
+    n = torch.einsum("bjh,bjhd->bhd", wC, k)
+    return h, (C, n, m[:, -1])
+
+
+def _mlstm_inputs(cfg: ModelConfig, p: MLSTM, x, shape):
+    """(xb, z, q, k, v, igate, log forget gate), the last five float32."""
+    up = x @ p.w_up
+    xb, z = up.chunk(2, dim=-1)
+    q, k, v = ((xb @ w).reshape(shape).float() for w in (p.wq, p.wk, p.wv))
+    ig = (xb @ p.w_igate).float()
+    fg = F.logsigmoid((xb @ p.w_fgate).float())
+    return xb, z, q, k, v, ig, fg
+
+
+def mlstm_apply_seq(cfg: ModelConfig, kind: str, p: MLSTM, x, ctx: Ctx):
+    B, S, d = x.shape
+    di, H = cfg.mlstm_inner, cfg.n_heads
+    hd = di // H
+    xb, z, q, k, v, ig, fg = _mlstm_inputs(cfg, p, x, (B, S, H, hd))
+    if cfg.mlstm_impl == "parallel":
+        h, state = _mlstm_parallel(q, k, v, ig, fg)
+        h = h.reshape(B, S, di).to(x.dtype)
+    else:
+        state = _mlstm_state0(B, H, hd, x.device)
+        hs = []
+        for t in range(S):
+            ht, state = _mlstm_cell(q[:, t], k[:, t], v[:, t], ig[:, t],
+                                    fg[:, t], state)
+            hs.append(ht)
+        h = torch.stack(hs, dim=1).reshape(B, S, di).to(x.dtype)
+    h = rms_norm(h, p.skip_gamma) + xb                          # skip
+    y = (h * F.silu(z)) @ p.w_down
+    cache = None
+    if ctx.cache_len:
+        cache = {"C": state[0], "n": state[1], "m": state[2]}
+    return y, cache
+
+
+def mlstm_apply_dec(cfg: ModelConfig, kind: str, p: MLSTM, x, cache,
+                    ctx: Ctx):
+    B, d = x.shape
+    di, H = cfg.mlstm_inner, cfg.n_heads
+    xb, z, q, k, v, ig, fg = _mlstm_inputs(cfg, p, x, (B, H, di // H))
+    h, state = _mlstm_cell(q, k, v, ig, fg,
+                           (cache["C"], cache["n"], cache["m"]))
+    h = rms_norm(h.reshape(B, di).to(x.dtype), p.skip_gamma) + xb
+    y = (h * F.silu(z)) @ p.w_down
+    return y, {"C": state[0], "n": state[1], "m": state[2]}
+
+
+def mlstm_init_cache(cfg: ModelConfig, B: int, cache_len: int, dtype,
+                     device):
+    C, n, m = _mlstm_state0(B, cfg.n_heads, cfg.mlstm_inner // cfg.n_heads,
+                            device)
+    return {"C": C, "n": n, "m": m}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM mixer (xLSTM): scalar memory, head-block-diagonal recurrence
+# ---------------------------------------------------------------------------
+
+_GATES = ("z", "i", "f", "o")
+
+
+class SLSTM(nn.Module):
+    """``w_z``/``w_i``/``w_f``/``w_o`` (d, d), ``r_z``/``r_i``/``r_f``/
+    ``r_o`` (H, hd, hd), the GeGLU ``w_ff_gate`` and ``w_ff_up`` (d, f),
+    ``w_ff_down`` (f, d) and ``norm_ff`` (d,)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        hd, f = d // H, cfg.slstm_hidden
+        for g in _GATES:
+            setattr(self, f"w_{g}", _param((d, d), device, dtype))
+        for g in _GATES:
+            setattr(self, f"r_{g}", _param((H, hd, hd), device, dtype))
+        self.w_ff_gate = _param((d, f), device, dtype)
+        self.w_ff_up = _param((d, f), device, dtype)
+        self.w_ff_down = _param((f, d), device, dtype)
+        self.norm_ff = _param((d,), device, dtype)
+
+
+def _slstm_cell(p: SLSTM, xz, xi, xf, xo, state, H, hd):
+    """One step; x* (B, d) float32 gate pre-activations from the input,
+    state (c, n, h, m) float32."""
+    c, n, h, m = state
+    hh = h.reshape(h.shape[0], H, hd)
+
+    def rec(r):           # float32, as JAX promotes a bf16 weight here
+        return torch.einsum("bhd,hde->bhe", hh, r.float()).reshape(h.shape)
+    z = torch.tanh(xz + rec(p.r_z))
+    o = torch.sigmoid(xo + rec(p.r_o))
+    i_t = xi + rec(p.r_i)
+    f_t = F.logsigmoid(xf + rec(p.r_f))
+    m_new = torch.maximum(f_t + m, i_t)
+    ip = torch.exp(i_t - m_new)
+    fp = torch.exp(f_t + m - m_new)
+    c_new = fp * c + ip * z
+    n_new = fp * n + ip
+    h_new = o * c_new / torch.clamp_min(n_new, 1.0)
+    return h_new, (c_new, n_new, h_new, m_new)
+
+
+def _slstm_out(p: SLSTM, h):
+    return h + gelu_glu(rms_norm(h, p.norm_ff), p.w_ff_gate, p.w_ff_up,
+                        p.w_ff_down)
+
+
+def slstm_apply_seq(cfg: ModelConfig, kind: str, p: SLSTM, x, ctx: Ctx):
+    B, S, d = x.shape
+    H = cfg.n_heads
+    xz, xi, xf, xo = ((x @ getattr(p, f"w_{g}")).float() for g in _GATES)
+    state = tuple(torch.zeros((B, d), device=x.device) for _ in range(4))
+    hs = []
+    for t in range(S):                       # the JAX package's lax.scan
+        ht, state = _slstm_cell(p, xz[:, t], xi[:, t], xf[:, t], xo[:, t],
+                                state, H, d // H)
+        hs.append(ht)
+    y = _slstm_out(p, torch.stack(hs, dim=1).to(x.dtype))
+    cache = None
+    if ctx.cache_len:
+        cache = dict(zip(("c", "n", "h", "m"), state))
+    return y, cache
+
+
+def slstm_apply_dec(cfg: ModelConfig, kind: str, p: SLSTM, x, cache,
+                    ctx: Ctx):
+    d = x.shape[1]
+    H = cfg.n_heads
+    xz, xi, xf, xo = ((x @ getattr(p, f"w_{g}")).float() for g in _GATES)
+    h, state = _slstm_cell(p, xz, xi, xf, xo,
+                           tuple(cache[n] for n in ("c", "n", "h", "m")),
+                           H, d // H)
+    return _slstm_out(p, h.to(x.dtype)), dict(zip(("c", "n", "h", "m"),
+                                                   state))
+
+
+def slstm_init_cache(cfg: ModelConfig, B: int, cache_len: int, dtype,
+                     device):
+    return {name: torch.zeros((B, cfg.d_model), device=device)
+            for name in ("c", "n", "h", "m")}
+
+
+# ---------------------------------------------------------------------------
+# Block = norm -> mixer -> residual [-> norm -> ffn -> residual]
+# ---------------------------------------------------------------------------
+
+# kind -> (module, apply_seq, apply_dec, init_cache)
+_MIXER = {
+    "attn": (Attention, attn_apply_seq, attn_apply_dec, attn_init_cache),
+    "attn_local": (Attention, attn_apply_seq, attn_apply_dec,
+                   attn_init_cache),
+    "rglru": (RGLRU, rglru_apply_seq, rglru_apply_dec, rglru_init_cache),
+    "mlstm": (MLSTM, mlstm_apply_seq, mlstm_apply_dec, mlstm_init_cache),
+    "slstm": (SLSTM, slstm_apply_seq, slstm_apply_dec, slstm_init_cache),
+}
+
+
+def _mixer(kind: str) -> str:
+    return kind if kind in _MIXER else "attn"
+
+
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.family != "ssm"               # xLSTM blocks are self-contained
+
+
+def _ffn_is_moe(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.n_experts > 0 and kind.startswith("attn")
 
 
 class Block(nn.Module):
-    """One layer: ``norm1`` (d,), ``mixer`` (:class:`Attention`), ``norm2``
-    (d,), ``ffn`` (:class:`FFN`)."""
+    """One layer: ``norm1`` (d,), ``mixer`` (the kind's module) and, unless
+    the family is ``ssm``, ``norm2`` (d,) and ``ffn`` (:class:`FFN`, or
+    :class:`MoE` for an attention block of a config with experts)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device, dtype):
         super().__init__()
-        _check_kind(cfg, kind)
         self.cfg, self.kind = cfg, kind
         self.norm1 = _param((cfg.d_model,), device, dtype)
-        self.mixer = Attention(cfg, device, dtype)
-        self.norm2 = _param((cfg.d_model,), device, dtype)
-        self.ffn = FFN(cfg, device, dtype)
+        self.mixer = _MIXER[_mixer(kind)][0](cfg, device, dtype)
+        if _has_ffn(cfg, kind):
+            self.norm2 = _param((cfg.d_model,), device, dtype)
+            self.ffn = (MoE if _ffn_is_moe(cfg, kind) else FFN)(
+                cfg, device, dtype)
 
 
 def block_apply_seq(cfg: ModelConfig, kind: str, p: Block, x, ctx: Ctx):
-    """Returns (x, cache entry)."""
-    h, cache = attn_apply_seq(cfg, kind, p.mixer, rms_norm(x, p.norm1), ctx)
+    """Returns (x, cache entry, aux float32 0-d: the MoE router loss, 0
+    without experts)."""
+    h, cache = _MIXER[_mixer(kind)][1](cfg, kind, p.mixer,
+                                       rms_norm(x, p.norm1), ctx)
     x = x + h
-    x = x + ffn_apply(cfg, p.ffn, rms_norm(x, p.norm2))
-    return x, cache
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if _has_ffn(cfg, kind):
+        hin = rms_norm(x, p.norm2)
+        if _ffn_is_moe(cfg, kind):
+            h2, aux = moe_apply(cfg, p.ffn, hin)
+        else:
+            h2 = ffn_apply(cfg, p.ffn, hin)
+        x = x + h2
+    return x, cache, aux
 
 
 def block_apply_dec(cfg: ModelConfig, kind: str, p: Block, x, cache,
                     ctx: Ctx):
-    h, cache = attn_apply_dec(cfg, kind, p.mixer, rms_norm(x, p.norm1),
-                              cache, ctx)
+    h, cache = _MIXER[_mixer(kind)][2](cfg, kind, p.mixer,
+                                       rms_norm(x, p.norm1), cache, ctx)
     x = x + h
-    x = x + ffn_apply(cfg, p.ffn, rms_norm(x, p.norm2))
+    if _has_ffn(cfg, kind):
+        hin = rms_norm(x, p.norm2)
+        if _ffn_is_moe(cfg, kind):
+            h2 = moe_apply(cfg, p.ffn, hin[:, None, :])[0][:, 0]
+        else:
+            h2 = ffn_apply(cfg, p.ffn, hin)
+        x = x + h2
     return x, cache
+
+
+def block_init_cache(cfg: ModelConfig, kind: str, B: int, cache_len: int,
+                     dtype, device):
+    return _MIXER[_mixer(kind)][3](cfg, B, cache_len, dtype, device)

@@ -4,9 +4,10 @@
 ``ModelConfig`` is a copy of the JAX package's, field for field and default
 for default, with torch dtypes in place of ``jnp`` ones.  The layers are
 plain functions on tensors and compute what their JAX namesakes compute:
-``rms_norm`` and ``apply_rope`` in float32, cast back to the input's dtype,
-and the training loss ``cross_entropy``.  ``apply_mrope`` waits for the
-VLM family (ROADMAP queue 1 item 9).
+``rms_norm``, ``apply_rope`` and ``apply_mrope`` in float32, cast back to
+the input's dtype, and the training loss ``cross_entropy``.
+``init_leaf`` is the JAX package's initialisation rule (``_init_leaf``)
+drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -113,6 +114,40 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Parameter initialisation
+# ---------------------------------------------------------------------------
+
+#: leaves whose normal draw is scaled by a constant, not 1/sqrt(fan_in)
+#: (the ``scale=`` of the JAX package's ParamDefs; ``embed`` of every
+#: family, the MoE router and the mLSTM gates)
+INIT_SCALE = {"embed": 0.02, "router": 0.02, "w_igate": 0.02,
+              "w_fgate": 0.02}
+#: leaves of other init kinds: the RG-LRU's Lambda; every other 1-D leaf
+#: (the norms' gammas, ``skip_gamma``, ``norm_ff``) is zero
+LRU_LAMBDA = "lam"
+
+
+def init_leaf(name: str, shape, generator: torch.Generator, device,
+              stacked: int = 0):
+    """One float32 leaf by the JAX package's rule (``_init_leaf``), drawn
+    from ``generator`` on ``device``: ``name`` is the leaf's last key and
+    ``stacked`` the number of leading repetition dims (the rule reads the
+    shape without them).  ``lam`` (RG-LRU): ``log(u / (1 - u))`` with u
+    uniform in [0.9, 0.999], so that ``sigmoid(lam)`` is; other 1-D leaves
+    zero; ``normal * scale`` otherwise, scale from :data:`INIT_SCALE` or
+    ``1 / sqrt(fan_in)`` with fan_in the second-to-last dim.  The draws
+    differ from ``jax.random``'s."""
+    if name == LRU_LAMBDA:
+        u = torch.rand(shape, generator=generator, device=device) \
+            * (0.999 - 0.9) + 0.9
+        return torch.log(u / (1.0 - u))
+    if len(shape) - stacked == 1:
+        return torch.zeros(shape, device=device)
+    scale = INIT_SCALE.get(name, 1.0 / math.sqrt(max(shape[-2], 1)))
+    return torch.randn(shape, generator=generator, device=device).mul_(scale)
+
+
+# ---------------------------------------------------------------------------
 # Basic layers
 # ---------------------------------------------------------------------------
 
@@ -152,6 +187,30 @@ def apply_rope(x, positions, theta: float):
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
     ang = positions[..., None].float() * freqs                 # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
+    """Qwen2-VL multimodal RoPE, in float32.
+
+    x: (B, S, H, hd); positions3: (3, B, S), the temporal, height and
+    width position ids.  The hd/2 frequency slots are split into
+    ``sections`` (summing to hd/2), and each takes its angle from its own
+    plane's ids; text tokens carry the same id in all three planes, so for
+    them it is RoPE.
+    """
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
+    ang_all = positions3[..., None].float() * freqs            # (3, B, S, hd/2)
+    owner = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(sections, device=x.device))            # (hd/2,)
+    slot = torch.arange(hd // 2, device=x.device)
+    ang = ang_all[owner, ..., slot].movedim(0, -1)             # (B, S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

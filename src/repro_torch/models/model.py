@@ -1,5 +1,5 @@
-"""The decoder model (counterpart of ``repro.models.model``), dense
-family, for serving and for training.
+"""The decoder model (counterpart of ``repro.models.model``), every
+family of the JAX package, for serving and for training.
 
 Serving: ``Model`` is an ``nn.Module`` holding the embedding, one
 :class:`Block` per layer and the head, each weight laid out as in the JAX
@@ -20,13 +20,20 @@ nothing saveable does.  The module's own weights are not read there: a
 ``Model`` on the ``meta`` device holds none and trains as well.
 
 Logits are float32 (the head multiplies in float32, as the JAX package's
-``preferred_element_type`` asks).  Vision, audio and MoE models wait for
-ROADMAP queue 1 item 9.
+``preferred_element_type`` asks).  The families differ at the ends as in
+the JAX package: ``vlm`` prepends ``batch["patch_embeds"]`` (B, n_media,
+d) to the text tokens' embeddings, rotates q and k by M-RoPE at
+``batch["positions3"]`` (3, B, S) in sequence mode (RoPE at the cache's
+positions in decode) and drops the patches' logits; ``audio`` embeds
+(B, K, S) codebook tokens through (K, V, d) tables summed over the
+codebooks, prepends ``batch["cond_embeds"]`` and has a (K, d, V) head:
+logits (B, K, S, V), and ``decode_step`` takes (B, K) tokens.  MoE
+blocks add their router loss to ``aux``.
 """
 
 from __future__ import annotations
 
-import math
+import dataclasses
 from typing import Dict
 
 import torch
@@ -37,9 +44,9 @@ from repro_torch import resolve_device
 from repro_torch.tree import (tree_flatten, tree_map, tree_paths,
                               tree_unflatten)
 
-from .blocks import (NOT_PORTED, Block, Ctx, attn_init_cache,
-                     block_apply_dec, block_apply_seq)
-from .common import ModelConfig, cross_entropy, rms_norm
+from .blocks import (Block, Ctx, block_apply_dec, block_apply_seq,
+                     block_init_cache)
+from .common import ModelConfig, cross_entropy, init_leaf, rms_norm
 
 
 class _Params(dict):
@@ -66,6 +73,43 @@ def _nest(named):
     return out
 
 
+def _embed_tokens(cfg: ModelConfig, embed, tok, dtype):
+    """Embeddings of ``tok`` in ``dtype``: (B, ...) ids, or (B, K, ...) for
+    audio, whose K codebooks' embeddings are summed in the compute dtype in
+    codebook order.  Each row is gathered, then cast (the same values as
+    casting the whole table, as the JAX package does)."""
+    tok = torch.as_tensor(tok, device=embed.device).long()
+    if cfg.family == "audio":
+        return sum(embed[k][tok[:, k]].to(dtype)
+                   for k in range(cfg.n_codebooks))
+    return embed[tok].to(dtype)
+
+
+def _embed_batch(cfg: ModelConfig, embed, batch: Dict, dtype):
+    """The sequence input of ``batch`` in ``dtype``: (x (B, S, d), the
+    M-RoPE ids (3, B, S) or None, the number of prefix positions whose
+    logits are dropped)."""
+    dev = embed.device
+    x = _embed_tokens(cfg, embed, batch["tokens"], dtype)
+    if cfg.family == "audio":
+        cond = torch.as_tensor(batch["cond_embeds"], device=dev).to(dtype)
+        return torch.cat([cond, x], dim=1), None, cfg.n_cond_tokens
+    if cfg.family == "vlm":
+        patches = torch.as_tensor(batch["patch_embeds"], device=dev).to(dtype)
+        return (torch.cat([patches, x], dim=1),
+                torch.as_tensor(batch["positions3"], device=dev),
+                cfg.n_media_tokens)
+    return x, None, 0
+
+
+def _head(cfg: ModelConfig, x, unembed):
+    """Float32 logits of x (B, S, d): (B, S, V), or (B, K, S, V) for
+    audio."""
+    if cfg.family == "audio":
+        return torch.einsum("bsd,kdv->bksv", x.float(), unembed.float())
+    return x.float() @ unembed.float()
+
+
 class Model(nn.Module):
     """A decoder of ``cfg`` on ``device`` (CUDA when None) in ``dtype``.
 
@@ -78,8 +122,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None,
                  backend=None):
         super().__init__()
-        if cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(f"family {cfg.family!r} {NOT_PORTED}")
         device = resolve_device(device)
         dtype = dtype or cfg.compute_dtype
         self.cfg, self.backend = cfg, backend
@@ -90,8 +132,9 @@ class Model(nn.Module):
                                             dtype=dtype),
                                 requires_grad=False)
 
-        self.embed = param(V, dm)
-        self.unembed = param(dm, V)
+        K = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+        self.embed = param(*K, V, dm)
+        self.unembed = param(*K, dm, V)
         self.final_norm = param(dm)
         self.layers = nn.ModuleList(Block(cfg, kind, device, dtype)
                                     for kind in cfg.layer_kinds)
@@ -102,43 +145,39 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
-        """Draw every weight from ``generator`` (on the model's device):
-        ``normal * scale`` in float32, cast to the model's dtype, where
-        scale is 0.02 for the embedding and ``1 / sqrt(fan_in)`` (the
-        matrix's first dim) otherwise; the norms' (1-D) weights are zeros.
-        The JAX package's rule (``_init_leaf``); its draws differ."""
+        """Draw every weight from ``generator`` (on the model's device) in
+        float32 by the JAX package's rule (``common.init_leaf``: ``normal
+        * scale``, scale 0.02 for the embedding, the router and the mLSTM
+        gates and ``1 / sqrt(fan_in)`` otherwise; 1-D weights zero but
+        the RG-LRU's ``lam``), cast to the model's dtype; the draws
+        differ from JAX's."""
         for name, p in self.named_parameters():
-            if p.dim() == 1:
-                p.zero_()
-                continue
-            scale = 0.02 if name == "embed" \
-                else 1.0 / math.sqrt(max(p.shape[-2], 1))
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=p.device).mul_(scale))
+            p.copy_(init_leaf(name.rsplit(".", 1)[-1], p.shape, generator,
+                              p.device))
         return self
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
-    def _head(self, x):
-        return x.float() @ self.unembed.float()
-
-    def _embed(self, tokens):
-        return self.embed[tokens.to(self.device).long()]
+    def _ctx(self, x, positions3, **kw) -> Ctx:
+        Btot, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None].expand(Btot, S)
+        return Ctx(positions=positions, positions3=positions3,
+                   backend=self.backend, **kw)
 
     # -- sequence forward ----------------------------------------------------
 
     @torch.no_grad()
     def forward(self, batch: Dict, *, window="auto"):
-        """``batch["tokens"]`` (B, S) -> logits (B, S, V) float32."""
-        x = self._embed(batch["tokens"])
-        Btot, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(Btot, S)
-        ctx = Ctx(positions=positions, window=window, cache_len=0,
-                  backend=self.backend)
+        """``batch["tokens"]`` (B, S) (with the family's extra inputs) ->
+        logits (B, S, V) float32 ((B, K, S, V) for audio)."""
+        x, p3, n_prefix = _embed_batch(self.cfg, self.embed, batch,
+                                       self.embed.dtype)
+        ctx = self._ctx(x, p3, window=window, cache_len=0)
         for layer in self.layers:
-            x, _ = block_apply_seq(self.cfg, layer.kind, layer, x, ctx)
-        return self._head(rms_norm(x, self.final_norm))
+            x, _, _ = block_apply_seq(self.cfg, layer.kind, layer, x, ctx)
+        x = rms_norm(x, self.final_norm)
+        return _head(self.cfg, x[:, n_prefix:], self.unembed)
 
     # -- training: a forward over an explicit parameter tree ------------------
 
@@ -148,6 +187,7 @@ class Model(nn.Module):
         stacked over their group's repetitions."""
         cfg = self.cfg
         dm, V = cfg.d_model, cfg.vocab_size
+        K = (cfg.n_codebooks,) if cfg.family == "audio" else ()
 
         def leaf(*shape):
             return torch.empty(shape, dtype=cfg.param_dtype, device="meta")
@@ -158,67 +198,56 @@ class Model(nn.Module):
                 (name, leaf(reps, *p.shape)) for name, p in
                 Block(cfg, kind, "meta", cfg.param_dtype).named_parameters())
                 for i, kind in enumerate(unit)})
-        return {"embed": leaf(V, dm), "unembed": leaf(dm, V),
+        return {"embed": leaf(*K, V, dm), "unembed": leaf(*K, dm, V),
                 "final_norm": leaf(dm), "groups": groups}
 
     def init_params(self, generator: torch.Generator, device=None) -> Dict:
         """Master weights in ``cfg.param_dtype`` on ``device`` (CUDA when
-        None), drawn from ``generator`` leaf by leaf in the tree's order:
-        the JAX package's rule (``_init_leaf``) — norms (1-D before
-        stacking) zero, the embedding ``0.02 * normal``, every other
-        matrix ``normal / sqrt(fan_in)`` with fan_in its second-to-last
-        dim; its draws differ."""
+        None), drawn from ``generator`` leaf by leaf in the tree's order
+        by the JAX package's rule (``common.init_leaf``, reading a stacked
+        leaf's shape without its repetition dim); its draws differ."""
         device = resolve_device(device)
         abstract = self.abstract_params()
         _, treedef = tree_flatten(abstract)
-        leaves = []
-        for name, a in tree_paths(abstract):
-            if a.dim() - name.startswith("groups/") == 1:
-                leaf = torch.zeros(a.shape, device=device)
-            else:
-                scale = 0.02 if name == "embed" \
-                    else 1.0 / math.sqrt(max(a.shape[-2], 1))
-                leaf = torch.randn(a.shape, generator=generator,
-                                   device=device).mul_(scale)
-            leaves.append(leaf.to(a.dtype))
+        leaves = [init_leaf(name.rsplit("/", 1)[-1], a.shape, generator,
+                            device, stacked=int(name.startswith("groups/")))
+                  .to(a.dtype) for name, a in tree_paths(abstract)]
         return tree_unflatten(treedef, leaves)
 
     def apply(self, params: Dict, batch: Dict, *, window="auto"):
-        """``batch["tokens"]`` (B, S) -> (logits (B, S, V) float32, aux),
+        """``batch`` as :meth:`forward` takes it -> (float32 logits, aux),
         differentiable in ``params`` (a tree like :meth:`abstract_params`);
-        aux is the MoE router loss, 0 for the dense family."""
+        aux is the MoE router loss summed over the layers (0 without
+        experts).  While autograd records, ``attn_impl="flash"`` runs
+        ``chunked_attention`` (the kernel has no backward), as the JAX
+        package runs it off the TPU."""
         cfg = self.cfg
-        if cfg.attn_impl == "flash":
-            raise NotImplementedError(
-                "attn_impl='flash' cannot train: the flash_attention kernel "
-                "has no backward (neither has the JAX package's); train "
-                "with attn_impl='chunked' or 'ref'")
+        if cfg.attn_impl == "flash" and torch.is_grad_enabled():
+            cfg = dataclasses.replace(cfg, attn_impl="chunked")
         cdt = cfg.compute_dtype
-        embed = params["embed"]
-        # gather, then cast: the same values as casting the whole table
-        x = embed[batch["tokens"].to(embed.device).long()].to(cdt)
-        Btot, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(Btot, S)
-        ctx = Ctx(positions=positions, window=window, cache_len=0,
-                  backend=self.backend)
+        x, p3, n_prefix = _embed_batch(cfg, params["embed"], batch, cdt)
+        ctx = self._ctx(x, p3, window=window, cache_len=0)
 
         def cast(a):
             return a.to(cdt) if a.dtype == cfg.param_dtype else a
 
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for (unit, reps), gp in zip(cfg.scan_groups(), params["groups"]):
             for r in range(reps):
                 def unit_apply(x, r=r, unit=unit, gp=gp):
                     pr = tree_map(lambda a: cast(a[r]), gp)
+                    a_sum = torch.zeros((), dtype=torch.float32,
+                                        device=x.device)
                     for i, kind in enumerate(unit):
-                        x, _ = block_apply_seq(cfg, kind,
-                                               _as_block(pr[f"b{i}"]), x,
-                                               ctx)
-                    return x
-                x = checkpoint(unit_apply, x, use_reentrant=False) \
+                        x, _, a = block_apply_seq(
+                            cfg, kind, _as_block(pr[f"b{i}"]), x, ctx)
+                        a_sum = a_sum + a
+                    return x, a_sum
+                x, a = checkpoint(unit_apply, x, use_reentrant=False) \
                     if cfg.remat else unit_apply(x)
+                aux = aux + a
         x = rms_norm(x, params["final_norm"])
-        logits = x.float() @ cast(params["unembed"]).float()
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return _head(cfg, x[:, n_prefix:], cast(params["unembed"])), aux
 
     def loss(self, params: Dict, batch: Dict, *, window="auto"):
         """The training objective: (ce + router_aux_weight * aux,
@@ -230,31 +259,35 @@ class Model(nn.Module):
     # -- serving -------------------------------------------------------------
 
     def init_cache(self, Btot: int, cache_len: int, dtype=None) -> Dict:
-        """Zero kv caches (one ``{"k", "v"}`` of (B, cache_len, K, hd) per
-        layer) and positions (B,) int32."""
+        """Zero caches, one entry per layer by its kind (attention
+        ``{"k", "v"}`` of (B, cache_len, K, hd); RG-LRU ``{"h", "conv"}``;
+        mLSTM ``{"C", "n", "m"}``; sLSTM ``{"c", "n", "h", "m"}``; the
+        recurrent states in float32), and positions (B,) int32."""
         dtype = dtype or self.embed.dtype
-        return {"layers": [attn_init_cache(self.cfg, Btot, cache_len, dtype,
-                                           self.device)
-                           for _ in self.layers],
+        return {"layers": [block_init_cache(self.cfg, layer.kind, Btot,
+                                            cache_len, dtype, self.device)
+                           for layer in self.layers],
                 "pos": torch.zeros(Btot, dtype=torch.int32,
                                    device=self.device)}
 
     @torch.no_grad()
     def prefill(self, batch: Dict, cache_len: int, *, window="auto"):
-        """Run the prompts ``batch["tokens"]`` (B, S) and build their
-        caches: returns (logits of the last position (B, 1, V), cache).
-        A cache shorter than the prompt is a ring holding its last
-        ``cache_len`` tokens."""
-        x = self._embed(batch["tokens"])
+        """Run the prompts ``batch["tokens"]`` (B, S) (with the family's
+        extra inputs) and build their caches: returns (logits of the last
+        position (B, 1, V), or (B, K, 1, V) for audio, cache).  A cache
+        shorter than the sequence is a ring holding its last
+        ``cache_len`` positions."""
+        x, p3, _ = _embed_batch(self.cfg, self.embed, batch,
+                                self.embed.dtype)
         Btot, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(Btot, S)
-        ctx = Ctx(positions=positions, window=window, cache_len=cache_len,
-                  ring=cache_len < S, backend=self.backend)
+        ctx = self._ctx(x, p3, window=window, cache_len=cache_len,
+                        ring=cache_len < S)
         caches = []
         for layer in self.layers:
-            x, c = block_apply_seq(self.cfg, layer.kind, layer, x, ctx)
+            x, c, _ = block_apply_seq(self.cfg, layer.kind, layer, x, ctx)
             caches.append(c)
-        logits = self._head(rms_norm(x[:, -1:], self.final_norm))
+        logits = _head(self.cfg, rms_norm(x[:, -1:], self.final_norm),
+                       self.unembed)
         return logits, {"layers": caches,
                         "pos": torch.full((Btot,), S, dtype=torch.int32,
                                           device=x.device)}
@@ -262,18 +295,21 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache: Dict, batch: Dict, *, window="auto",
                     ring: bool = False, lockstep: bool = False):
-        """One token per request: ``batch["token"]`` (B,) at positions
-        ``cache["pos"]`` -> (logits (B, V) float32, cache).  The kv tensors
-        of ``cache`` are written in place; the returned cache holds them
-        and ``pos + 1``.  ``lockstep=True``: every request is at
+        """One token per request: ``batch["token"]`` (B,), or (B, K) for
+        audio, at positions ``cache["pos"]`` -> (logits (B, V) float32, or
+        (B, K, V), cache).  The kv tensors of ``cache`` are written in
+        place; the returned cache holds them, the recurrent states' new
+        tensors and ``pos + 1``.  ``lockstep=True``: every request is at
         ``cache["pos"][0]``."""
-        x = self._embed(batch["token"])
+        cfg = self.cfg
+        x = _embed_tokens(cfg, self.embed, batch["token"], self.embed.dtype)
         pos = cache["pos"]
         ctx = Ctx(positions=pos[0] if lockstep else pos, window=window,
                   ring=ring, backend=self.backend)
         new = []
         for layer, c in zip(self.layers, cache["layers"]):
-            x, c = block_apply_dec(self.cfg, layer.kind, layer, x, c, ctx)
+            x, c = block_apply_dec(cfg, layer.kind, layer, x, c, ctx)
             new.append(c)
-        logits = self._head(rms_norm(x, self.final_norm))
+        logits = _head(cfg, rms_norm(x, self.final_norm)[:, None],
+                       self.unembed)[..., 0, :]
         return logits, {"layers": new, "pos": pos + 1}

@@ -3,13 +3,16 @@
 Slot-based continuous batching over a fixed decode batch B:
 
   * requests (prompts) queue up; a free slot is filled by prefilling its
-    prompt and splicing the prompt's kv cache into slot b of the live
-    batch cache;
+    prompt and splicing the prompt's cache (kv, or the recurrent state of
+    RG-LRU, mLSTM and sLSTM layers) into slot b of the live batch cache;
   * one ``decode_step`` advances ALL slots a token per tick;
   * finished slots (EOS or ``max_new_tokens``) are harvested and recycled.
 
 Prefill takes the model's attention route (the ``flash`` route runs the
 CUDA ``flash_attention`` kernel on the card); decode is plain torch.
+Prefill reads the prompt's tokens alone, as the JAX package's engine
+does, so a family that needs more (a VLM's patch embeddings, audio's
+conditioning) is served by ``Model.prefill`` and ``decode_step``.
 
 :class:`CollabServeEngine` is the gossip-backed personalization service:
 batched reads of users' personalized models from an agent-state store
@@ -86,7 +89,12 @@ class Engine:
         self._pending: List[Tuple[int, np.ndarray]] = []
         self.exhausted = False
         # token fed to idle slots (content irrelevant — output discarded)
-        self._last_tok = np.zeros(B, np.int32)
+        self._last_tok = np.zeros(self._tok_shape(B), np.int32)
+
+    def _tok_shape(self, B):
+        if self.model.cfg.family == "audio":
+            return (B, self.model.cfg.n_codebooks)
+        return (B,)
 
     # -- public API ----------------------------------------------------------
 
@@ -132,10 +140,11 @@ class Engine:
             rid, prompt = self._pending.pop(0)
             tokens = torch.as_tensor(prompt[None], device=dev)
             logits, pcache = self._prefill_one(tokens)
-            # splice this request's cache into slot b of the live batch
+            # splice this request's cache into slot b of the live batch:
+            # every leaf of every layer's entry
             for live, new in zip(self.cache["layers"], pcache["layers"]):
-                live["k"][b] = new["k"][0]
-                live["v"][b] = new["v"][0]
+                for name, leaf in live.items():
+                    leaf[b] = new[name][0]
             self.cache["pos"][b] = pcache["pos"][0]
             first = int(sample_token(logits[:, 0], self._gen,
                                      self.cfg.temperature)[0])

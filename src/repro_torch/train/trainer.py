@@ -84,14 +84,18 @@ def init_train_state(model, tcfg: TrainConfig, generator: torch.Generator,
 
 
 def _split_batch(batch: Dict, A: int, device) -> Dict:
-    """(B, ...) leaves -> (A, B/A, ...); others broadcast over agents."""
+    """(B, ...) leaves -> (A, B/A, ...); others broadcast over agents.
+    ``positions3`` (3, B, S) has its batch on axis 1: -> (A, 3, B/A, S)."""
+    def split(v):
+        if v.dim() >= 1 and v.shape[0] % A == 0 and v.shape[0] >= A:
+            return v.reshape((A, v.shape[0] // A) + tuple(v.shape[1:]))
+        return v[None].expand((A,) + tuple(v.shape))
+
     out = {}
     for k, v in batch.items():
         v = torch.as_tensor(v, device=device)
-        if v.dim() >= 1 and v.shape[0] % A == 0 and v.shape[0] >= A:
-            out[k] = v.reshape((A, v.shape[0] // A) + tuple(v.shape[1:]))
-        else:
-            out[k] = v[None].expand((A,) + tuple(v.shape))
+        out[k] = split(v.movedim(0, 1)).movedim(2, 1) \
+            if k == "positions3" else split(v)
     return out
 
 

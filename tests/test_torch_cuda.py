@@ -6,9 +6,11 @@ order; ``round_step`` bit for bit in its fixed and generic kernels, over
 reallocates; ``cl_edge_step`` and ``admm_edge_update`` bit for bit, repeated
 targets included, and ``cl_edge_step`` on rounds built for each case of
 its edge election, with its election words zero after every call;
-``flash_attention`` 1e-2 abs and rel in bf16, 1e-5 in float32), a small
-model's prefill through the ``flash_attention`` kernel against the
-reference attention, and the paths without kernels of their own:
+``flash_attention`` 1e-2 abs and rel in bf16, 1e-5 in float32, head dims
+64, 128 and 256), a small model's prefill through the ``flash_attention``
+kernel against the reference attention, each model family's REDUCED
+config on the card against the CPU, and the paths without kernels of
+their own:
 ``edge_reweight`` on the card against the CPU, sparse against dense async
 gossip and joint learning at rate 0 against per-op MP bit for bit, and
 the inexact primal with MLP agents (p = 33) through ``cl_edge_step``
@@ -375,10 +377,19 @@ def randn(dev, shape, dtype, g):
     (torch.bfloat16, 1, 384, 8, 1, 128, 63),
     (torch.float32, 1, 128, 4, 1, 64, None),
     (torch.float32, 2, 256, 6, 3, 128, 64),
-    (torch.float32, 1, 320, 2, 2, 64, 1000)])   # window beyond S
+    (torch.float32, 1, 320, 2, 2, 64, 1000),    # window beyond S
+    # head dim 256 (RecurrentGemma: MQA, 64-key tiles in bf16)
+    (torch.bfloat16, 1, 512, 10, 1, 256, 128),
+    (torch.bfloat16, 1, 256, 4, 2, 256, None),
+    (torch.bfloat16, 2, 192, 2, 1, 256, 100),   # half-full query tile
+    (torch.bfloat16, 1, 64, 2, 2, 256, None),
+    (torch.bfloat16, 1, 384, 4, 1, 256, 1),     # only the diagonal key
+    (torch.float32, 1, 256, 4, 1, 256, None),
+    (torch.float32, 1, 320, 4, 2, 256, 64)])
 def test_flash_attention_kernel(cuda, dtype, B, S, H, K, hd, window):
     """bf16 (wgmma): the kernel rounds the softmax weights to bf16 once
-    per 128-key tile before P @ V, as the JAX oracle does; the plain
+    per kv tile (128 keys, 64 at hd 256) before P @ V, as the JAX oracle
+    does; the plain
     version keeps them in float32.  That moves the output by about one
     bf16 ulp (tests/test_torch_tc_numerics.py), inside the bar of 1e-2
     abs and rel.  float32 (FFMA): only the summation order differs, 1e-5."""
@@ -399,7 +410,9 @@ def test_flash_attention_kernel(cuda, dtype, B, S, H, K, hd, window):
 
 @pytest.mark.parametrize("dtype,hd,window", [(torch.bfloat16, 128, None),
                                               (torch.bfloat16, 64, 63),
-                                              (torch.float32, 64, None)])
+                                              (torch.bfloat16, 256, 100),
+                                              (torch.float32, 64, None),
+                                              (torch.float32, 256, None)])
 def test_flash_attention_kernel_replay_is_bit_identical(cuda, dtype, hd,
                                                         window):
     g = torch.Generator(device=cuda).manual_seed(hd)
@@ -408,6 +421,14 @@ def test_flash_attention_kernel_replay_is_bit_identical(cuda, dtype, hd,
     v = randn(cuda, (2, 320, 2, hd), dtype, g)
     assert torch.equal(fa.flash_attention(q, k, v, window=window),
                        fa.flash_attention(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_hd256_does_not_spill(cuda, dtype):
+    """The 64 x 256 float32 O accumulator (128 registers a thread in
+    bf16) fits the register file: no local memory."""
+    res = fa.flash_attention_resources(256, dtype)
+    assert res["local_bytes"] == 0 and 0 < res["registers"] <= 255, res
 
 
 def test_flash_attention_kernel_rejects_out_of_contract(cuda):
@@ -448,6 +469,73 @@ def test_model_prefill_through_the_kernel(cuda):
     assert torch.allclose(got, want, atol=1e-4, rtol=1e-4)
     assert torch.allclose(cache["layers"][1]["k"],
                           cache_ref["layers"][1]["k"], atol=1e-4)
+
+
+FAMILIES = ["olmoe-1b-7b", "phi3.5-moe", "recurrentgemma-2b", "xlstm-1.3b",
+            "qwen2-vl-7b", "musicgen-medium"]
+
+
+def family_inputs(cfg, S=16, B=2):
+    """Text tokens; or a VLM's patches and M-RoPE ids; or audio's
+    conditioning and codes: S positions in all, from a seed."""
+    rng = np.random.default_rng(3)
+    V, d = cfg.vocab_size, cfg.d_model
+    if cfg.family == "audio":
+        n = cfg.n_cond_tokens
+        return {"tokens": rng.integers(0, V, (B, cfg.n_codebooks, S - n)),
+                "cond_embeds": rng.standard_normal((B, n, d))
+                .astype(np.float32)}
+    if cfg.family == "vlm":
+        n = cfg.n_media_tokens
+        p3 = np.broadcast_to(np.arange(S), (3, B, S)).copy()
+        p3[1:, :, :n] = np.arange(n) % 4
+        return {"tokens": rng.integers(0, V, (B, S - n)),
+                "patch_embeds": rng.standard_normal((B, n, d))
+                .astype(np.float32), "positions3": p3}
+    return {"tokens": rng.integers(0, V, (B, S))}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_on_the_card_matches_the_cpu(cuda, arch):
+    """Each family's REDUCED config in float32, the same weights on the
+    card and on the CPU: forward, a ring prefill and three ring decode
+    steps within 1e-4 (float32 sums in another order); the MoE forms'
+    logits on the card bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(arch, "reduced"),
+                              compute_dtype=torch.float32)
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    batch = family_inputs(cfg)
+
+    def on_dev(b, dev):
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    def near(got, want):
+        assert torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4), \
+            (got.cpu() - want).abs().max().item()
+    near(card.forward(on_dev(batch, cuda)), cpu.forward(on_dev(batch,
+                                                               "cpu")))
+    lg, cg = card.prefill(on_dev(batch, cuda), cache_len=12)
+    lc, cc = cpu.prefill(on_dev(batch, "cpu"), cache_len=12)
+    near(lg, lc)
+    rng = np.random.default_rng(4)
+    shape = (2, cfg.n_codebooks) if cfg.family == "audio" else (2,)
+    for _ in range(3):
+        tok = rng.integers(0, cfg.vocab_size, shape)
+        lg, cg = card.decode_step(cg, {"token": torch.as_tensor(
+            tok, device=cuda)}, ring=True)
+        lc, cc = cpu.decode_step(cc, {"token": torch.as_tensor(tok)},
+                                 ring=True)
+        near(lg, lc)
+    if cfg.n_experts:
+        scatter = card.forward(on_dev(batch, cuda))
+        card.cfg = dataclasses.replace(cfg, moe_impl="gather")
+        assert torch.equal(card.forward(on_dev(batch, cuda)), scatter)
 
 
 # ---------------------------------------------------------------------------

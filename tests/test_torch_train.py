@@ -183,11 +183,20 @@ def test_param_tree_layout_and_init_rule():
 
 
 def test_flash_attention_route_does_not_train():
-    _, tm = models(attn_impl="flash")
+    """The kernel has no backward, so while autograd records the flash
+    route trains through ``chunked_attention`` (as the JAX package does
+    off the TPU): the same loss as ``attn_impl="chunked"``, and a
+    gradient."""
+    _, tm = models(attn_impl="flash", attn_chunk=4)
+    _, tc = models(attn_impl="chunked", attn_chunk=4)
     params = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
-    tok = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tm.loss(params, {"tokens": tok, "labels": tok})
+    tok = torch.as_tensor(np.random.default_rng(0).integers(0, 8, (1, 8)))
+    leaves = [a.requires_grad_() for a in tree_leaves(params)]
+    loss, _ = tm.loss(params, {"tokens": tok, "labels": tok})
+    assert torch.equal(loss, tc.loss(params, {"tokens": tok,
+                                              "labels": tok})[0])
+    grads = torch.autograd.grad(loss, leaves)
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 # ---------------------------------------------------------------------------
