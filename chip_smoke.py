@@ -206,8 +206,41 @@ prefill and decode tokens/s, wall seconds and peak memory:
     of 64 random conditioning embeddings and 960 delay-patterned codes,
     then 16 ``decode_step``s of (B, 4) tokens.
 
+Then the partitioned simulator (DESIGN.md §11-§13) on ``SHARDS`` = 8
+shards of the card (a ``LocalMesh``: the shards stacked along a leading
+axis, collectives as tensor ops), before the LM phases:
+
+9a. the greedy partition of 4a's topology (host seconds, edge cut, halo
+    and boundary sizes, halo bytes a round per codec); then
+    ``run_scenario(ScenarioSpec(algo="mp", sharded=True, ...))`` on 4a's
+    problem and stream with the f32 codec under all_gather and ring: no
+    overflow, within 1e-5 of the single-device fused run and of the
+    per-op one (printed: whether equal to it bit for bit), the counters
+    and activity equal; events/s beside the single-device per-op and
+    fused runs timed in the same phase; the bf16 and int8 codecs once
+    each, their max abs err against f32 above 0 and within ``CODEC_REL``
+    times the largest |theta|;
+9b. sharded CL-ADMM on 4d's problem: no overflow and theta_hist equal to
+    4d's single-device kernel run bit for bit;
+9c. sharded joint learning with 4g's knobs and halo re-compaction
+    (``RECOMPACT``): theta_hist, the learned weights, the live mask, the
+    live-edge history and the suppressed count equal to the single-device
+    joint run; re-compactions and the halo size before and after;
+9d. ``sparse_sync_mp`` with ``sparse_mix="cuda_sharded"``: one
+    ``sparse_gather_mix`` launch a block a sweep (SWEEPS x SHARDS), each
+    with its block's share of the RCM order, bit for bit with
+    ``reference_sharded`` and with the single-device kernel sweep; one
+    block's kernel time beside phase 3's whole-table time and the block's
+    byte bound;
+9e. a ``DistMesh`` over an NCCL process group of world size 1 (loopback
+    address, torn down after): the cuda_sharded sweep and a short
+    partitioned MP run bit for bit with a ``LocalMesh`` of one shard (one
+    card hosts one NCCL rank; multi-rank runs are checked on the CPU under
+    gloo).
+
 Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all six
-kernels, with their launches on their paths; ``graph_mix`` counts its
+kernels, with their launches on their paths; ``sparse_gather_mix``
+counts 4b's, 9d's (one a block) and 9e's; ``graph_mix`` counts its
 three paths and carries its trial-axis readings under ``trial_axis``;
 its agent-axis form has its own entry with the launches of 7b and 7c's
 mp run; ``flash_attention``'s launches (6b's and 8a-8f's) are split by
@@ -245,6 +278,11 @@ PROFILE_ROUNDS = 50
 N_DENSE, K_DENSE, D_DENSE, STEPS = 2048, 8, 4096, 100
 # 4c': the same problem at the sweeps' largest alpha, read at these steps
 DRIFT_ALPHA, DRIFT_MARKS = 0.99, (100, 300, 1000, 3000)
+# 9a: a lossy halo codec's run against the f32 one is held above 0 (the
+# codec was applied) and within its one-trip relative error times the
+# largest |theta| (bf16 keeps 8 significant bits; int8 scales each row by
+# its largest value / 127), which a wrong scale or a skipped halo fails
+CODEC_REL = {"bf16": 2.0 ** -8, "int8": 2.0 ** -6}
 SLEEP_CYCLES = 50_000_000   # device-side sleep that timed calls queue behind
 ALPHA, SEED = 0.9, 0
 MU, RHO = 0.1, 1.0          # CL-ADMM (the JAX benchmark's CL configuration)
@@ -265,6 +303,13 @@ SWEEP_N, SWEEP_SEEDS, SWEEP_ALPHAS, SWEEP_STEPS = 300, 100, (0.5, 0.9, 0.99), \
     300
 JOINT_SWEEP_SEEDS, JOINT_SWEEP_ETAS, JOINT_SWEEP_EVERY = 10, (0.0, 0.3), 10
 ADMM_SWEEP_SEEDS, ADMM_SWEEP_MUS, ADMM_SWEEP_ITERS = 5, (0.05, 0.2), 50
+# 9a-9e: the partitioned simulator on SHARDS shards of one card (a
+# LocalMesh); 9c re-compacts the halo (checked every 50 rounds, once 1 % of
+# the live cross edges are pruned); 9e runs a DistMesh over NCCL at world
+# size 1
+SHARDS = 8
+RECOMPACT = dict(recompact_every=50, recompact_frac=0.01)
+DIST_SWEEPS, DIST_ROUNDS = 10, 20
 
 # LM serving: Llama-3-8B at full width and depth
 LM_ARCH = "llama3-8b"
@@ -1950,6 +1995,297 @@ def check_inexact(torch, np, dispatch, dev, spec_cl, exact, exact_rate):
     return None
 
 
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_sharded_mp(torch, dispatch, dev, spec, smi):
+    """9a. The partitioned MP runner on a LocalMesh of ``SHARDS`` shards of
+    the card, on 4a's problem: the greedy partition (host seconds, edge
+    cut, halo and boundary sizes), then the f32 codec under all_gather and
+    ring — no overflow, within 1e-5 of the single-device fused run, and
+    (printed) whether equal to the per-op one, the counters and activity
+    equal — then the bf16 and int8 codecs once each against f32, within
+    ``CODEC_REL`` of the largest value and not equal to it.  Returns
+    ``(record, assignment, failure message or None)``."""
+    from repro_torch.launch import LocalMesh, resolve_halo_codec
+    from repro_torch.launch import halo_payload_bytes
+    from repro_torch.simulate import ScenarioSpec, run_scenario
+    from repro_torch.simulate.partition import (GraphPartition,
+                                                greedy_partition)
+
+    topo = spec["topology"]
+    t0 = time.perf_counter()
+    assignment = greedy_partition(topo, SHARDS, seed=SEED)
+    part_s = time.perf_counter() - t0
+    part = GraphPartition.build(topo, assignment, SHARDS)
+    row_bytes = {name: resolve_halo_codec(name).row_nbytes((P,))
+                 for name in ("f32", "bf16", "int8")}
+    wire = {name: halo_payload_bytes(SHARDS, part.boundary_size, b,
+                                     part.halo_size)
+            for name, b in row_bytes.items()}
+    log(f"[9a] greedy partition of n={topo.n} into {SHARDS} shards in "
+        f"{part_s:.2f} s on the host: edge cut {part.edge_cut} of "
+        f"{topo.n_edges} edges, shard size {part.shard_size}, halo "
+        f"{part.halo_size}, boundary {part.boundary_size}; halo bytes a "
+        f"round {wire}")
+    rec = dict(phase="9a", shards=SHARDS, partition_s=part_s,
+               edge_cut=part.edge_cut, shard_size=part.shard_size,
+               halo_size=part.halo_size, boundary_size=part.boundary_size,
+               halo_bytes_per_round=wire, device=smi)
+    one = {}
+    for name, backend in (("per-op", None),
+                          ("fused", dispatch.ReproBackend())):
+        tr, secs = timed(torch, lambda: run_scenario(ScenarioSpec(
+            **spec, backend=backend)))
+        one[name] = tr
+        rec[f"{name}_events_per_s"] = tr.events / secs
+    mesh = LocalMesh(SHARDS, dev)
+    hists = {}
+    for exchange in ("all_gather", "ring"):
+        dispatch.reset_launch_counts()
+        tr, secs = timed(torch, lambda: run_scenario(ScenarioSpec(
+            **spec, sharded=True, mesh=mesh, assignment=assignment,
+            exchange=exchange)))
+        fused_err = (tr.theta_hist - one["fused"].theta_hist).abs().max() \
+            .item()
+        per_op_err = (tr.theta_hist - one["per-op"].theta_hist).abs() \
+            .max().item()
+        rec[f"sharded_{exchange}_events_per_s"] = tr.events / secs
+        rec[f"{exchange}_vs_fused_max_abs_err"] = fused_err
+        rec[f"{exchange}_vs_per_op_max_abs_err"] = per_op_err
+        log(f"[9a] sharded MP, {exchange}: {tr.events / secs:.4g} events/s "
+            f"(single-device per-op {rec['per-op_events_per_s']:.4g}, "
+            f"fused {rec['fused_events_per_s']:.4g}); overflow "
+            f"{tr.overflow}; max |sharded - fused| = {fused_err:.3g} (tol "
+            f"1e-5); max |sharded - per-op| = {per_op_err:.3g} (bit for "
+            f"bit: {per_op_err == 0}); launches "
+            f"{dispatch.launch_counts()}")
+        po = one["per-op"]
+        if tr.overflow != 0 or not fused_err <= 1e-5 \
+                or not per_op_err <= 1e-5 \
+                or (tr.delivered, tr.dropped, tr.invalid, tr.events) != \
+                (po.delivered, po.dropped, po.invalid, po.events) \
+                or not torch.equal(tr.active_hist, po.active_hist):
+            return rec, assignment, f"9a: sharded MP ({exchange}) is not " \
+                f"the single-device run"
+        hists[exchange] = tr.theta_hist
+        del tr
+    if not torch.equal(hists["all_gather"], hists["ring"]):
+        return rec, assignment, "9a: ring and all_gather differ"
+    del one
+    top = hists["all_gather"].abs().max().item()
+    for codec, rel in CODEC_REL.items():
+        tr, secs = timed(torch, lambda: run_scenario(ScenarioSpec(
+            **spec, sharded=True, mesh=mesh, assignment=assignment,
+            halo_codec=codec)))
+        err = (tr.theta_hist - hists["all_gather"]).abs().max().item()
+        bar = rel * top
+        rec[f"{codec}_vs_f32_max_abs_err"] = err
+        rec[f"{codec}_vs_f32_bar"] = bar
+        log(f"[9a] halo codec {codec}: {tr.events / secs:.4g} events/s; "
+            f"max |{codec} - f32| = {err:.3g} (bar: above 0 and at most "
+            f"{rel:.3g} x max |theta| {top:.4g} = {bar:.3g}); wire "
+            f"{wire[codec]} bytes a round ({wire['f32']} in f32)")
+        if tr.overflow != 0 or not torch.isfinite(tr.theta_hist).all() \
+                or not 0 < err <= bar:
+            return rec, assignment, f"9a: the {codec} codec's run"
+        del tr
+    log(json.dumps(rec))
+    return rec, assignment, None
+
+
+def check_sharded_cl(torch, dev, spec_cl, assignment, single, single_rate,
+                     smi):
+    """9b. The partitioned CL-ADMM runner on a LocalMesh of ``SHARDS``
+    shards, on 4d's problem: no overflow and theta_hist equal to 4d's
+    single-device kernel run (``single``) bit for bit.  Returns
+    ``(record, failure message or None)``."""
+    from repro_torch.launch import LocalMesh
+    from repro_torch.simulate import ScenarioSpec, run_scenario
+
+    torch.cuda.reset_peak_memory_stats()
+    tr, secs = timed(torch, lambda: run_scenario(ScenarioSpec(
+        **spec_cl, rounds=ROUNDS, record_every=RECORD, sharded=True,
+        mesh=LocalMesh(SHARDS, dev), assignment=assignment)))
+    err = (tr.theta_hist - single.theta_hist).abs().max().item()
+    rec = dict(phase="9b", shards=SHARDS, events_per_s=tr.events / secs,
+               single_device_events_per_s=single_rate, overflow=tr.overflow,
+               max_abs_err=err, halo_size=tr.halo_size,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               device=smi)
+    log(f"[9b] sharded CL-ADMM: {tr.events / secs:.4g} events/s "
+        f"(single-device kernel run {single_rate:.4g}); overflow "
+        f"{tr.overflow}; max |sharded - single-device| = {err} (tol 0); "
+        f"peak {rec['max_memory_allocated'] / 2**30:.1f} GiB")
+    log(json.dumps(rec))
+    if tr.overflow != 0 or err != 0 \
+            or (tr.delivered, tr.dropped, tr.invalid, tr.events) != \
+            (single.delivered, single.dropped, single.invalid,
+             single.events):
+        return rec, "9b: sharded CL-ADMM is not the single-device run"
+    return rec, None
+
+
+def check_sharded_joint(torch, dev, spec, assignment, smi):
+    """9c. The partitioned joint runner with the JAX benchmark's knobs and
+    halo re-compaction (``RECOMPACT``) on a LocalMesh of ``SHARDS``
+    shards: theta_hist, final_w, final_live, the live-edge history and the
+    suppressed count equal to the single-device joint run.  Returns
+    ``(record, failure message or None)``."""
+    from repro_torch.launch import LocalMesh
+    from repro_torch.simulate import ScenarioSpec, run_scenario
+    from repro_torch.simulate.partition import GraphPartition
+
+    spec = dict(spec, algo="joint", **JOINT_KW)
+    one, one_s = timed(torch, lambda: run_scenario(ScenarioSpec(**spec)))
+    tr, secs = timed(torch, lambda: run_scenario(ScenarioSpec(
+        **spec, sharded=True, mesh=LocalMesh(SHARDS, dev),
+        assignment=assignment, **RECOMPACT)))
+    halo0 = GraphPartition.build(spec["topology"], assignment,
+                                 SHARDS).halo_size
+    same = dict(theta_hist=torch.equal(tr.theta_hist, one.theta_hist),
+                final_w=torch.equal(tr.final_w, one.final_w),
+                final_live=torch.equal(tr.final_live, one.final_live),
+                live_edges=torch.equal(tr.live_edges_hist,
+                                       one.live_edges_hist),
+                suppressed=tr.suppressed == one.suppressed)
+    rec = dict(phase="9c", shards=SHARDS, **RECOMPACT,
+               events_per_s=tr.events / secs,
+               single_device_events_per_s=one.events / one_s,
+               overflow=tr.overflow, recompactions=tr.recompactions,
+               halo_size_before=halo0, halo_size_after=tr.halo_size,
+               equal=same, device=smi)
+    log(f"[9c] sharded joint ({JOINT_KW}, {RECOMPACT}): "
+        f"{tr.events / secs:.4g} events/s (single-device "
+        f"{one.events / one_s:.4g}); overflow {tr.overflow}; "
+        f"{tr.recompactions} re-compactions, halo {halo0} -> "
+        f"{tr.halo_size}; live edges {tr.live_edges_hist.tolist()}; "
+        f"equal to the single-device run: {same}")
+    log(json.dumps(rec))
+    if tr.overflow != 0 or not all(same.values()):
+        return rec, "9c: sharded joint learning is not the single-device run"
+    return rec, None
+
+
+def check_sharded_sweep(torch, dispatch, sm, dev, topo, sol, c, whole, smi):
+    """9d. ``sparse_sync_mp`` with ``sparse_mix="cuda_sharded"`` on a
+    LocalMesh of ``SHARDS`` shards: one ``sparse_gather_mix`` launch a
+    block a sweep, each given its block's share of the RCM order, bit for
+    bit with ``reference_sharded`` and with the single-device kernel
+    sweep; the per-block kernel time beside the whole-table time of phase
+    3 (``whole``, its JSON record) and the block's byte bound.  Returns
+    ``(record, launches, failure message or None)``."""
+    from repro_torch.core.model_propagation import mp_mix_operator
+    from repro_torch.kernels.sharded import _block_orders
+    from repro_torch.launch import LocalMesh, use_mesh
+    from repro_torch.simulate import sparse_sync_mp
+
+    one = sparse_sync_mp(topo, sol, c, ALPHA, SWEEPS, device=dev)
+    mesh = LocalMesh(SHARDS, dev)
+    with use_mesh(mesh):
+        dispatch.reset_launch_counts()
+        got, secs = timed(torch, lambda: sparse_sync_mp(
+            topo, sol, c, ALPHA, SWEEPS, device=dev,
+            backend=dispatch.ReproBackend.using(sparse_mix="cuda_sharded")))
+        launches = dispatch.launch_counts()["sparse_gather_mix"]
+        ordered = sm.ordered_launches
+        plain = sparse_sync_mp(topo, sol, c, ALPHA, SWEEPS, device=dev,
+                               backend=dispatch.ReproBackend.using(
+                                   sparse_mix="reference_sharded"))
+    err_plain = (got - plain).abs().max().item()
+    err_one = (got - one).abs().max().item()
+    # one block of a steady-state sweep, timed alone
+    tabs = topo.device_tables(dev)
+    w, b = mp_mix_operator(tabs.nbr_p, c, ALPHA)
+    n, k = tabs.nbr_idx.shape
+    blk = -(-n // SHARDS)
+    order = torch.as_tensor(topo.locality_order, device=dev)
+    blk_order = _block_orders(order, n, SHARDS, blk)[0]
+    args = (one, tabs.nbr_idx[:blk].contiguous(), w[:blk].contiguous(),
+            b[:blk].contiguous(), sol[:blk].contiguous())
+    block_ms = time_ms(torch, lambda: sm.sparse_gather_mix(
+        *args, order=blk_order), 20)
+    rows_read = torch.unique(args[1]).numel()
+    n_bytes = 4 * (rows_read * P + 2 * blk * k + blk + 2 * blk * P + blk)
+    bms, by = bound_ms(n_bytes, 2 * blk * k * P + 2 * blk * P)
+    rec = dict(phase="9d", shards=SHARDS, sweeps=SWEEPS, launches=launches,
+               ordered_launches=ordered, sweeps_per_s=SWEEPS / secs,
+               max_abs_err_vs_reference_sharded=err_plain,
+               max_abs_err_vs_single_device=err_one,
+               block_shape=f"N={n} n={blk} k={k} p={P}", block_ms=block_ms,
+               block_bound_ms=bms, block_bound_by=by,
+               whole_table_ms=whole["ms"], whole_table_bound_ms=whole[
+                   "bound_ms"], device=smi)
+    log(f"[9d] sparse_sync_mp, cuda_sharded on {SHARDS} shards: "
+        f"{SWEEPS} sweeps in {secs:.3f} s, {launches} launches ({ordered} "
+        f"with the order); max |cuda_sharded - reference_sharded| = "
+        f"{err_plain}, max |cuda_sharded - single device| = {err_one} "
+        f"(tol 0); one block ({rec['block_shape']}) {block_ms:.4f} ms "
+        f"against a {bms:.4f} ms bound ({by}); the whole table "
+        f"{whole['ms']:.4f} ms against {whole['bound_ms']:.4f} ms")
+    log(json.dumps(rec))
+    if launches != SWEEPS * SHARDS or ordered != SWEEPS * SHARDS \
+            or err_plain != 0 or err_one != 0:
+        return rec, launches, "9d: the cuda_sharded sweep"
+    return rec, launches, None
+
+
+def check_dist_mesh(torch, dispatch, dev, topo, sol, c, spec, smi):
+    """9e. A DistMesh over an NCCL process group of world size 1 on the
+    card: the cuda_sharded sweep (its table and outputs all-gathered
+    through NCCL) and a short partitioned MP run, each bit for bit with
+    the same on a LocalMesh of one shard.  Returns ``(record, launches,
+    failure message or None)``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import DistMesh, LocalMesh, use_mesh
+    from repro_torch.simulate import ScenarioSpec, run_scenario, \
+        sparse_sync_mp
+
+    backend = dispatch.ReproBackend.using(sparse_mix="cuda_sharded")
+    short = dict(spec, rounds=DIST_ROUNDS, record_every=DIST_ROUNDS)
+    with use_mesh(LocalMesh(1, dev)):
+        want_sweep = sparse_sync_mp(topo, sol, c, ALPHA, DIST_SWEEPS,
+                                    device=dev, backend=backend)
+    want_mp = run_scenario(ScenarioSpec(**short, sharded=True,
+                                        mesh=LocalMesh(1, dev)))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = DistMesh(device=dev)
+        dispatch.reset_launch_counts()
+        with use_mesh(mesh):
+            got_sweep = sparse_sync_mp(topo, sol, c, ALPHA, DIST_SWEEPS,
+                                       device=dev, backend=backend)
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()["sparse_gather_mix"]
+        got_mp = run_scenario(ScenarioSpec(**short, sharded=True,
+                                           mesh=mesh))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    same = dict(sweep=torch.equal(got_sweep, want_sweep),
+                mp=torch.equal(got_mp.theta_hist, want_mp.theta_hist))
+    rec = dict(phase="9e", backend="nccl", world_size=1, launches=launches,
+               equal_to_local_mesh=same, device=smi)
+    log(f"[9e] DistMesh over NCCL, world size 1: {DIST_SWEEPS} "
+        f"cuda_sharded sweeps ({launches} launches) and {DIST_ROUNDS} MP "
+        f"rounds equal to a LocalMesh of one shard: {same}.  One card "
+        f"hosts one NCCL rank: the multi-rank runs were checked on the "
+        f"CPU under gloo only (tests/test_torch_sim_mesh.py)")
+    log(json.dumps(rec))
+    if not all(same.values()) or launches != DIST_SWEEPS \
+            or got_mp.overflow != 0:
+        return rec, launches, "9e: the DistMesh runs differ from the " \
+            "LocalMesh ones"
+    return rec, launches, None
+
+
 def main() -> int:
     import torch
 
@@ -2365,6 +2701,31 @@ def main() -> int:
     if bad:
         return fail(bad)
 
+    # 9a-9e. the partitioned simulator on SHARDS shards of the card ------
+    sharded = {}
+    sharded["9a"], assignment, bad = check_sharded_mp(torch, dispatch, dev,
+                                                      spec, smi)
+    if bad:
+        return fail(bad)
+    sharded["9b"], bad = check_sharded_cl(torch, dev, spec_cl, assignment,
+                                          ck, cl_rates["cl-kernel"], smi)
+    if bad:
+        return fail(bad)
+    sharded["9c"], bad = check_sharded_joint(torch, dev, spec, assignment,
+                                             smi)
+    if bad:
+        return fail(bad)
+    sharded["9d"], counts["sharded_sweep"], bad = check_sharded_sweep(
+        torch, dispatch, sm, dev, topo, sol, c, kernels[1], smi)
+    if bad:
+        return fail(bad)
+    sharded["9e"], counts["dist_sweep"], bad = check_dist_mesh(
+        torch, dispatch, dev, topo, sol, c, spec, smi)
+    if bad:
+        return fail(bad)
+    del assignment
+    torch.cuda.empty_cache()
+
     # LM serving: free the simulator's state first ------------------------
     del ck, tr, ev, spec_cl, spec, data, x, sol_cl, stream, tabs, topo
     del sol, c
@@ -2586,6 +2947,15 @@ def main() -> int:
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "library_ms")} for c in fa_cases
                 if "hd=128" in c["shape"] and "bfloat16" in c["shape"]]
+        if kr["name"] == "sparse_gather_mix":   # 4b, 9d's blocks and 9e
+            row["launches_by_path"] = {
+                "sparse_sync_mp": kr["launches"],
+                "sharded_sweep": counts["sharded_sweep"],
+                "dist_sweep": counts["dist_sweep"]}
+            row["launches"] = sum(row["launches_by_path"].values())
+            row["sharded_block"] = {k: sharded["9d"][k] for k in (
+                "block_shape", "block_ms", "block_bound_ms",
+                "block_bound_by")}
         if kr["name"] == "graph_mix":           # its three paths
             row["launches_by_path"] = {
                 "synchronous": kr["launches"],

@@ -15,11 +15,21 @@ agents' local optimizer steps, a strategy mixes the leaves across it:
   mode="cl"         collaborative learning: a gradient step on the Q_CL
                     smoothness term (paper §4)
 
-The JAX package's ``schedule="gossip"`` runs the same operator as
-matching-scheduled collective permutes inside ``shard_map`` over a device
-mesh; it waits for the multi-GPU slice (ROADMAP queue 1 item 10) and
-raises here.  The matchings (``CouplingState.send_to``) are kept, so a
-state built here is the JAX package's.
+Two schedules realise the same mp operator (DESIGN.md §2):
+
+  schedule="dense"   the ``mix`` op over the whole agent axis (above)
+  schedule="gossip"  the paper's pairwise exchanges: the graph is
+                     edge-coloured into matchings
+                     (``CouplingState.send_to``) and ``sum_j A_mix[i, j]
+                     theta_j`` is accumulated one matching at a time, self
+                     term first, over a sim mesh of agents
+                     (``launch.sim_mesh``): on a ``LocalMesh`` each
+                     matching is a gather of the agent-stacked leaves; on
+                     a ``DistMesh`` each rank holds one agent's leaves and
+                     each matching is one send and one receive.
+
+The JAX package's tensor-parallel ``param_specs`` (the production
+("pod", "data", "model") mesh) waits for its mesh tooling's port.
 """
 
 from __future__ import annotations
@@ -35,16 +45,11 @@ from repro_torch.core.graph import Graph
 from repro_torch.kernels.dispatch import ReproBackend, resolve
 from repro_torch.tree import tree_leaves, tree_map
 
-GOSSIP_LATER = ("schedule='gossip' needs a device mesh (collective "
-                "permutes between the agents' devices): it waits for "
-                "ROADMAP queue 1 item 10 (multi-GPU); use "
-                "schedule='dense'")
-
 
 @dataclasses.dataclass(frozen=True)
 class CouplingConfig:
     mode: str = "mp"              # none | consensus | mp | cl
-    schedule: str = "dense"       # dense | gossip (item 10)
+    schedule: str = "dense"       # dense | gossip
     alpha: float = 0.99           # MP trade-off (mu = (1-alpha)/alpha)
     mu: float = 0.01              # CL trade-off
     rho: float = 1.0              # ADMM penalty
@@ -150,11 +155,59 @@ def dense_mix_tree(params, solitary, state: CouplingState,
                     params, solitary)
 
 
+def _gossip_leaf(leaf, sol, state: CouplingState, cfg: CouplingConfig,
+                 mesh):
+    """One leaf of the gossip schedule: the self term, then one matching
+    at a time, then the anchor, each product in float32 (the JAX form's
+    float32 weights against ``cfg.mix_dtype`` leaves)."""
+    f = torch.float32
+    x = leaf.to(cfg.mix_dtype)
+    if mesh.kind == "local":
+        A = leaf.shape[0]
+        if A != mesh.n_shards:
+            raise ValueError(f"gossip: {A} agents on a mesh of "
+                             f"{mesh.n_shards} shards (one agent a shard)")
+        bshape = (A,) + (1,) * (leaf.dim() - 1)
+        agents = torch.arange(A, device=leaf.device)
+        acc = state.A_mix.diagonal().reshape(bshape) * x.to(f)
+        for partner in state.send_to:
+            if max(partner) < 0:
+                continue
+            pv = torch.as_tensor(partner, device=leaf.device).long()
+            has = pv >= 0
+            src = pv.clamp(min=0)
+            recv = torch.where(has.reshape(bshape), x[src],
+                               torch.zeros_like(x))
+            w = torch.where(has, state.A_mix[agents, src], 0.0)
+            acc = acc + w.reshape(bshape) * recv.to(f)
+        anchored = state.b_anchor.reshape(bshape) * sol.to(cfg.mix_dtype) \
+            .to(f)
+        return (acc + anchored).to(leaf.dtype)
+    i = mesh.rank
+    acc = state.A_mix[i, i] * x.to(f)
+    for partner in state.send_to:
+        if max(partner) < 0:
+            continue
+        j = partner[i]
+        if j >= 0:
+            recv, w = mesh.exchange_with(x, j), state.A_mix[i, j]
+        else:
+            recv, w = torch.zeros_like(x), state.A_mix.new_zeros(())
+        acc = acc + w * recv.to(f)
+    anchored = state.b_anchor[i] * sol.to(cfg.mix_dtype).to(f)
+    return (acc + anchored).to(leaf.dtype)
+
+
 def gossip_mix_tree(params, solitary, state: CouplingState,
-                    cfg: CouplingConfig, axis_names=()):
-    """The dense operator as matching-scheduled exchanges between the
-    agents' devices: not ported (ROADMAP queue 1 item 10)."""
-    raise NotImplementedError(GOSSIP_LATER)
+                    cfg: CouplingConfig, mesh):
+    """The dense operator as matching-scheduled exchanges over ``mesh``:
+    accumulates ``sum_j A_mix[i, j] theta_j`` one matching at a time, no
+    all-gather.  On a ``LocalMesh`` the leaves are agent-stacked (A, ...)
+    with A the mesh's shard count; on a ``DistMesh`` each rank's leaves are
+    its own agent's (1, ...), the agent id being the rank."""
+    return tree_map(lambda leaf, sol: _gossip_leaf(leaf, sol, state, cfg,
+                                                   mesh),
+                    params, solitary)
 
 
 def consensus_mean_tree(params, cfg: CouplingConfig):
@@ -180,8 +233,11 @@ def laplacian_pull_tree(params, state: CouplingState, cfg: CouplingConfig,
 # ---------------------------------------------------------------------------
 
 
-def make_coupling(cfg: CouplingConfig, state: CouplingState):
+def make_coupling(cfg: CouplingConfig, state: CouplingState, mesh=None):
     """Returns ``apply(params, solitary, step) -> params``.
+
+    ``schedule="gossip"`` (mode "mp") runs the matchings over ``mesh``
+    (required; see :func:`gossip_mix_tree`).
 
     On steps where ``step % cfg.every == 0`` it mixes ``params``; on the
     others it returns them unchanged (the JAX package computes the mix and
@@ -189,8 +245,8 @@ def make_coupling(cfg: CouplingConfig, state: CouplingState):
     arrays; here each leaf's mix is written into the leaf in place, one
     leaf at a time, so at most one leaf's mix is held besides the tree.
     """
-    if cfg.mode == "mp" and cfg.schedule == "gossip":
-        raise NotImplementedError(GOSSIP_LATER)
+    if cfg.mode == "mp" and cfg.schedule == "gossip" and mesh is None:
+        raise ValueError("gossip schedule needs a mesh")
     if cfg.mode == "none":
         return lambda params, solitary, step: params
     if cfg.mode == "consensus":
@@ -200,6 +256,9 @@ def make_coupling(cfg: CouplingConfig, state: CouplingState):
         def mix(leaf, sol):
             # lr folded into mu: proximal step size on the smoothness term
             return _laplacian_leaf(leaf, state, cfg, cfg.mu)
+    elif cfg.mode == "mp" and cfg.schedule == "gossip":
+        def mix(leaf, sol):
+            return _gossip_leaf(leaf, sol, state, cfg, mesh)
     elif cfg.mode == "mp":
         def mix(leaf, sol):
             return _mp_leaf(leaf, sol, state, cfg)

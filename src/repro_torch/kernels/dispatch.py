@@ -7,20 +7,26 @@ A registry keyed by
     op   ∈ {mix, sparse_mix, round_step, neighbor_aggregate, admm_primal,
             admm_primal_inexact, admm_edge, cl_edge_step, edge_reweight,
             attention}
-    impl ∈ {reference, cuda}
+    impl ∈ {reference, cuda, reference_sharded, cuda_sharded}
 
 maps to callables; ``resolve(op, backend, device)`` returns the one a call
 site uses.  ``reference`` is plain PyTorch (``kernels.ref``, which is
 also each kernel module's plain version), ``cuda`` the hand-written Hopper
-kernel.  Selection:
+kernel.  The two ``*_sharded`` names are row-sharded wrappers over a sim
+mesh (``kernels.sharded``; the mesh set by ``launch.sim_mesh.use_mesh``):
+``reference_sharded`` runs the plain version on each row block (``mix``,
+``sparse_mix``, ``admm_primal``, ``admm_edge``, ``edge_reweight``), and
+``cuda_sharded`` the ``sparse_gather_mix`` kernel (``sparse_mix`` only).
+They are wrappers, not plain versions: :func:`implementations` leaves them
+out.  Selection:
 
 * **auto** (the default): ``cuda`` for a CUDA device where the op has a
   kernel, ``reference`` otherwise (CPU tensors, or ``neighbor_aggregate``,
   ``admm_primal``, ``admm_primal_inexact`` and ``edge_reweight``, which
   have no TPU kernel to port and run as torch ops).
-* per-op **overrides** via :class:`ReproBackend`; asking for ``cuda`` on a
-  non-CUDA device raises :class:`BackendUnavailable` — nothing falls back
-  silently.
+* per-op **overrides** via :class:`ReproBackend`; asking for ``cuda`` (or
+  ``cuda_sharded``) on a non-CUDA device raises :class:`BackendUnavailable`
+  — nothing falls back silently.  Auto never picks a sharded impl.
 
 Engine modules reach kernels only through this module (repro-lint
 RPL001), which also re-exports the ``round_step`` layout helpers and the
@@ -80,6 +86,7 @@ from . import flash_attention as _fa
 from . import graph_mix as _gm
 from . import ref
 from . import round_fuse as _rf
+from . import sharded as _sh
 from . import sparse_mix as _sm
 # layout/prefetch helpers shared by every round_step / cl_edge_step impl,
 # re-exported so engine code reaches them through dispatch
@@ -87,7 +94,8 @@ from .round_fuse import (cl_stale_prefetch, decode_slots,  # noqa: F401
                          encode_slots, round_prefetch, round_scales,
                          round_stale_src)
 
-IMPLS = ("reference", "cuda")
+IMPLS = ("reference", "cuda", "reference_sharded", "cuda_sharded")
+SHARDED_IMPLS = ("reference_sharded", "cuda_sharded")
 
 
 class BackendUnavailable(RuntimeError):
@@ -114,8 +122,10 @@ def ops() -> Tuple[str, ...]:
 
 
 def implementations(op: str) -> Tuple[str, ...]:
-    """Registered implementation names for ``op`` (reference first)."""
-    return tuple(sorted(_REGISTRY[op], key=lambda n: (n != "reference", n)))
+    """Registered single-device implementation names for ``op``
+    (reference first); the mesh wrappers are :data:`SHARDED_IMPLS`."""
+    names = [n for n in _REGISTRY[op] if n not in SHARDED_IMPLS]
+    return tuple(sorted(names, key=lambda n: (n != "reference", n)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,10 +166,10 @@ def resolve(op: str, backend, device) -> Callable:
             else "reference"
     if name not in impls:
         raise KeyError(f"op {op!r} has no implementation {name!r}; "
-                       f"registered: {implementations(op)}")
-    if name == "cuda" and device.type != "cuda":
+                       f"registered: {tuple(sorted(impls))}")
+    if name.startswith("cuda") and device.type != "cuda":
         raise BackendUnavailable(
-            f"{op}/cuda is a CUDA kernel and the tensors are on {device}; "
+            f"{op}/{name} is a CUDA kernel and the tensors are on {device}; "
             f"use the 'reference' implementation or a CUDA device")
     return impls[name]
 
@@ -194,3 +204,26 @@ register("cl_edge_step", "cuda")(_rf.cl_edge_step)
 register("edge_reweight", "reference")(ref.edge_reweight)
 register("attention", "reference")(ref.flash_attention)
 register("attention", "cuda")(_fa.flash_attention)
+
+
+def _sharded(fn, inner):
+    """``fn`` (a ``kernels.sharded`` wrapper) around ``inner``, on the mesh
+    set by ``launch.sim_mesh.use_mesh``."""
+    def run(*args, **kw):
+        return fn(*args, inner=inner, **kw)
+    run.__name__ = run.__qualname__ = f"{fn.__name__}[{inner.__name__}]"
+    return run
+
+
+register("mix", "reference_sharded")(
+    _sharded(_sh.sharded_graph_mix, ref.graph_mix))
+register("sparse_mix", "reference_sharded")(
+    _sharded(_sh.sharded_sparse_mix, ref.sparse_gather_mix))
+register("sparse_mix", "cuda_sharded")(
+    _sharded(_sh.sharded_sparse_mix, _sm.sparse_gather_mix))
+register("admm_primal", "reference_sharded")(
+    _sharded(_sh.sharded_admm_primal, ref.quadratic_primal))
+register("admm_edge", "reference_sharded")(
+    _sharded(_sh.sharded_admm_edge, ref.admm_edge_update))
+register("edge_reweight", "reference_sharded")(
+    _sharded(_sh.sharded_edge_reweight, ref.edge_reweight))

@@ -17,26 +17,24 @@ reads gather rows there.
   model-update deliveries of each committed chunk
   (``telemetry.metrics.stream_dirty_chunks``): an agent that received no
   update has the same theta row, so a clean entry stays valid.
+* :class:`ShardedAgentStateStore` — P per-shard stores, each holding
+  only its own block rows (the ``GraphPartition`` layout), behind a read
+  router (``launch.sim_mesh.shard_read_route``); it answers every read as
+  the single-device store does, bit for bit.
 * :class:`ServeReport` — the service's counters and served staleness.
-
-``ShardedAgentStateStore`` (per-shard stores behind a read router) waits
-for the multi-GPU slice, ROADMAP queue 1 item 10.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-
-SHARDED_LATER = ("ShardedAgentStateStore routes reads to per-shard stores "
-                 "of a device mesh: it waits for ROADMAP queue 1 item 10 "
-                 "(multi-GPU)")
+from repro_torch.launch.sim_mesh import shard_read_route
 
 
 class CommittedState(NamedTuple):
@@ -97,11 +95,80 @@ class AgentStateStore:
 
 
 class ShardedAgentStateStore:
-    """Per-shard stores behind one read router: not ported (ROADMAP queue
-    1 item 10)."""
+    """P per-shard :class:`AgentStateStore` blocks behind one read router,
+    on ``device`` (CUDA when None).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(SHARDED_LATER)
+    Built from a ``GraphPartition``'s ``owner`` / ``local_pos`` tables:
+    shard q's store holds only q's block rows (padded to the shard size
+    m), as the partitioned engines shard their state.  :meth:`commit`
+    takes agent-order state (what the sharded traces report) and gives
+    each shard its own rows; :meth:`read_rows` routes every user to the
+    owning shard's store and gathers the row there — the single-device
+    store's answer bit for bit.
+    """
+
+    def __init__(self, owner, local_pos, p: int,
+                 n_shards: Optional[int] = None, device=None):
+        self.owner = np.asarray(owner, np.int32)
+        self.local_pos = np.asarray(local_pos, np.int32)
+        self.n = int(self.owner.shape[0])
+        self.p = int(p)
+        self.device = resolve_device(device)
+        self.n_shards = int(n_shards if n_shards is not None
+                            else self.owner.max() + 1)
+        m = 1
+        for q in range(self.n_shards):
+            sel = self.local_pos[self.owner == q]
+            m = max(m, int(sel.max()) + 1 if sel.size else 1)
+        self.shard_size = m
+        # each shard's agents and their rows in its block, on the device
+        self._rows = []
+        for q in range(self.n_shards):
+            ids = np.nonzero(self.owner == q)[0]
+            self._rows.append(tuple(torch.as_tensor(a, device=self.device)
+                                    for a in (ids, self.local_pos[ids])))
+        self._stores = [AgentStateStore(m, p, device=self.device)
+                        for _ in range(self.n_shards)]
+
+    def commit(self, round_: int, theta, staleness) -> None:
+        """Commit agent-order (n, p) state as per-shard blocks."""
+        theta = torch.as_tensor(theta, dtype=torch.float32).to(self.device)
+        staleness = torch.as_tensor(np.asarray(staleness, np.int32)
+                                    if not torch.is_tensor(staleness)
+                                    else staleness).to(self.device,
+                                                       torch.int32)
+        if tuple(theta.shape) != (self.n, self.p):
+            raise ValueError(f"commit shape {tuple(theta.shape)} != "
+                             f"({self.n}, {self.p})")
+        for store, (ids, pos) in zip(self._stores, self._rows):
+            blk = torch.zeros((self.shard_size, self.p), device=self.device)
+            stl = torch.zeros(self.shard_size, dtype=torch.int32,
+                              device=self.device)
+            blk[pos] = theta[ids]  # scatter: unique targets (one row each)
+            stl[pos] = staleness[ids]  # scatter: unique targets
+            store.commit(round_, blk, stl)
+
+    def snapshot_round(self) -> int:
+        """Round index of the latest committed snapshot across shards."""
+        return max(s.snapshot().round for s in self._stores)
+
+    def read_rows(self, users) -> CommittedState:
+        """Route each user to its owning shard's store and gather rows."""
+        users = np.asarray(torch.as_tensor(users).cpu(), np.int64)
+        shard, pos = shard_read_route(self.owner, self.local_pos, users)
+        theta = torch.empty((users.shape[0], self.p), device=self.device)
+        stale = torch.empty(users.shape[0], dtype=torch.int32,
+                            device=self.device)
+        round_ = 0
+        for q in np.unique(shard):
+            sel = torch.as_tensor(np.nonzero(shard == q)[0],
+                                  device=self.device)
+            at = torch.as_tensor(pos[shard == q], device=self.device).long()
+            snap = self._stores[q].snapshot()
+            theta[sel] = snap.theta[at]  # scatter: unique targets (one each)
+            stale[sel] = snap.staleness[at]  # scatter: unique targets
+            round_ = max(round_, snap.round)
+        return CommittedState(round_, theta, stale)
 
 
 class MixedModelCache:

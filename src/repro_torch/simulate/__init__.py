@@ -14,7 +14,14 @@ from .engines import (CLSimTrace, JointSimTrace, SimTrace, SparseADMMState,
                       run_cl_scenario, run_joint_scenario, run_mp_scenario,
                       sparse_async_admm, sparse_async_gossip,
                       sparse_sync_mp)
+from .partition import (GraphPartition, JointShardedTrace, ShardedSimTrace,
+                        block_partition, default_local_batch,
+                        default_local_events, edge_cut, greedy_partition,
+                        run_cl_scenario_sharded, run_joint_scenario_sharded,
+                        run_mp_scenario_sharded)
 from .spec import ScenarioSpec, run_scenario
 from .scenarios import SCENARIOS, Scenario, get_scenario, list_scenarios
+
+from repro_torch.launch.sim_mesh import HaloCodec, resolve_halo_codec
 
 __all__ = [n for n in dir() if not n.startswith("_")]

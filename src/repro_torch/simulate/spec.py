@@ -17,10 +17,12 @@ run's bit for bit — and attaches its ``ServeReport`` as ``trace.serve``
 (and the per-chunk ``serve_*`` counters to the telemetry frames when
 telemetry is on).
 
-The spec carries every field of the JAX package's.  Sharding is not
-ported yet: ``sharded=True`` raises ``NotImplementedError`` naming the
-ROADMAP item that ports it; its knobs (``n_shards`` ...
-``recompact_frac``) are read only by that runner.
+``sharded=True`` runs the partitioned runner of the algo
+(``simulate.partition``) over ``mesh`` — a ``launch.sim_mesh`` mesh, or
+``make_sim_mesh(n_shards, device)`` when None — with the same rules as the
+JAX spec: ``backend`` reaches only the sharded joint runner, and a warm CL
+``state`` is single-device only.  With ``serve=`` a sharded run serves
+from per-shard stores (``serve.ShardedAgentStateStore``).
 """
 
 from __future__ import annotations
@@ -36,15 +38,11 @@ from repro_torch.telemetry.metrics import (stream_dirty_chunks,
                                            stream_staleness_chunks)
 
 from . import engines as _engines
+from . import partition as _partition
 from .scheduler import (EventStream, NetworkConditions,
                         precompute_event_stream, serve_chunk_requests)
 
 _ALGOS = ("mp", "cl", "joint")
-
-#: What is not ported yet, and the ROADMAP queue-1 item that ports it.
-_LATER = {
-    "sharded": "ROADMAP queue 1 item 10 (multi-GPU)",
-}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -64,10 +62,10 @@ class ScenarioSpec:
               drawn from ``seed`` by the torch scheduler)
     exec:     backend (mp: fused round_step when given; all: per-op impl
               choice), telemetry (TelemetryConfig), device (CUDA when None)
-    sharding: sharded plus the partitioned runner's knobs (n_shards, mesh,
+    sharding: sharded plus the partitioned runner's knobs (n_shards, mesh
+              — a ``launch.sim_mesh`` LocalMesh or DistMesh —,
               assignment, local_batch, exchange, halo_codec,
-              partition_seed, recompact_every/frac — joint only); not
-              ported yet
+              partition_seed, recompact_every/frac — joint only)
     serving:  serve (a ServeStream of inference requests interleaved
               with the gossip rounds), serve_batch (the service's batch
               width)
@@ -125,19 +123,16 @@ class ScenarioSpec:
                     f"algo={self.algo!r} requires ScenarioSpec.{name}")
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet: {_LATER[what]}")
-
-
 def run_scenario(spec: ScenarioSpec):
     """Run the scenario a :class:`ScenarioSpec` describes; returns the
     engine's :class:`~repro_torch.simulate.engines.SimTrace` (a
     ``CLSimTrace`` for ``cl``, a ``JointSimTrace`` for ``joint``), with
     ``trace.serve`` set when the spec carries a ``serve`` stream."""
-    if spec.sharded:
-        _not_ported("sharded")
-    trace = _run_engine(spec)
+    if spec.sharded and spec.backend is not None and spec.algo != "joint":
+        raise ValueError(
+            "backend overrides apply to the single-device engines and the "
+            "sharded joint runner only")
+    trace = _run_sharded(spec) if spec.sharded else _run_engine(spec)
     if spec.serve is not None:
         trace = _drive_serve(spec, trace)
     return trace
@@ -171,6 +166,38 @@ def _run_engine(spec: ScenarioSpec):
         stream=spec.stream, telemetry=spec.telemetry, device=spec.device)
 
 
+def _run_sharded(spec: ScenarioSpec):
+    shard_kw = dict(n_shards=spec.n_shards, mesh=spec.mesh,
+                    assignment=spec.assignment, local_batch=spec.local_batch,
+                    exchange=spec.exchange, halo_codec=spec.halo_codec,
+                    partition_seed=spec.partition_seed, stream=spec.stream,
+                    telemetry=spec.telemetry, device=spec.device)
+    common = (spec.conditions, spec.rounds, spec.batch, spec.seed,
+              spec.record_every)
+    if spec.algo == "cl":
+        spec._require(data=spec.data, mu=spec.mu, rho=spec.rho,
+                      theta_sol=spec.theta_sol)
+        if spec.state is not None:
+            raise ValueError(
+                "warm ADMM state is single-device only (the sharded "
+                "runner rebuilds its own sharded state)")
+        return _partition.run_cl_scenario_sharded(
+            spec.topology, spec.data, spec.mu, spec.rho, *common,
+            theta_sol=spec.theta_sol, primal=spec.primal, **shard_kw)
+    spec._require(theta_sol=spec.theta_sol, c=spec.c)
+    if spec.algo == "joint":
+        return _partition.run_joint_scenario_sharded(
+            spec.topology, spec.theta_sol, spec.c, spec.alpha, *common,
+            eta_graph=spec.eta_graph, lam=spec.lam,
+            graph_every=spec.graph_every, prune_eps=spec.prune_eps,
+            recompact_every=spec.recompact_every,
+            recompact_frac=spec.recompact_frac, backend=spec.backend,
+            **shard_kw)
+    return _partition.run_mp_scenario_sharded(
+        spec.topology, spec.theta_sol, spec.c, spec.alpha, *common,
+        **shard_kw)
+
+
 def _drive_serve(spec: ScenarioSpec, trace):
     """Serve the spec's request stream from the finished trace.
 
@@ -181,7 +208,8 @@ def _drive_serve(spec: ScenarioSpec, trace):
     the committed state.  Reads never touch the run, so
     ``trace.theta_hist`` is unchanged.
     """
-    from repro_torch.serve import AgentStateStore, CollabServeEngine
+    from repro_torch.serve import (AgentStateStore, CollabServeEngine,
+                                   ShardedAgentStateStore)
 
     topo = spec.topology
     n = topo.n
@@ -200,8 +228,15 @@ def _drive_serve(spec: ScenarioSpec, trace):
     requests = serve_chunk_requests(spec.serve, n_rec, record_every)
 
     p = int(trace.theta_hist.shape[-1])
-    eng = CollabServeEngine(AgentStateStore(n, p, device=device), n, p,
-                            batch_size=spec.serve_batch)
+    if spec.sharded:
+        _, P_, _, part = _partition._sharded_setup(
+            topo, spec.n_shards, spec.mesh, spec.assignment,
+            spec.partition_seed, device)
+        store = ShardedAgentStateStore(part.owner, part.local_pos, p, P_,
+                                       device=device)
+    else:
+        store = AgentStateStore(n, p, device=device)
+    eng = CollabServeEngine(store, n, p, batch_size=spec.serve_batch)
     counters = np.zeros((4, n_rec), np.int64)
     for ci in range(n_rec):
         eng.commit((ci + 1) * record_every, trace.theta_hist[ci],

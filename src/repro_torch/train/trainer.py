@@ -100,7 +100,7 @@ def _split_batch(batch: Dict, A: int, device) -> Dict:
 
 
 def make_train_step(model, tcfg: TrainConfig,
-                    coupling_state: CouplingState) -> Callable:
+                    coupling_state: CouplingState, mesh=None) -> Callable:
     """Returns ``train_step(state, batch, mark=None) -> (state, metrics)``.
 
     ``batch`` leaves are (A * b, ...); metrics are ``loss`` (the agents'
@@ -108,9 +108,11 @@ def make_train_step(model, tcfg: TrainConfig,
     (means), tensors on the parameters' device.  ``mark(name)``, when
     given, is called as each phase ends: ``forward_backward``, ``adamw``,
     ``ema``, ``coupling``.  The state is updated in place and returned.
+    ``mesh`` (a ``launch.sim_mesh`` mesh of the agents) serves the gossip
+    coupling schedule.
     """
     A = tcfg.n_agents
-    couple = make_coupling(tcfg.coupling, coupling_state)
+    couple = make_coupling(tcfg.coupling, coupling_state, mesh=mesh)
     ema = tcfg.anchor_ema
     f32 = torch.float32
 

@@ -23,8 +23,12 @@ for all trials, each trial equal to its own launch bit for bit, whatever
 the load width) and the MP sweep through it, and its tile kernel over
 3000 ``synchronous`` steps; and telemetry on the card (theta bit-identical with it
 on, the kernels' launches unchanged, the frames' counters equal to the
-stream's).  The kernels have no CPU mode: on a host without a CUDA card
-every test here skips.
+stream's); and the partitioned simulator on a LocalMesh of the card (MP
+bit for bit with the per-op run and within 1e-5 of the fused one, CL bit
+for bit with the ``cl_edge_step`` run, joint learning with halo
+re-compaction bit for bit, ``cuda_sharded`` bit for bit with
+``reference_sharded`` and the single-device kernel sweep).  The kernels
+have no CPU mode: on a host without a CUDA card every test here skips.
 
 Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -876,3 +880,121 @@ def state_to(state, device):
         return tree_map(lambda t: t.to(device, copy=True), tree)
     return TrainState(params=to(state.params), opt_state=to(state.opt_state),
                       solitary=to(state.solitary), step=state.step.clone())
+
+
+# ---------------------------------------------------------------------------
+# the partitioned simulator on a LocalMesh of the card, and the sharded
+# dispatch implementations
+# ---------------------------------------------------------------------------
+
+
+def _sharded_problem(cuda, n=3000, p=32):
+    from repro_torch.core.losses import pad_datasets, solitary_mean
+    from repro_torch.simulate import NetworkConditions
+    topo = random_geometric_topology(n, k=6, seed=0)
+    rng = np.random.default_rng(0)
+    sol = torch.as_tensor(rng.standard_normal((n, p)), dtype=torch.float32,
+                          device=cuda)
+    c = torch.as_tensor(rng.uniform(0.05, 1.0, n), dtype=torch.float32,
+                        device=cuda)
+    data = pad_datasets(list(rng.standard_normal((n, 3, p))), device=cuda)
+    cond = NetworkConditions(drop_prob=0.1, stale_prob=0.3, churn_rate=0.01,
+                             straggler_frac=0.3, partition_start=5,
+                             partition_end=20)
+    kw = dict(topology=topo, conditions=cond, rounds=40, batch=300, seed=1,
+              record_every=10, device=cuda)
+    return topo, sol, c, data, solitary_mean(data), kw
+
+
+@pytest.mark.parametrize("P", [2, 8])
+def test_sharded_mp_on_the_card(cuda, P):
+    """9a at a small n: the LocalMesh run equals the per-op single-device
+    run bit for bit and the fused one within 1e-5, with no overflow, in
+    either exchange and the bf16 and int8 codecs within their error."""
+    from repro_torch.launch import LocalMesh
+    from repro_torch.simulate import ScenarioSpec, run_scenario
+    topo, sol, c, _, _, kw = _sharded_problem(cuda)
+    kw.update(algo="mp", theta_sol=sol, c=c, alpha=0.9)
+    per_op = run_scenario(ScenarioSpec(**kw))
+    fused = run_scenario(ScenarioSpec(**kw, backend=dispatch.ReproBackend()))
+    mesh = LocalMesh(P, cuda)
+    for exchange in ("all_gather", "ring"):
+        sh = run_scenario(ScenarioSpec(**kw, sharded=True, mesh=mesh,
+                                       exchange=exchange))
+        assert sh.overflow == 0 and sh.n_shards == P
+        assert torch.equal(sh.theta_hist, per_op.theta_hist), exchange
+        assert (sh.theta_hist - fused.theta_hist).abs().max().item() <= 1e-5
+        assert (sh.delivered, sh.dropped, sh.invalid) == \
+            (per_op.delivered, per_op.dropped, per_op.invalid)
+        assert torch.equal(sh.active_hist, per_op.active_hist)
+    for codec, tol in (("bf16", 2e-2), ("int8", 5e-2)):
+        lossy = run_scenario(ScenarioSpec(**kw, sharded=True, mesh=mesh,
+                                          halo_codec=codec))
+        err = (lossy.theta_hist - per_op.theta_hist).abs().max().item()
+        assert 0 < err <= tol, (codec, err)
+
+
+@pytest.mark.parametrize("P", [2, 8])
+def test_sharded_cl_on_the_card(cuda, P):
+    """9b at a small n: sharded CL-ADMM equals the single-device run (the
+    cl_edge_step kernel) bit for bit."""
+    from repro_torch.launch import LocalMesh
+    from repro_torch.simulate import ScenarioSpec, run_scenario
+    topo, _, _, data, sol_cl, kw = _sharded_problem(cuda)
+    kw.update(algo="cl", data=data, mu=0.1, rho=1.0, theta_sol=sol_cl)
+    dispatch.reset_launch_counts()
+    one = run_scenario(ScenarioSpec(**kw))
+    assert dispatch.launch_counts()["cl_edge_step"] == one.rounds
+    for exchange in ("all_gather", "ring"):
+        sh = run_scenario(ScenarioSpec(**kw, sharded=True,
+                                       mesh=LocalMesh(P, cuda),
+                                       exchange=exchange))
+        assert sh.overflow == 0
+        assert torch.equal(sh.theta_hist, one.theta_hist), exchange
+        assert (sh.delivered, sh.dropped, sh.invalid) == \
+            (one.delivered, one.dropped, one.invalid)
+
+
+def test_sharded_joint_on_the_card(cuda):
+    """9c at a small n: the sharded joint run with halo re-compaction
+    equals the single-device one (theta_hist, learned weights, live
+    mask, counters)."""
+    from repro_torch.launch import LocalMesh
+    from repro_torch.simulate import ScenarioSpec, run_scenario
+    topo, sol, c, _, _, kw = _sharded_problem(cuda)
+    kw.update(algo="joint", theta_sol=sol, c=c, alpha=0.9, eta_graph=0.3,
+              lam=1.0, graph_every=5, prune_eps=0.02)
+    one = run_scenario(ScenarioSpec(**kw))
+    sh = run_scenario(ScenarioSpec(**kw, sharded=True,
+                                   mesh=LocalMesh(8, cuda),
+                                   recompact_every=10, recompact_frac=0.02))
+    assert sh.overflow == 0 and sh.recompactions >= 1
+    assert torch.equal(sh.theta_hist, one.theta_hist)
+    assert torch.equal(sh.final_w, one.final_w)
+    assert torch.equal(sh.final_live, one.final_live)
+    assert torch.equal(sh.live_edges_hist, one.live_edges_hist)
+    assert sh.suppressed == one.suppressed
+
+
+def test_cuda_sharded_sparse_mix_on_the_card(cuda):
+    """9d at a small n: ``cuda_sharded`` runs the kernel once a block with
+    the block's share of the locality order, bit for bit with
+    ``reference_sharded`` and with the single-device kernel sweep."""
+    from repro_torch.launch import LocalMesh, use_mesh
+    topo = random_geometric_topology(5003, k=6, seed=1)
+    rng = np.random.default_rng(2)
+    sol = rng.standard_normal((5003, 32)).astype(np.float32)
+    c = rng.uniform(0.05, 1.0, 5003).astype(np.float32)
+    one = sparse_sync_mp(topo, sol, c, 0.9, 15, device=cuda)
+    with use_mesh(LocalMesh(8, cuda)):
+        dispatch.reset_launch_counts()
+        got = sparse_sync_mp(topo, sol, c, 0.9, 15, device=cuda,
+                             backend=dispatch.ReproBackend.using(
+                                 sparse_mix="cuda_sharded"))
+        assert dispatch.launch_counts()["sparse_gather_mix"] == 15 * 8
+        assert sm.ordered_launches == 15 * 8
+        plain = sparse_sync_mp(topo, sol, c, 0.9, 15, device=cuda,
+                               backend=dispatch.ReproBackend.using(
+                                   sparse_mix="reference_sharded"))
+    assert torch.equal(got, plain)
+    assert torch.equal(got, one)

@@ -8,8 +8,9 @@ reproduces the inline engine's key schedule, carried across by
 ``repro_torch.convert.stream_from_arrays``.  Counters and ``active_hist``
 match exactly and ``theta_hist`` within 1e-5 (the bar of
 tests/test_round_fuse.py).  The port's own torch-drawn stream keeps the
-accounting invariant, and the spec fields not ported yet (sharding and
-serving, with their knobs) raise.
+accounting invariant, and the sharding fields (with their knobs, and with
+serving) run the partitioned runners bit for bit with the single-device
+engines.
 """
 
 import numpy as np
@@ -158,26 +159,61 @@ def test_stream_totals_invariant(setup):
     assert s.i.dtype == torch.int32 and s.deliver_ij.dtype == torch.bool
 
 
-@pytest.mark.parametrize("algo,fields,item", [
-    ("mp", dict(sharded=True), "item 10"),
-    ("mp", dict(serve=object(), sharded=True), "item 10"),
-    ("mp", dict(sharded=True, n_shards=4, exchange="halo"), "item 10"),
-    ("cl", dict(sharded=True, mesh=object(), local_batch=8), "item 10"),
+SHARDED_CASES = [
+    ("mp", dict(sharded=True)),
+    ("mp", dict(serve="requests", sharded=True)),
+    ("mp", dict(sharded=True, n_shards=4, exchange="ring")),
+    ("cl", dict(sharded=True, mesh="local-2", local_batch=8)),
     ("joint", dict(sharded=True, recompact_every=5, recompact_frac=0.5,
-                   eta_graph=0.3), "item 10"),
-    ("joint", dict(serve=object(), serve_batch=8, sharded=True),
-     "item 10"),
-])
-def test_unported_spec_fields_raise(setup, algo, fields, item):
-    """Sharding (with its knobs, and with a serve stream, which the
-    sharded store would serve) raises, naming the ROADMAP item that ports
-    it; the knobs are spec fields with the JAX spec's names.  Serving on
-    one device is ported (tests/test_torch_serve_collab.py)."""
+                   eta_graph=0.3)),
+    ("joint", dict(serve="requests", serve_batch=8, sharded=True)),
+]
+
+
+@pytest.mark.parametrize(
+    "algo,fields", SHARDED_CASES,
+    ids=[f"{a}-fields{q}-item 10" for q, (a, _) in enumerate(SHARDED_CASES)])
+def test_unported_spec_fields_raise(setup, algo, fields):
+    """The sharding fields (with their knobs, and with a serve stream,
+    which the sharded store serves) run the partitioned runners, which
+    these fields once refused: the runs equal the single-device ones bit
+    for bit (per-op MP, CL, joint), serving reports equal the unsharded
+    report, and a CL run whose update buffer is too small counts its
+    overflow.  (The case ids are the names the refusals had.)"""
+    from repro_torch.core.losses import pad_datasets, solitary_mean
+    from repro_torch.launch import LocalMesh
+    from repro_torch.simulate import precompute_serve_stream
     _, tt, sol, c = setup
+    fields = dict(fields)
     kw = dict(algo=algo, topology=tt, conditions=get_scenario(
-        "clean").make_conditions(ROUNDS), rounds=ROUNDS, batch=BATCH,
-        theta_sol=sol, c=c, device=CPU, **fields)
+        "lossy-10").make_conditions(ROUNDS), rounds=ROUNDS, batch=BATCH,
+        theta_sol=sol, c=c, device=CPU)
+    if fields.get("serve") == "requests":
+        fields["serve"] = precompute_serve_stream(N, ROUNDS, rate=50, seed=2)
+    if fields.get("mesh") == "local-2":
+        fields["mesh"] = LocalMesh(2, CPU)
     if algo == "cl":
-        kw.update(c=None, data=object(), mu=0.1, rho=1.0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        run_scenario(ScenarioSpec(**kw))
+        rng = np.random.default_rng(4)
+        data = pad_datasets(list(rng.standard_normal((N, 3, P))),
+                            device=CPU)
+        kw.update(c=None, data=data, mu=0.1, rho=1.0,
+                  theta_sol=solitary_mean(data))
+    one = run_scenario(ScenarioSpec(**kw, **{
+        k: v for k, v in fields.items()
+        if k in ("serve", "serve_batch", "eta_graph")}))
+    sh = run_scenario(ScenarioSpec(**kw, **fields))
+    assert (sh.delivered, sh.dropped, sh.invalid, sh.events) == \
+        (one.delivered, one.dropped, one.invalid, one.events)
+    if "local_batch" in fields:
+        assert sh.overflow > 0 and torch.isfinite(sh.theta_hist).all()
+        return
+    assert sh.overflow == 0
+    assert sh.n_shards == fields.get("n_shards", 1)
+    assert torch.equal(sh.theta_hist, one.theta_hist)
+    if algo == "joint":
+        assert torch.equal(sh.final_w, one.final_w)
+        assert torch.equal(sh.final_live, one.final_live)
+    if "serve" in fields:
+        assert sh.serve.summary() == one.serve.summary()
+        np.testing.assert_array_equal(sh.serve.served_staleness,
+                                      one.serve.served_staleness)

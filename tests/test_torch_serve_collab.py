@@ -11,8 +11,9 @@ JAX package (DESIGN.md §16).
 * ``CollabServeEngine.serve`` on one committed state: predictions within
   1e-5 of JAX's (float32 row sums of values up to ~50 in another order),
   staleness and the cache's counters exactly;
-* the store's snapshots never torn, and ``ShardedAgentStateStore``
-  waiting for ROADMAP queue 1 item 10.
+* the store's snapshots never torn; ``ShardedAgentStateStore`` reading
+  what ``AgentStateStore`` reads, bit for bit; a sharded ``serve=`` run
+  reporting what the single-device run reports.
 """
 
 import numpy as np
@@ -179,6 +180,54 @@ def test_store_reads_one_snapshot_and_sharding_waits():
     assert store.commits == 2
     with pytest.raises(ValueError, match="commit shape"):
         store.commit(5, np.zeros((3, 2)), np.zeros(3))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ShardedAgentStateStore(np.zeros(4, np.int32),
-                               np.arange(4, dtype=np.int32), 2)
+    # the per-shard stores behind the read router answer as the one store
+    from repro_torch.simulate import greedy_partition
+    from repro_torch.simulate.partition import GraphPartition
+    topo = random_geometric_topology(N, k=4, seed=1)
+    part = GraphPartition.build(topo, greedy_partition(topo, 4), 4)
+    one = AgentStateStore(N, P, device=CPU)
+    sharded = ShardedAgentStateStore(part.owner, part.local_pos, P, 4,
+                                     device=CPU)
+    rng = np.random.default_rng(3)
+    for rnd in (5, 9):
+        theta = rng.standard_normal((N, P)).astype(np.float32)
+        stale = rng.integers(0, 30, N).astype(np.int32)
+        one.commit(rnd, theta, stale)
+        sharded.commit(rnd, torch.as_tensor(theta), stale)
+        users = rng.integers(0, N, 50)
+        want, got = one.read_rows(users), sharded.read_rows(users)
+        assert got.round == want.round == sharded.snapshot_round() == rnd
+        assert torch.equal(got.theta, want.theta)
+        assert torch.equal(got.staleness, want.staleness)
+    assert sharded.shard_size == part.shard_size
+
+
+@pytest.mark.parametrize("algo", ["mp", "cl"])
+def test_sharded_serve_spec_equals_the_unsharded_report(algo):
+    """``ScenarioSpec(serve=..., sharded=True)`` on a LocalMesh of 4
+    shards: theta_hist and the ServeReport (counters, per-chunk columns,
+    every served staleness) equal the single-device run's."""
+    from repro_torch.launch import LocalMesh
+    topo = random_geometric_topology(N, k=4, seed=1)
+    rng = np.random.default_rng(0)
+    kw = dict(algo=algo, topology=topo, conditions=NetworkConditions(**COND),
+              serve=precompute_serve_stream(N, RUN["rounds"], rate=7,
+                                            seed=1), serve_batch=16,
+              device=CPU, **RUN)
+    if algo == "cl":
+        data = pad_datasets(list(rng.standard_normal((N, 3, P))),
+                            device=CPU)
+        kw.update(data=data, mu=0.1, rho=1.0, theta_sol=solitary_mean(data))
+    else:
+        kw.update(theta_sol=rng.standard_normal((N, P)).astype(np.float32),
+                  c=rng.uniform(0.1, 1.0, N).astype(np.float32), alpha=0.9)
+    one = run_scenario(ScenarioSpec(**kw))
+    sh = run_scenario(ScenarioSpec(**kw, sharded=True,
+                                   mesh=LocalMesh(4, CPU)))
+    assert sh.overflow == 0 and sh.n_shards == 4
+    assert torch.equal(sh.theta_hist, one.theta_hist)
+    for f in REPORT:
+        assert getattr(sh.serve, f) == getattr(one.serve, f)
+    for f in COLUMNS:
+        np.testing.assert_array_equal(getattr(sh.serve, f),
+                                      getattr(one.serve, f))

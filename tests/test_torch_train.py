@@ -7,7 +7,9 @@
   carried across: 1e-5 in float32 (the same sums in another order), 1e-2
   relative with bf16 compute (bf16 rounds activations at other places);
 * every coupling mode's ``make_coupling`` against JAX's within 1e-5, mp
-  also with ``mix_dtype=bfloat16``; ``schedule="gossip"`` raising;
+  also with ``mix_dtype=bfloat16``; ``schedule="gossip"`` on a LocalMesh
+  of the agents within 1e-5 of the dense schedule (the JAX bar,
+  tests/test_coupling.py), and refused without a mesh;
 * three ``make_train_step`` steps per coupling mode from JAX's state
   carried across (``convert.train_state_from_arrays``), in float32:
   loss and grad_norm within 1e-5 relative, params within 1e-5 with
@@ -242,11 +244,38 @@ def test_make_coupling_matches_jax(mode, mix_dtype):
 
 
 def test_gossip_schedule_waits_for_item_10():
-    state = make_state(random_geometric_graph(4, k=2, seed=0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """The gossip schedule, which once waited for the multi-device slice:
+    on a LocalMesh of the agents, one matching at a time, it equals the
+    dense schedule within 1e-5 in float32 (with bf16 leaves within 2^-8
+    of the leaves' largest value: as in JAX, the dense schedule rounds
+    A_mix to bf16 and the gossip one keeps its float32 weights, and the
+    rows of A_mix and the anchor sum to at most 1), through
+    ``make_coupling`` and ``gossip_mix_tree``; without a mesh it is
+    refused, as in JAX."""
+    from repro_torch.launch import LocalMesh
+    A = 7
+    g = random_geometric_graph(A, k=3, seed=5)
+    state = make_state(g, np.linspace(0.2, 1.0, A), 0.9, device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
         make_coupling(CouplingConfig(mode="mp", schedule="gossip"), state)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        gossip_mix_tree({}, {}, state, CouplingConfig())
+    mesh = LocalMesh(A, "cpu")
+    params, sol = stacked_tree(A, 0), stacked_tree(A, 1)
+    top = max(np.abs(a).max() for a in tree_leaves((params, sol)))
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16,
+                                                2**-8 * top)):
+        kw = dict(mode="mp", alpha=0.9, mix_dtype=dtype)
+        dense = make_coupling(CouplingConfig(**kw), state)(
+            carry(params), carry(sol), 0)
+        gossip = make_coupling(CouplingConfig(**kw, schedule="gossip"),
+                               state, mesh=mesh)(carry(params), carry(sol),
+                                                 0)
+        tree = gossip_mix_tree(carry(params), carry(sol), state,
+                               CouplingConfig(**kw), mesh)
+        for a, b, t in zip(tree_leaves(gossip), tree_leaves(dense),
+                           tree_leaves(tree)):
+            np.testing.assert_allclose(as_np(a), as_np(b), atol=atol,
+                                       rtol=0)
+            assert torch.equal(a, t)
 
 
 # ---------------------------------------------------------------------------
