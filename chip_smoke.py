@@ -164,7 +164,22 @@ model is freed:
     state; tokens/s, ms a step, one more step split into forward and
     backward, AdamW, EMA and coupling by CUDA events and one under the
     profiler (device time by kernel), peak memory;
-7c. the repo's example model (plm-100m: 12 x 512, vocab 32768) on 8
+10a. the dry run against the card: 7b's configuration at one agent
+    (the dry run's shape: one agent a device), Llama-3-8B cut to 2
+    layers, batch 2 at sequence 1024, mp coupling, three steps through
+    ``make_train_step``, peak device memory (``max_memory_allocated``
+    above what was allocated before the state) and the steps' time; then
+    ``repro_torch.launch.dryrun`` of the same configuration on a 1 x 1
+    ("data", "model") mesh of the fake backend, in a process of its own:
+    its predicted per-device peak and matmul FLOPs a step beside the
+    measured peak and step time, the predicted peak within 25 % of the
+    measured one;
+10b. the dry run of ``llama3_8b x train_4k`` on the 16 x 16 production
+    mesh with ``--schedule gossip``, in a process of its own: the record,
+    its wall seconds and its collectives; gossip records point-to-point
+    exchanges across the agents and no all-gather there;
+7c. the repo's example (``examples/personalized_lm_torch.py``, its own
+    ``run``) with its model (plm-100m: 12 x 512, vocab 32768) on 8
     agents of ``random_geometric_graph(8, k=3)``, the example's knobs
     (alpha 0.995, mu 0.02, every 4, lr 1e-3), batch 4 at sequence 128:
     20 steps of each coupling mode from one state, the loss falling in
@@ -234,9 +249,10 @@ axis, collectives as tensor ops), before the LM phases:
     byte bound;
 9e. a ``DistMesh`` over an NCCL process group of world size 1 (loopback
     address, torn down after): the cuda_sharded sweep and a short
-    partitioned MP run bit for bit with a ``LocalMesh`` of one shard (one
-    card hosts one NCCL rank; multi-rank runs are checked on the CPU under
-    gloo).
+    partitioned MP run bit for bit with a ``LocalMesh`` of one shard, and
+    the dense mp coupling over it (all-gathered, one ``graph_mix`` launch
+    a leaf) bit for bit with ``dense_mix_tree`` (one card hosts one NCCL
+    rank; multi-rank runs are checked on the CPU under gloo).
 
 Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all six
 kernels, with their launches on their paths; ``sparse_gather_mix``
@@ -253,9 +269,12 @@ the card's name and power limit as nvidia-smi reports them, and last
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
+import importlib.util
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -333,10 +352,14 @@ AGENT_CASES = ((2, 525_336_576, "float32"),    # Llama-3-8B's embedding
 TRAIN_LAYERS, TRAIN_AGENTS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = \
     2, 2, 2, 1024, 5
 STREAM_VOCAB = 512      # the token stream's V (its generator holds A V^2)
-# 7c: the repo's example (examples/personalized_lm.py): plm-100m, 8 agents
-PLM = dict(name="plm-100m", family="dense", n_layers=12, d_model=512,
-           n_heads=8, n_kv_heads=4, d_ff=1536, vocab_size=32768,
-           attn_impl="ref", remat=False)
+# 10a: 7b's configuration at one agent, DRY_STEPS steps, against the dry
+# run's prediction of its per-device peak memory
+DRY_STEPS, DRY_PEAK_RTOL = 3, 0.25
+DRY_TIMEOUT_S = 900
+# 7c: the repo's example (examples/personalized_lm_torch.py): its plm-100m
+# (``model_config(PLM_TINY)``), 8 agents
+EXAMPLE = ROOT / "examples" / "personalized_lm_torch.py"
+PLM_TINY = False
 PLM_AGENTS, PLM_BATCH, PLM_SEQ, PLM_STEPS, PLM_EVERY = 8, 4, 128, 20, 4
 PLM_MODES = ("none", "consensus", "mp", "cl")
 # 8a-8f: the model families at full published width (random bf16 weights,
@@ -1271,55 +1294,68 @@ def check_train_llama(torch, np, dispatch, dev, smi):
     return rec, launches, bad
 
 
+def load_example():
+    """The repo's example, ``examples/personalized_lm_torch.py``, as a
+    module (7c runs its own ``run``)."""
+    spec = importlib.util.spec_from_file_location("personalized_lm_torch",
+                                                  EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def check_train_modes(torch, np, dispatch, dev, smi):
     """7c. The example's plm-100m on 8 agents, every coupling mode for
-    PLM_STEPS steps from one state: the loss falls in each; consensus
-    leaves the agents equal within 1e-6 right after a coupled step; mp
-    launches ``graph_mix`` leaves x ceil(steps / every) times; the mp
-    state's checkpoint round-trips bit for bit.  Returns ``(record,
-    mp launches, error)``."""
+    PLM_STEPS steps from one state (seed SEED's, made before the clock
+    starts), through the example's own ``run``:
+    the loss falls in each; consensus leaves the agents equal within 1e-6
+    right after a coupled step; mp launches ``graph_mix`` leaves x
+    ceil(steps / every) times; the mp state's checkpoint round-trips bit
+    for bit.  Returns ``(record, mp launches, error)``."""
     import tempfile
     from repro_torch.core.graph import random_geometric_graph
-    from repro_torch.coupling import CouplingConfig, make_state
     from repro_torch.data import PersonalizedLMConfig
-    from repro_torch.models import Model, ModelConfig
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.train import (TrainConfig, init_train_state,
-                                   load_checkpoint, save_checkpoint,
-                                   train_loop)
+    from repro_torch.models import Model
+    from repro_torch.train import (init_train_state, load_checkpoint,
+                                   save_checkpoint)
     from repro_torch.tree import tree_leaves
-    model = Model(ModelConfig(**PLM), device="meta")
+    example = load_example()
+    cfg = example.model_config(PLM_TINY)
+    model = Model(cfg, device="meta")
     A = PLM_AGENTS
     graph = random_geometric_graph(A, k=3, seed=0)
     batches = lm_batches(np, PersonalizedLMConfig(
         vocab_size=STREAM_VOCAB, n_agents=A, seq_len=PLM_SEQ,
         batch_per_agent=PLM_BATCH, seed=SEED), graph, PLM_STEPS, A,
         PLM_BATCH, PLM_SEQ)
-    cstate = make_state(graph, np.ones(A), 0.995, device=dev)
-    rec = dict(phase="7c", model=PLM["name"], agents=A,
+    args = argparse.Namespace(agents=A, steps=PLM_STEPS, batch=PLM_BATCH,
+                              seq=PLM_SEQ, ckpt="", device=dev)
+    assert example.train_config("mp", args).coupling.every == PLM_EVERY
+    rec = dict(phase="7c", model=cfg.name, agents=A,
                graph="random_geometric_graph(8, k=3, seed=0)",
                batch_per_agent=PLM_BATCH, seq=PLM_SEQ, steps=PLM_STEPS,
                every=PLM_EVERY, modes={}, device=smi)
     quiet, mp_launches, bad = [], 0, None
     last_mix = (PLM_STEPS - 1) // PLM_EVERY * PLM_EVERY
     for mode in PLM_MODES:
-        tcfg = TrainConfig(
-            n_agents=A, steps=PLM_STEPS, log_every=1,
-            optimizer=AdamWConfig(lr=1e-3, weight_decay=0.01),
-            coupling=CouplingConfig(mode=mode, alpha=0.995, mu=0.02,
-                                    every=PLM_EVERY))
-        state = init_train_state(model, tcfg, torch.Generator(
-            device=dev).manual_seed(SEED), device=dev)
+        # the initial state is set-up, made before the clock starts
+        state = init_train_state(
+            model, example.train_config(mode, args, log_every=1),
+            torch.Generator(device=dev).manual_seed(SEED), device=dev)
         dispatch.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         # through the last coupled step, then the rest
-        state, h1 = train_loop(model, tcfg, cstate, batches[:last_mix + 1],
-                               state=state, log=quiet.append)
+        _, _, state, h1 = example.run(mode, args, graph,
+                                      batches[:last_mix + 1], model,
+                                      state=state, log=quiet.append,
+                                      log_every=1)
         spread = max((leaf - leaf[:1]).abs().max().item()
                      for leaf in tree_leaves(state.params))
-        state, h2 = train_loop(model, tcfg, cstate, batches[last_mix + 1:],
-                               state=state, log=quiet.append)
+        _, _, state, h2 = example.run(mode, args, graph,
+                                      batches[last_mix + 1:], model,
+                                      state=state, log=quiet.append,
+                                      log_every=1)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = dispatch.launch_counts()["graph_mix"]
@@ -1359,6 +1395,139 @@ def check_train_modes(torch, np, dispatch, dev, smi):
         del state
         torch.cuda.empty_cache()
     return rec, mp_launches, bad
+
+
+def run_dryrun(*flags):
+    """``python -m repro_torch.launch.dryrun`` with ``flags`` in a process
+    of its own (the fake process group it sets up is that process's), its
+    record read back from a file under ``build/``.  Returns ``(record or
+    None, wall seconds, error or None)``."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        out = pathlib.Path(d) / "dryrun.json"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
+                 "--out", str(out)], env=env, capture_output=True,
+                text=True, timeout=DRY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            return None, time.perf_counter() - t0, \
+                f"dry run {flags} past {DRY_TIMEOUT_S} s"
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or not out.exists():
+            return None, wall, (f"dry run {flags} failed (rc "
+                                f"{proc.returncode}): {proc.stdout[-1500:]}"
+                                f"{proc.stderr[-1500:]}")
+        rec = json.loads(out.read_text())[-1]
+    return rec, wall, None if rec.get("ok") else f"dry run: {rec}"
+
+
+def check_dryrun_card(torch, np, dispatch, dev, smi):
+    """10a. 7b's configuration at one agent on the card (Llama-3-8B cut to
+    TRAIN_LAYERS layers, batch TRAIN_BATCH at TRAIN_SEQ, mp coupling,
+    DRY_STEPS steps of ``make_train_step``): peak device memory above what
+    was allocated before the state and the steps' times; then the dry run
+    of the same configuration on a 1 x 1 mesh: its predicted peak within
+    DRY_PEAK_RTOL of the measured one.  Returns ``(record, error)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import ring_graph
+    from repro_torch.coupling import CouplingConfig
+    from repro_torch.data import PersonalizedLMConfig
+    from repro_torch.launch.dryrun import coupling_state
+    from repro_torch.models import Model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    model = Model(cfg, device="meta")
+    # 7b's stream on its ring of two; this agent takes the first agent's
+    # rows
+    batches = [{k: v[:TRAIN_BATCH] for k, v in b.items()}
+               for b in lm_batches(np, PersonalizedLMConfig(
+                   vocab_size=STREAM_VOCAB, n_agents=2, seq_len=TRAIN_SEQ,
+                   batch_per_agent=TRAIN_BATCH, seed=SEED), ring_graph(2),
+                   DRY_STEPS, 2, TRAIN_BATCH, TRAIN_SEQ)]
+    tcfg = TrainConfig(n_agents=1, steps=DRY_STEPS, log_every=1,
+                       coupling=CouplingConfig(mode="mp", alpha=0.99,
+                                               every=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, tcfg, torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    step = make_train_step(model, tcfg, coupling_state(1, 0.99, dev))
+    dispatch.reset_launch_counts()
+    secs, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() - before
+    held = torch.cuda.memory_allocated() - before
+    launches = dispatch.launch_counts()["graph_mix"]
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry, wall, bad = run_dryrun(
+        "--arch", LM_ARCH, "--shape", "train_4k", "--mesh", "1x1",
+        "--layers", str(TRAIN_LAYERS), "--seq", str(TRAIN_SEQ), "--batch",
+        str(TRAIN_BATCH), "--coupling", "mp", "--schedule", "dense",
+        "--tag", "10a")
+    rec = dict(phase="10a", model=cfg.name, n_layers=cfg.n_layers,
+               agents=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=DRY_STEPS,
+               losses=losses, step_s=secs,
+               measured_peak_bytes=peak, measured_held_bytes=held,
+               graph_mix_launches=launches, dryrun_wall_s=wall, device=smi)
+    if bad:
+        return rec, bad
+    pred = dry["peak_size_in_bytes"]
+    rec.update(predicted_peak_bytes=pred,
+               predicted_argument_bytes=dry["argument_size_in_bytes"],
+               predicted_temp_bytes=dry["temp_size_in_bytes"],
+               predicted_matmul_flops=dry["cost_flops"],
+               predicted_cost_bytes=dry["cost_bytes"],
+               predicted_roofline=dry["roofline"],
+               traced_with=dry["traced_with"],
+               peak_rel_diff=(pred - peak) / peak,
+               matmul_flops_per_s_measured=dry["cost_flops"]
+               / min(secs[1:] or secs))
+    if not all(np.isfinite(losses)):
+        return rec, f"10a: losses {losses} not finite"
+    if launches != DRY_STEPS * 12:
+        return rec, (f"10a: graph_mix launched {launches} times, not 12 "
+                     f"leaves x {DRY_STEPS} steps")
+    if abs(pred - peak) > DRY_PEAK_RTOL * peak:
+        return rec, (f"10a: the dry run predicts a peak of {pred} bytes, "
+                     f"the card measured {peak}: more than "
+                     f"{DRY_PEAK_RTOL:.0%} apart")
+    return rec, None
+
+
+def check_dryrun_mesh(smi):
+    """10b. ``llama3_8b x train_4k`` on the 16 x 16 production mesh with
+    the gossip schedule: the record, its wall seconds and collectives;
+    the agents exchange point to point and never all-gather.  Returns
+    ``(record, error)``."""
+    dry, wall, bad = run_dryrun("--arch", "llama3_8b", "--shape",
+                                "train_4k", "--schedule", "gossip",
+                                "--tag", "10b")
+    if bad:
+        return dict(phase="10b", process_wall_s=wall, device=smi), bad
+    rec = dict(phase="10b", process_wall_s=wall, device=smi, **dry)
+    agents = dry["collectives_by_axis"].get("agents", {})
+    if not agents.get("collective-permute"):
+        return rec, "10b: gossip recorded no point-to-point exchange"
+    if agents.get("all-gather"):
+        return rec, (f"10b: gossip all-gathered across the agents "
+                     f"{agents['all-gather']} times")
+    return rec, None
 
 
 def rel_l2(torch, got, want) -> float:
@@ -2239,10 +2408,14 @@ def check_dist_mesh(torch, dispatch, dev, topo, sol, c, spec, smi):
     """9e. A DistMesh over an NCCL process group of world size 1 on the
     card: the cuda_sharded sweep (its table and outputs all-gathered
     through NCCL) and a short partitioned MP run, each bit for bit with
-    the same on a LocalMesh of one shard.  Returns ``(record, launches,
+    the same on a LocalMesh of one shard; and the dense mp coupling over
+    the DistMesh, one ``graph_mix`` launch a leaf, bit for bit with
+    ``dense_mix_tree`` on the stacked leaves.  Returns ``(record, launches,
     failure message or None)``."""
     import torch.distributed as dist
 
+    from repro_torch.coupling import (CouplingConfig, CouplingState,
+                                      dense_mix_tree, make_coupling)
     from repro_torch.launch import DistMesh, LocalMesh, use_mesh
     from repro_torch.simulate import ScenarioSpec, run_scenario, \
         sparse_sync_mp
@@ -2252,6 +2425,18 @@ def check_dist_mesh(torch, dispatch, dev, topo, sol, c, spec, smi):
     with use_mesh(LocalMesh(1, dev)):
         want_sweep = sparse_sync_mp(topo, sol, c, ALPHA, DIST_SWEEPS,
                                     device=dev, backend=backend)
+    # one agent's tree, a self weight and an anchor weight
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mix_tree = {"w": torch.randn((1, 64, 48), generator=gen, device=dev),
+                "b": torch.randn((1, 64), generator=gen, device=dev)}
+    mix_sol = {k: torch.randn(v.shape, generator=gen, device=dev)
+               for k, v in mix_tree.items()}
+    mix_state = CouplingState(
+        A_mix=torch.tensor([[0.3]], device=dev),
+        b_anchor=torch.tensor([0.7], device=dev),
+        W=torch.zeros((1, 1), device=dev))
+    mix_cfg = CouplingConfig(mode="mp")
+    want_mix = dense_mix_tree(mix_tree, mix_sol, mix_state, mix_cfg)
     want_mp = run_scenario(ScenarioSpec(**short, sharded=True,
                                         mesh=LocalMesh(1, dev)))
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
@@ -2267,15 +2452,26 @@ def check_dist_mesh(torch, dispatch, dev, topo, sol, c, spec, smi):
         got_mp = run_scenario(ScenarioSpec(**short, sharded=True,
                                            mesh=mesh))
         torch.cuda.synchronize()
+        # the dense coupling over the DistMesh: all-gathered, then the
+        # stacked mp operator, whose mix op is graph_mix on the card
+        dispatch.reset_launch_counts()
+        got_mix = make_coupling(mix_cfg, mix_state, mesh=mesh)(
+            {k: v.clone() for k, v in mix_tree.items()}, mix_sol, 0)
+        torch.cuda.synchronize()
+        mix_launches = dispatch.launch_counts()["graph_mix"]
     finally:
         dist.destroy_process_group()
     same = dict(sweep=torch.equal(got_sweep, want_sweep),
-                mp=torch.equal(got_mp.theta_hist, want_mp.theta_hist))
+                mp=torch.equal(got_mp.theta_hist, want_mp.theta_hist),
+                dense_coupling=all(torch.equal(got_mix[k], want_mix[k])
+                                   for k in want_mix))
     rec = dict(phase="9e", backend="nccl", world_size=1, launches=launches,
+               coupling_graph_mix_launches=mix_launches,
                equal_to_local_mesh=same, device=smi)
     log(f"[9e] DistMesh over NCCL, world size 1: {DIST_SWEEPS} "
         f"cuda_sharded sweeps ({launches} launches) and {DIST_ROUNDS} MP "
-        f"rounds equal to a LocalMesh of one shard: {same}.  One card "
+        f"rounds, and the dense coupling ({mix_launches} graph_mix "
+        f"launches), equal to a LocalMesh of one shard: {same}.  One card "
         f"hosts one NCCL rank: the multi-rank runs were checked on the "
         f"CPU under gloo only (tests/test_torch_sim_mesh.py)")
     log(json.dumps(rec))
@@ -2283,6 +2479,9 @@ def check_dist_mesh(torch, dispatch, dev, topo, sol, c, spec, smi):
             or got_mp.overflow != 0:
         return rec, launches, "9e: the DistMesh runs differ from the " \
             "LocalMesh ones"
+    if mix_launches != len(mix_tree):
+        return rec, launches, (f"9e: the dense coupling launched graph_mix "
+                               f"{mix_launches} times, not {len(mix_tree)}")
     return rec, launches, None
 
 
@@ -2904,6 +3103,27 @@ def main() -> int:
     log(json.dumps(train))
     if bad:
         return fail(bad)
+
+    # 10a. the dry run's prediction against the card at one agent --------
+    dry_card, bad = check_dryrun_card(torch, np, dispatch, dev, smi)
+    log(json.dumps(dry_card))
+    if bad:
+        return fail(bad)
+    steps_ms = ", ".join(f"{s * 1e3:.1f}" for s in dry_card["step_s"])
+    log(f"[10a] {smi}: predicted peak "
+        f"{dry_card['predicted_peak_bytes'] / 1e9:.3f} GB and "
+        f"{dry_card['predicted_matmul_flops'] / 1e12:.3f} TFLOP of matmuls "
+        f"a step; measured peak {dry_card['measured_peak_bytes'] / 1e9:.3f}"
+        f" GB, steps {steps_ms} ms")
+
+    # 10b. the production mesh's dry run, gossip -------------------------
+    dry_mesh, bad = check_dryrun_mesh(smi)
+    log(json.dumps(dry_mesh))
+    if bad:
+        return fail(bad)
+    log(f"[10b] {smi}: llama3_8b x train_4k on 16 x 16, gossip: "
+        f"{dry_mesh['process_wall_s']:.1f} s wall (the process); "
+        f"collectives {json.dumps(dry_mesh['collectives_by_axis'])}")
 
     # 7c. plm-100m on 8 agents, every coupling mode -----------------------
     modes, counts["train_plm_mp"], bad = check_train_modes(torch, np,

@@ -28,8 +28,12 @@ Two schedules realise the same mp operator (DESIGN.md §2):
                      a ``DistMesh`` each rank holds one agent's leaves and
                      each matching is one send and one receive.
 
-The JAX package's tensor-parallel ``param_specs`` (the production
-("pod", "data", "model") mesh) waits for its mesh tooling's port.
+Over a mesh of one agent a rank (``mesh.kind == "dist"``: a ``DistMesh``,
+or ``launch.mesh.AgentMesh``, the agent axes of a production mesh whose
+leaves are tensor-parallel ``DTensor``s) the dense schedule all-gathers
+the agents' leaves and mixes this rank's row; the gossip schedule moves
+each leaf's local tensor-parallel shard, one exchange a matching, never
+an all-gather (the JAX package's ``param_specs`` under ``shard_map``).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.graph import Graph
 from repro_torch.kernels.dispatch import ReproBackend, resolve
+from repro_torch.models.common import like_local, split_local
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -122,8 +127,10 @@ def make_state(graph: Graph, confidences=None, alpha: float = 0.99,
 def _mp_leaf(leaf, sol, state: CouplingState, cfg: CouplingConfig):
     n = leaf.shape[0]
     mix = resolve("mix", cfg.mix_backend(), leaf.device)
+    # the kernel takes contiguous operands; the one-agent-a-rank form
+    # passes its agent's anchor expanded over the agents
     out = mix(leaf.reshape(n, -1).to(cfg.mix_dtype),
-              sol.reshape(n, -1).to(cfg.mix_dtype),
+              sol.reshape(n, -1).to(cfg.mix_dtype).contiguous(),
               state.A_mix.to(cfg.mix_dtype), state.b_anchor)
     return out.reshape(leaf.shape).to(leaf.dtype)
 
@@ -198,6 +205,22 @@ def _gossip_leaf(leaf, sol, state: CouplingState, cfg: CouplingConfig,
     return (acc + anchored).to(leaf.dtype)
 
 
+def _dist_dense_leaf(leaf, sol, cfg: CouplingConfig, mesh, op):
+    """One leaf of the dense schedule over a mesh of one agent a rank:
+    the agents' (1, ...) leaves all-gathered to (A, ...) (sent in
+    ``cfg.mix_dtype``, which the operators quantize to first), the mode's
+    stacked operator ``op`` over them, this rank's row kept.  A
+    ``DTensor`` leaf mixes its local tensor-parallel shard: the operators
+    mix each coordinate across agents only."""
+    local, like = split_local(leaf)
+    blocks = mesh.all_gather(local.to(cfg.mix_dtype)).to(local.dtype)
+    # the anchor enters row i only, so every row may see this agent's
+    # (a view; the mp operator makes it whole for the kernel)
+    sols = split_local(sol)[0].expand(blocks.shape)
+    i = mesh.rank
+    return like_local(op(blocks, sols)[i:i + 1], like)
+
+
 def gossip_mix_tree(params, solitary, state: CouplingState,
                     cfg: CouplingConfig, mesh):
     """The dense operator as matching-scheduled exchanges over ``mesh``:
@@ -237,7 +260,10 @@ def make_coupling(cfg: CouplingConfig, state: CouplingState, mesh=None):
     """Returns ``apply(params, solitary, step) -> params``.
 
     ``schedule="gossip"`` (mode "mp") runs the matchings over ``mesh``
-    (required; see :func:`gossip_mix_tree`).
+    (required; see :func:`gossip_mix_tree`).  Given a mesh of one agent a
+    rank (``mesh.kind == "dist"``), the dense schedule of every mode
+    all-gathers the agents' leaves over it and runs the mode's stacked
+    operator, the ``mix`` op included (:func:`_dist_dense_leaf`).
 
     On steps where ``step % cfg.every == 0`` it mixes ``params``; on the
     others it returns them unchanged (the JAX package computes the mix and
@@ -245,25 +271,31 @@ def make_coupling(cfg: CouplingConfig, state: CouplingState, mesh=None):
     arrays; here each leaf's mix is written into the leaf in place, one
     leaf at a time, so at most one leaf's mix is held besides the tree.
     """
-    if cfg.mode == "mp" and cfg.schedule == "gossip" and mesh is None:
+    gossip = cfg.mode == "mp" and cfg.schedule == "gossip"
+    if gossip and mesh is None:
         raise ValueError("gossip schedule needs a mesh")
     if cfg.mode == "none":
         return lambda params, solitary, step: params
-    if cfg.mode == "consensus":
+    if gossip:
+        def mix(leaf, sol):
+            return _gossip_leaf(leaf, sol, state, cfg, mesh)
+    elif cfg.mode == "consensus":
         def mix(leaf, sol):
             return _consensus_leaf(leaf, cfg)
     elif cfg.mode == "cl":
         def mix(leaf, sol):
             # lr folded into mu: proximal step size on the smoothness term
             return _laplacian_leaf(leaf, state, cfg, cfg.mu)
-    elif cfg.mode == "mp" and cfg.schedule == "gossip":
-        def mix(leaf, sol):
-            return _gossip_leaf(leaf, sol, state, cfg, mesh)
     elif cfg.mode == "mp":
         def mix(leaf, sol):
             return _mp_leaf(leaf, sol, state, cfg)
     else:
         raise ValueError(f"unknown coupling mode {cfg.mode!r}")
+    if not gossip and mesh is not None and mesh.kind == "dist":
+        stacked = mix
+
+        def mix(leaf, sol):
+            return _dist_dense_leaf(leaf, sol, cfg, mesh, stacked)
 
     def apply(params, solitary, step):
         if int(step) % cfg.every == 0:

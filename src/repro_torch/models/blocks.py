@@ -17,6 +17,14 @@ package's ``lax.scan`` over time becomes a Python loop (sLSTM, the mLSTM
 ``scan`` form) and its ``associative_scan`` a log-depth scan of torch ops
 (RG-LRU); none of these reaches a Pallas kernel there, so none is a
 kernel here.
+
+Each weight's sharding spec is the JAX package's ``ParamDef.spec``: a
+module class's ``SPECS`` maps its weights' names to them, and
+:func:`module_specs` gives a module's specs keyed like its
+``named_parameters()``.  ``constrain`` stands where the JAX package holds
+activations to a spec (the queries, the residual stream when
+``cfg.seq_shard``, the MoE expert buffers); it returns a plain tensor as
+it is, so a run on one device computes what it did without it.
 """
 
 from __future__ import annotations
@@ -30,8 +38,8 @@ from torch import nn
 
 from ..kernels import dispatch
 from .attention import chunked_attention, decode_attention, ref_attention
-from .common import (ModelConfig, apply_mrope, apply_rope, gelu, gelu_glu,
-                     rms_norm, swiglu)
+from .common import (AGENT_SLOT, ModelConfig, apply_mrope, apply_rope,
+                     constrain, gelu, gelu_glu, is_dtensor, rms_norm, swiglu)
 
 
 class Ctx(NamedTuple):
@@ -48,6 +56,18 @@ def _param(shape, device, dtype):
                         requires_grad=False)
 
 
+def module_specs(module: nn.Module):
+    """``{name: spec}`` for ``module.named_parameters()``: each weight's
+    spec from its owner's class ``SPECS`` (the JAX package's
+    ``ParamDef.spec``)."""
+    out = {}
+    for name, _ in module.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        out[name] = type(sub).SPECS[leaf]  # scatter: unique targets
+    return out
+
+
 # ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------
@@ -56,6 +76,9 @@ def _param(shape, device, dtype):
 class FFN(nn.Module):
     """``w_up`` and ``w_down`` (d, f) / (f, d), and ``w_gate`` (d, f)
     unless the kind is ``gelu``."""
+
+    SPECS = {"w_gate": (None, "model"), "w_up": (None, "model"),
+             "w_down": ("model", None)}
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -82,6 +105,9 @@ def ffn_apply(cfg: ModelConfig, p: FFN, x):
 class Attention(nn.Module):
     """``wq`` (d, H hd), ``wk`` and ``wv`` (d, K hd), ``wo`` (H hd, d)."""
 
+    SPECS = {"wq": (None, "model"), "wk": (None, "model"),
+             "wv": (None, "model"), "wo": ("model", None)}
+
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
         d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -89,6 +115,57 @@ class Attention(nn.Module):
         self.wk = _param((d, K * hd), device, dtype)
         self.wv = _param((d, K * hd), device, dtype)
         self.wo = _param((H * hd, d), device, dtype)
+
+
+def _heads(t, shape):
+    """``t.reshape(shape)`` between (..., heads, hd) and (..., heads * hd)
+    (``shape[-1]`` says which).  A ``DTensor`` comes out with its heads,
+    or their merged dim, over "model" when the heads divide over it and
+    whole otherwise (fewer heads than devices are replicated, as a
+    tensor-parallel layer does), on both sides of the reshape, so that
+    its gradient meets the reshape laid out the same way."""
+    if not is_dtensor(t):
+        return t.reshape(shape)
+    split = len(shape) == t.dim() + 1
+    heads = shape[-2] if split else t.shape[-2]
+    if heads % t.device_mesh.size() != 0:
+        return constrain(constrain(t, (None,) * t.dim()).reshape(shape),
+                         (None,) * len(shape))
+    at = len(shape) - (2 if split else 1)
+    spec = tuple("model" if d == at else None for d in range(len(shape)))
+    return constrain(t.reshape(shape), spec)
+
+
+def _head_parallel(attend, q, k, v):
+    """``attend(q, k, v)``; for ``DTensor`` inputs, on each device's own
+    query heads: the queries as ``constrain`` laid them out (split over
+    "model", or whole when the heads do not divide), the kv heads those
+    query heads read taken from the whole k and v, and the output laid
+    out as the queries.  Heads are independent, so this is the same
+    function; it spares torch's sharding rules the head-flattening views
+    of the attention's einsums."""
+    if not is_dtensor(q):
+        return attend(q, k, v)
+    from torch.distributed.tensor import DTensor, Partial
+    whole = (None,) * k.dim()
+    k, v = constrain(k, whole), constrain(v, whole)
+    ql = q.to_local()
+    if not q.placements[0].is_shard():
+        kl, vl = k.to_local(), v.to_local()
+    else:
+        # this device's query heads [h0, h0 + Hl) read kv heads h // G
+        Hl, G = ql.shape[2], q.shape[2] // k.shape[2]
+        h0 = q.device_mesh.get_local_rank() * Hl
+        k0, k1 = h0 // G, (h0 + Hl + G - 1) // G
+
+        def mine(t):
+            # each device's heads add their share of the kv gradient
+            t = t.to_local(grad_placements=[Partial()])[:, :, k0:k1]
+            return t.repeat_interleave(G, dim=2)[:, :, h0 - k0 * G:
+                                                 h0 - k0 * G + Hl]
+        kl, vl = mine(k), mine(v)
+    return DTensor.from_local(attend(ql, kl, vl), q.device_mesh,
+                              q.placements, run_check=False)
 
 
 def _window_of(cfg: ModelConfig, kind: str, ctx: Ctx) -> Optional[int]:
@@ -103,9 +180,9 @@ def _qkv(cfg: ModelConfig, p: Attention, x, ctx: Ctx, decode: bool):
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     S = 1 if decode else x.shape[1]
-    xq = (x @ p.wq).reshape(B, S, H, hd)
-    xk = (x @ p.wk).reshape(B, S, K, hd)
-    xv = (x @ p.wv).reshape(B, S, K, hd)
+    xq = _heads(x @ p.wq, (B, S, H, hd))
+    xk = _heads(x @ p.wk, (B, S, K, hd))
+    xv = _heads(x @ p.wv, (B, S, K, hd))
     if cfg.family == "vlm" and ctx.positions3 is not None:
         p3, sec = ctx.positions3, cfg.mrope_sections
         return (apply_mrope(xq, p3, cfg.rope_theta, sec),
@@ -131,16 +208,25 @@ def attn_apply_seq(cfg: ModelConfig, kind: str, p: Attention, x, ctx: Ctx):
     B, S, d = x.shape
     window = _window_of(cfg, kind, ctx)
     xq, xk, xv = _qkv(cfg, p, x, ctx, decode=False)
+    xq = constrain(xq, (AGENT_SLOT, None, "model", None))
     if cfg.attn_impl == "ref" or S % cfg.attn_chunk != 0:
-        o = ref_attention(xq, xk, xv, window=window)
+        def attend(q, k, v):
+            return ref_attention(q, k, v, window=window)
     elif cfg.attn_impl == "flash":
-        o = dispatch.resolve("attention", ctx.backend, x.device)(
-            xq, xk, xv, window=window)
+        def attend(q, k, v):
+            return dispatch.resolve("attention", ctx.backend, q.device)(
+                q, k, v, window=window)
     else:
-        o = chunked_attention(xq, xk, xv, window=window, chunk=cfg.attn_chunk)
-    y = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo
+        def attend(q, k, v):
+            return chunked_attention(q, k, v, window=window,
+                                     chunk=cfg.attn_chunk)
+    o = _head_parallel(attend, xq, xk, xv)
+    y = _heads(o, (B, S, cfg.n_heads * cfg.hd)) @ p.wo
     cache = None
-    if ctx.cache_len:
+    if ctx.cache_len and is_dtensor(xk):
+        cache = {"k": _ring_cache(xk, ctx.cache_len),
+                 "v": _ring_cache(xv, ctx.cache_len)}
+    elif ctx.cache_len:
         Sc = ctx.cache_len
         shape = (B, Sc, cfg.n_kv_heads, cfg.hd)
         kc = torch.zeros(shape, dtype=x.dtype, device=x.device)
@@ -153,6 +239,27 @@ def attn_apply_seq(cfg: ModelConfig, kind: str, p: Attention, x, ctx: Ctx):
         vc[:, ps] = xv[:, S - take:]  # scatter: unique targets
         cache = {"k": kc, "v": vc}
     return y, cache
+
+
+def _ring_cache(kv, Sc: int):
+    """The cache of a prefill's k or v (B, S, K, hd) as whole-tensor ops
+    (the form a ``DTensor`` takes): position p in slot p % Sc, the last
+    min(S, Sc) positions kept, the other slots zero."""
+    S = kv.shape[1]
+    if Sc >= S:
+        return torch.cat([kv, kv.new_zeros((kv.shape[0], Sc - S)
+                                           + tuple(kv.shape[2:]))], dim=1)
+    return torch.roll(kv[:, S - Sc:], (S - Sc) % Sc, dims=1)
+
+
+def _write_slot(cache, slot, new):
+    """``cache`` (B, Sc, ...) with row b's slot ``slot[b]`` set to
+    ``new[b]`` and slots past the end dropped, as a select over the whole
+    cache (a ``DTensor``'s form of the in-place write)."""
+    Sc = cache.shape[1]
+    hit = (torch.arange(Sc, device=slot.device)[None, :] == slot[:, None])
+    hit = hit.reshape(hit.shape + (1,) * (cache.dim() - 2))
+    return torch.where(hit, new[:, None], cache)
 
 
 def attn_apply_dec(cfg: ModelConfig, kind: str, p: Attention, x, cache,
@@ -170,7 +277,13 @@ def attn_apply_dec(cfg: ModelConfig, kind: str, p: Attention, x, cache,
     kc, vc = cache["k"], cache["v"]
     Sc = kc.shape[1]
     pos = torch.as_tensor(ctx.positions, device=x.device)
-    if pos.dim() == 0:
+    if is_dtensor(kc):
+        slot = torch.remainder(pos, Sc) if ctx.ring else (
+            torch.clamp(pos, 0, Sc - 1) if pos.dim() == 0 else pos)
+        slot = torch.broadcast_to(slot, (B,))
+        kc, vc = _write_slot(kc, slot, xk[:, 0]), _write_slot(vc, slot,
+                                                              xv[:, 0])
+    elif pos.dim() == 0:
         # lockstep fleet decode: every request at the same position
         slot = (torch.remainder(pos, Sc) if ctx.ring
                 else torch.clamp(pos, 0, Sc - 1)).long().reshape(1)
@@ -188,7 +301,7 @@ def attn_apply_dec(cfg: ModelConfig, kind: str, p: Attention, x, cache,
         # scatter: unique targets (one slot per request row)
         vc[rows, slot] = torch.where(inside, xv[:, 0], vc[rows, slot])
     o = decode_attention(xq[:, 0], kc, vc, pos, window=window, ring=ctx.ring)
-    y = o.reshape(B, cfg.n_heads * cfg.hd) @ p.wo
+    y = _heads(o, (B, cfg.n_heads * cfg.hd)) @ p.wo
     return y, {"k": kc, "v": vc}
 
 
@@ -207,6 +320,9 @@ def attn_init_cache(cfg: ModelConfig, B: int, cache_len: int, dtype,
 class MoE(nn.Module):
     """``router`` (d, E), expert stacks ``w_gate`` and ``w_up`` (E, d, f)
     and ``w_down`` (E, f, d)."""
+
+    SPECS = {"router": (None, None), "w_gate": ("model", None, None),
+             "w_up": ("model", None, None), "w_down": ("model", None, None)}
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -270,10 +386,11 @@ def moe_apply(cfg: ModelConfig, p: MoE, x):
         contrib = keep.to(x.dtype)
         buf = xt.new_zeros(E * C, d).index_add_(
             0, slot, (xt[:, None, :] * contrib[:, :, None]).reshape(T * k, d))
-    expert_in = buf.reshape(E, C, d)
+    expert_in = constrain(buf.reshape(E, C, d), ("model", None, None))
     h = F.silu(torch.bmm(expert_in, p.w_gate)) \
         * torch.bmm(expert_in, p.w_up)
-    expert_out = torch.bmm(h, p.w_down).reshape(E * C, d)
+    expert_out = constrain(torch.bmm(h, p.w_down), ("model", None, None)) \
+        .reshape(E * C, d)
     gathered = expert_out[slot].reshape(T, k, d)
     y = torch.sum(gathered * (topv * keep).to(x.dtype)[..., None], dim=1)
 
@@ -291,6 +408,11 @@ def moe_apply(cfg: ModelConfig, p: MoE, x):
 class RGLRU(nn.Module):
     """``w_x`` and ``w_gate`` (d, r), ``conv_w`` (cw, r), ``lam`` (r,),
     ``w_inp`` and ``w_rec`` (r, r), ``w_out`` (r, d)."""
+
+    SPECS = {"w_x": (None, "model"), "w_gate": (None, "model"),
+             "conv_w": (None, "model"), "lam": ("model",),
+             "w_inp": (None, "model"), "w_rec": (None, "model"),
+             "w_out": ("model", None)}
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -379,6 +501,11 @@ class MLSTM(nn.Module):
     """``w_up`` (d, 2 di), ``wq``/``wk``/``wv`` (di, di), ``w_igate`` and
     ``w_fgate`` (di, H), ``skip_gamma`` (di,), ``w_down`` (di, d)."""
 
+    SPECS = {"w_up": (None, "model"), "wq": (None, "model"),
+             "wk": (None, "model"), "wv": (None, "model"),
+             "w_igate": (None, None), "w_fgate": (None, None),
+             "skip_gamma": ("model",), "w_down": ("model", None)}
+
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
         d, di, H = cfg.d_model, cfg.mlstm_inner, cfg.n_heads
@@ -390,6 +517,12 @@ class MLSTM(nn.Module):
         self.w_fgate = _param((di, H), device, dtype)
         self.skip_gamma = _param((di,), device, dtype)
         self.w_down = _param((di, d), device, dtype)
+
+
+def _log_sigmoid(x):
+    """``F.logsigmoid``; a ``DTensor`` (which has no sharding rule for its
+    backward) takes the same function as ``-softplus(-x)``."""
+    return -F.softplus(-x) if is_dtensor(x) else F.logsigmoid(x)
 
 
 def _mlstm_cell(q, k, v, igate, fgate, state):
@@ -447,9 +580,9 @@ def _mlstm_inputs(cfg: ModelConfig, p: MLSTM, x, shape):
     """(xb, z, q, k, v, igate, log forget gate), the last five float32."""
     up = x @ p.w_up
     xb, z = up.chunk(2, dim=-1)
-    q, k, v = ((xb @ w).reshape(shape).float() for w in (p.wq, p.wk, p.wv))
+    q, k, v = (_heads(xb @ w, shape).float() for w in (p.wq, p.wk, p.wv))
     ig = (xb @ p.w_igate).float()
-    fg = F.logsigmoid((xb @ p.w_fgate).float())
+    fg = _log_sigmoid((xb @ p.w_fgate).float())
     return xb, z, q, k, v, ig, fg
 
 
@@ -460,7 +593,7 @@ def mlstm_apply_seq(cfg: ModelConfig, kind: str, p: MLSTM, x, ctx: Ctx):
     xb, z, q, k, v, ig, fg = _mlstm_inputs(cfg, p, x, (B, S, H, hd))
     if cfg.mlstm_impl == "parallel":
         h, state = _mlstm_parallel(q, k, v, ig, fg)
-        h = h.reshape(B, S, di).to(x.dtype)
+        h = _heads(h, (B, S, di)).to(x.dtype)
     else:
         state = _mlstm_state0(B, H, hd, x.device)
         hs = []
@@ -468,7 +601,7 @@ def mlstm_apply_seq(cfg: ModelConfig, kind: str, p: MLSTM, x, ctx: Ctx):
             ht, state = _mlstm_cell(q[:, t], k[:, t], v[:, t], ig[:, t],
                                     fg[:, t], state)
             hs.append(ht)
-        h = torch.stack(hs, dim=1).reshape(B, S, di).to(x.dtype)
+        h = _heads(torch.stack(hs, dim=1), (B, S, di)).to(x.dtype)
     h = rms_norm(h, p.skip_gamma) + xb                          # skip
     y = (h * F.silu(z)) @ p.w_down
     cache = None
@@ -484,7 +617,7 @@ def mlstm_apply_dec(cfg: ModelConfig, kind: str, p: MLSTM, x, cache,
     xb, z, q, k, v, ig, fg = _mlstm_inputs(cfg, p, x, (B, H, di // H))
     h, state = _mlstm_cell(q, k, v, ig, fg,
                            (cache["C"], cache["n"], cache["m"]))
-    h = rms_norm(h.reshape(B, di).to(x.dtype), p.skip_gamma) + xb
+    h = rms_norm(_heads(h, (B, di)).to(x.dtype), p.skip_gamma) + xb
     y = (h * F.silu(z)) @ p.w_down
     return y, {"C": state[0], "n": state[1], "m": state[2]}
 
@@ -507,6 +640,11 @@ class SLSTM(nn.Module):
     """``w_z``/``w_i``/``w_f``/``w_o`` (d, d), ``r_z``/``r_i``/``r_f``/
     ``r_o`` (H, hd, hd), the GeGLU ``w_ff_gate`` and ``w_ff_up`` (d, f),
     ``w_ff_down`` (f, d) and ``norm_ff`` (d,)."""
+
+    SPECS = {**{f"w_{g}": (None, "model") for g in _GATES},
+             **{f"r_{g}": (None, "model", None) for g in _GATES},
+             "w_ff_gate": (None, "model"), "w_ff_up": (None, "model"),
+             "w_ff_down": ("model", None), "norm_ff": (None,)}
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -533,7 +671,7 @@ def _slstm_cell(p: SLSTM, xz, xi, xf, xo, state, H, hd):
     z = torch.tanh(xz + rec(p.r_z))
     o = torch.sigmoid(xo + rec(p.r_o))
     i_t = xi + rec(p.r_i)
-    f_t = F.logsigmoid(xf + rec(p.r_f))
+    f_t = _log_sigmoid(xf + rec(p.r_f))
     m_new = torch.maximum(f_t + m, i_t)
     ip = torch.exp(i_t - m_new)
     fp = torch.exp(f_t + m - m_new)
@@ -615,6 +753,8 @@ class Block(nn.Module):
     the family is ``ssm``, ``norm2`` (d,) and ``ffn`` (:class:`FFN`, or
     :class:`MoE` for an attention block of a config with experts)."""
 
+    SPECS = {"norm1": (None,), "norm2": (None,)}
+
     def __init__(self, cfg: ModelConfig, kind: str, device, dtype):
         super().__init__()
         self.cfg, self.kind = cfg, kind
@@ -625,31 +765,63 @@ class Block(nn.Module):
             self.ffn = (MoE if _ffn_is_moe(cfg, kind) else FFN)(
                 cfg, device, dtype)
 
+    def specs(self):
+        """The weights' specs, keyed like ``named_parameters()``."""
+        return module_specs(self)
+
+
+#: the residual stream (B, S, d) between blocks when ``cfg.seq_shard``
+_SEQ_SPEC = (AGENT_SLOT, "model", None)
+
+
+def _scattered(cfg: ModelConfig, h):
+    """A mixer's or FFN's output laid out as the residual stream (the
+    reduce-scatter of its partial sums when ``cfg.seq_shard``), so that
+    its gradient comes back whole for the projections' backward; a plain
+    tensor as it is."""
+    return constrain(h, _SEQ_SPEC) if cfg.seq_shard else h
+
+
+def _gathered(x):
+    """A mixer's or FFN's input (B, S, d) whole over "model" (the
+    all-gather a sequence-sharded residual stream needs before the
+    tensor-parallel projections, which GSPMD inserts in the JAX package);
+    a plain tensor as it is."""
+    return constrain(x, (AGENT_SLOT,) + (None,) * (x.dim() - 1))
+
 
 def block_apply_seq(cfg: ModelConfig, kind: str, p: Block, x, ctx: Ctx):
     """Returns (x, cache entry, aux float32 0-d: the MoE router loss, 0
     without experts)."""
+    if cfg.seq_shard:
+        x = constrain(x, _SEQ_SPEC)
     h, cache = _MIXER[_mixer(kind)][1](cfg, kind, p.mixer,
-                                       rms_norm(x, p.norm1), ctx)
-    x = x + h
+                                       _gathered(rms_norm(x, p.norm1)), ctx)
+    x = x + _scattered(cfg, h)
+    if cfg.seq_shard:
+        x = constrain(x, _SEQ_SPEC)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _has_ffn(cfg, kind):
-        hin = rms_norm(x, p.norm2)
+        hin = _gathered(rms_norm(x, p.norm2))
         if _ffn_is_moe(cfg, kind):
             h2, aux = moe_apply(cfg, p.ffn, hin)
         else:
             h2 = ffn_apply(cfg, p.ffn, hin)
-        x = x + h2
+        x = x + _scattered(cfg, h2)
     return x, cache, aux
 
 
 def block_apply_dec(cfg: ModelConfig, kind: str, p: Block, x, cache,
                     ctx: Ctx):
+    # the inputs whole, as in block_apply_seq: a DTensor residual stream
+    # is left a pending sum by the row-parallel projections, which
+    # DTensor's index_add_ rule (the MoE dispatch) does not sum right
     h, cache = _MIXER[_mixer(kind)][2](cfg, kind, p.mixer,
-                                       rms_norm(x, p.norm1), cache, ctx)
+                                       _gathered(rms_norm(x, p.norm1)),
+                                       cache, ctx)
     x = x + h
     if _has_ffn(cfg, kind):
-        hin = rms_norm(x, p.norm2)
+        hin = _gathered(rms_norm(x, p.norm2))
         if _ffn_is_moe(cfg, kind):
             h2 = moe_apply(cfg, p.ffn, hin[:, None, :])[0][:, 0]
         else:
@@ -661,3 +833,27 @@ def block_apply_dec(cfg: ModelConfig, kind: str, p: Block, x, cache,
 def block_init_cache(cfg: ModelConfig, kind: str, B: int, cache_len: int,
                      dtype, device):
     return _MIXER[_mixer(kind)][3](cfg, B, cache_len, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Cache specs (the JAX package's *_cache_pspecs)
+# ---------------------------------------------------------------------------
+
+
+def block_cache_specs(cfg: ModelConfig, kind: str):
+    """The specs of one layer's cache entry: batch over the agent slot;
+    the kv cache's sequence (``kv_shard="seq"``, split-KV) or head dim
+    (``"heads"``) over "model"; the recurrent states' width over
+    "model"."""
+    a = AGENT_SLOT
+    mixer = _mixer(kind)
+    if mixer in ("attn", "attn_local"):
+        s = (a, None, None, "model") if cfg.kv_shard == "heads" \
+            else (a, "model", None, None)
+        return {"k": s, "v": s}
+    if mixer == "rglru":
+        return {"h": (a, "model"), "conv": (a, None, "model")}
+    if mixer == "mlstm":
+        return {"C": (a, None, "model", None), "n": (a, None, "model"),
+                "m": (a, None)}
+    return {name: (a, "model") for name in ("c", "n", "h", "m")}

@@ -8,10 +8,20 @@ plain functions on tensors and compute what their JAX namesakes compute:
 the input's dtype, and the training loss ``cross_entropy``.
 ``init_leaf`` is the JAX package's initialisation rule (``_init_leaf``)
 drawn from a ``torch.Generator``.
+
+Sharding specs: a spec is a plain tuple with one entry per tensor dim,
+each ``None``, a mesh axis name or a tuple of axis names (the JAX
+package's ``PartitionSpec`` read as a tuple).  The specs of the model's
+leaves are written against the multi-pod axes ("pod", "data", "model");
+``adapt_spec`` drops the axes a mesh lacks, and ``constrain`` is the
+counterpart of ``with_sharding_constraint``: it redistributes a
+``DTensor`` to a spec's placements and returns a plain tensor as it is.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Optional, Tuple
@@ -208,7 +218,8 @@ def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
     ang_all = positions3[..., None].float() * freqs            # (3, B, S, hd/2)
     owner = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))            # (hd/2,)
+        torch.as_tensor(sections, device=x.device),
+        output_size=hd // 2)                                   # (hd/2,)
     slot = torch.arange(hd // 2, device=x.device)
     ang = ang_all[owner, ..., slot].movedim(0, -1)             # (B, S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
@@ -224,10 +235,130 @@ def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
 
 def cross_entropy(logits, labels, mask=None):
     """Mean cross-entropy over valid positions, in float32; labels < 0
-    (and positions where ``mask`` is False) are ignored."""
+    (and positions where ``mask`` is False) are ignored.
+
+    Logits that are a ``DTensor`` (the dry run's vocabulary-sharded head)
+    go through ``F.cross_entropy``, which torch's ``loss_parallel``
+    computes on the shards; the caller enters that context, around the
+    backward pass too."""
     valid = labels >= 0 if mask is None else mask & (labels >= 0)
+    if is_dtensor(logits):
+        lab = torch.where(valid, labels, -100).long()
+        total = F.cross_entropy(logits.float().flatten(0, -2),
+                                lab.flatten(), ignore_index=-100,
+                                reduction="sum")
+        return total / valid.sum().clamp(min=1)
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     nll = torch.where(valid, logz - gold, 0.0)
     return nll.sum() / valid.sum().clamp(min=1)
+
+
+# ---------------------------------------------------------------------------
+# Sharding specs (counterpart of the JAX package's PartitionSpecs)
+# ---------------------------------------------------------------------------
+
+#: the agent (batch) slot of the specs: the axes agents are laid out over
+AGENT_SLOT = ("pod", "data")
+
+# Which mesh axes the agent (batch) slot of an activation constraint maps
+# to: ("pod", "data") when the batch spans the agents; () inside a
+# per-agent program, where each device holds one agent's batch
+_BATCH_AXES = contextvars.ContextVar("repro_torch_batch_axes",
+                                     default=AGENT_SLOT)
+
+
+@contextlib.contextmanager
+def batch_axes(names):
+    """Map the agent slot of ``constrain``'s specs to ``names`` inside
+    the block (``()``: the per-agent program, the slot unsharded)."""
+    token = _BATCH_AXES.set(tuple(names))
+    try:
+        yield
+    finally:
+        _BATCH_AXES.reset(token)
+
+
+def resolve_agent_slot(spec, agent):
+    """``spec`` with its agent slot mapped to the axes ``agent`` (``()``:
+    the slot unsharded)."""
+    return tuple((agent or None) if entry == AGENT_SLOT else entry
+                 for entry in spec)
+
+
+def adapt_spec(spec, axis_names):
+    """Drop the axes ``axis_names`` lacks from ``spec``: an entry of one
+    kept axis becomes that name, of none ``None`` (so ("pod", "data")
+    becomes "data" on a one-pod mesh)."""
+    out = []
+    for entry in spec:
+        if entry is None:
+            out.append(None)
+        elif isinstance(entry, (tuple, list)):
+            kept = tuple(a for a in entry if a in axis_names)
+            out.append(kept[0] if len(kept) == 1 else (kept or None))
+        else:
+            out.append(entry if entry in axis_names else None)
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor`` (without
+    importing torch.distributed)."""
+    return hasattr(x, "device_mesh") and hasattr(x, "to_local")
+
+
+def split_local(x):
+    """``(local, like)``: a ``DTensor``'s local shard and the ``DTensor``
+    itself, or ``(x, None)`` for any other tensor."""
+    return (x.to_local(), x) if is_dtensor(x) else (x, None)
+
+
+def like_local(local, like):
+    """``local`` laid out as ``like`` (:func:`split_local`'s second
+    value): a ``DTensor`` on ``like``'s mesh and placements, or ``local``
+    itself when ``like`` is None."""
+    if like is None:
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False)
+
+
+def spec_placements(spec, mesh_dim_names):
+    """The DTensor placements of ``spec`` on a mesh with these dim names:
+    ``Shard(d)`` on each mesh dim an entry of dim d names, ``Replicate()``
+    on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    where = {}
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, (tuple, list)) else (entry,)
+        for name in names:
+            if name is not None:
+                where[name] = d  # scatter: unique targets (one dim an axis)
+    return tuple(Shard(where[n]) if n in where else Replicate()
+                 for n in mesh_dim_names)
+
+
+def constrain(x, spec):
+    """Hold ``x`` to ``spec`` (the JAX package's sharding constraint): a
+    ``DTensor`` is redistributed to the spec's placements on its own mesh
+    (the agent slot resolved by :func:`batch_axes`, axes the mesh lacks
+    dropped, a dim its axes do not divide left whole); any other tensor
+    is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.mesh.shape))
+    spec = adapt_spec(resolve_agent_slot(spec, _BATCH_AXES.get()), names)
+
+    def divides(n, entry):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        return n % math.prod(sizes[a] for a in axes) == 0
+    spec = tuple(e if e is None or divides(n, e) else None
+                 for n, e in zip(x.shape, spec))
+    # redistributed even when already laid out so: its backward lays the
+    # gradient out the same way
+    return x.redistribute(mesh, spec_placements(spec, names))

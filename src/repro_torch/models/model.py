@@ -29,6 +29,13 @@ positions in decode) and drops the patches' logits; ``audio`` embeds
 codebooks, prepends ``batch["cond_embeds"]`` and has a (K, d, V) head:
 logits (B, K, S, V), and ``decode_step`` takes (B, K) tokens.  MoE
 blocks add their router loss to ``aux``.
+
+Sharding: :meth:`Model.param_specs`, :meth:`Model.cache_specs` and
+:meth:`Model.batch_specs` are the JAX package's ``param_pspecs``,
+``cache_pspecs`` and ``batch_pspecs`` as tuples (``common.constrain``);
+:meth:`Model.specs` keys the module's own weights' specs like
+``named_parameters()``, and :meth:`Model.input_specs` gives every input
+as a ``meta`` tensor.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import dataclasses
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -45,8 +53,9 @@ from repro_torch.tree import (tree_flatten, tree_map, tree_paths,
                               tree_unflatten)
 
 from .blocks import (Block, Ctx, block_apply_dec, block_apply_seq,
-                     block_init_cache)
-from .common import ModelConfig, cross_entropy, init_leaf, rms_norm
+                     block_cache_specs, block_init_cache, module_specs)
+from .common import (AGENT_SLOT, ModelConfig, constrain, cross_entropy,
+                     init_leaf, is_dtensor, rms_norm)
 
 
 class _Params(dict):
@@ -79,10 +88,19 @@ def _embed_tokens(cfg: ModelConfig, embed, tok, dtype):
     codebook order.  Each row is gathered, then cast (the same values as
     casting the whole table, as the JAX package does)."""
     tok = torch.as_tensor(tok, device=embed.device).long()
+
+    def rows(table, ids):
+        # a vocabulary-sharded DTensor table gathers through F.embedding
+        # (torch.distributed.tensor's masked shards), summed over the
+        # shards at once
+        if is_dtensor(table):
+            return constrain(F.embedding(ids, table), (None,) * (ids.dim()
+                                                                 + 1))
+        return table[ids]
     if cfg.family == "audio":
-        return sum(embed[k][tok[:, k]].to(dtype)
+        return sum(rows(embed[k], tok[:, k]).to(dtype)
                    for k in range(cfg.n_codebooks))
-    return embed[tok].to(dtype)
+    return rows(embed, tok).to(dtype)
 
 
 def _embed_batch(cfg: ModelConfig, embed, batch: Dict, dtype):
@@ -139,6 +157,7 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, kind, device, dtype)
                                     for kind in cfg.layer_kinds)
 
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
@@ -159,6 +178,106 @@ class Model(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    # -- sharding specs (the JAX package's pspecs, as tuples) ---------------
+
+    def _top_specs(self) -> Dict:
+        if self.cfg.family == "audio":
+            return {"embed": (None, "model", None),
+                    "unembed": (None, None, "model"), "final_norm": (None,)}
+        return {"embed": ("model", None), "unembed": (None, "model"),
+                "final_norm": (None,)}
+
+    def specs(self) -> Dict:
+        """The module's weights' specs, keyed like
+        ``named_parameters()``."""
+        top = self._top_specs()
+        out = {name: top[name] for name in ("embed", "unembed",
+                                            "final_norm")}
+        for i, layer in enumerate(self.layers):
+            out.update({f"layers.{i}.{k}": v
+                        for k, v in module_specs(layer).items()})
+        return out
+
+    def param_specs(self) -> Dict:
+        """The specs of the tree :meth:`abstract_params` lays out (the
+        JAX package's ``param_pspecs``): a stacked leaf's spec has a
+        ``None`` for its repetition dim."""
+        cfg = self.cfg
+        groups = []
+        for unit, reps in cfg.scan_groups():
+            groups.append({f"b{i}": _nest(
+                (name, (None,) + spec) for name, spec in
+                module_specs(Block(cfg, kind, "meta", cfg.param_dtype))
+                .items()) for i, kind in enumerate(unit)})
+        return {**self._top_specs(), "groups": groups}
+
+    def cache_specs(self) -> Dict:
+        """The JAX package's ``cache_pspecs``: one entry per scan group,
+        its blocks' cache specs with a ``None`` for the repetition dim,
+        and ``pos`` over the agent slot."""
+        cfg = self.cfg
+        layers = [{f"b{i}": {k: (None,) + v for k, v in
+                             block_cache_specs(cfg, kind).items()}
+                   for i, kind in enumerate(unit)}
+                  for unit, _ in cfg.scan_groups()]
+        return {"layers": layers, "pos": (AGENT_SLOT,)}
+
+    def batch_specs(self, mode: str = "train") -> Dict:
+        """The JAX package's ``batch_pspecs``: the batch dim over the
+        agent slot (``positions3``'s batch is its dim 1)."""
+        a = AGENT_SLOT
+        fam = self.cfg.family
+        if mode == "decode":
+            return {"batch": {"token": (a,)}, "cache": self.cache_specs()}
+        if fam == "audio":
+            return {"tokens": (a, None, None), "labels": (a, None, None),
+                    "cond_embeds": (a, None, None)}
+        if fam == "vlm":
+            return {"tokens": (a, None), "labels": (a, None),
+                    "patch_embeds": (a, None, None),
+                    "positions3": (None, a, None)}
+        return {"tokens": (a, None), "labels": (a, None)}
+
+    def input_specs(self, batch_size: int, seq_len: int, mode: str = "train",
+                    cache_len=None) -> Dict:
+        """Every input of a step as ``meta`` tensors (the JAX package's
+        ``ShapeDtypeStruct`` stand-ins): mode "train" / "prefill" a batch
+        of ``seq_len`` positions, the family's prefix included; mode
+        "decode" ``{"batch": {"token"}, "cache"}``, the cache laid out as
+        :meth:`init_cache` lays it out, ``cache_len`` (default
+        ``seq_len``) deep."""
+        cfg = self.cfg
+        i32 = torch.int32
+
+        def meta(*shape, dtype=i32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if mode == "decode":
+            tok = (batch_size, cfg.n_codebooks) if cfg.family == "audio" \
+                else (batch_size,)
+            cache = {"layers": [block_init_cache(
+                cfg, kind, batch_size, cache_len or seq_len,
+                cfg.compute_dtype, "meta") for kind in cfg.layer_kinds],
+                "pos": meta(batch_size)}
+            return {"batch": {"token": meta(*tok)}, "cache": cache}
+        cdt = cfg.compute_dtype
+        if cfg.family == "audio":
+            S_a = seq_len - cfg.n_cond_tokens
+            K = cfg.n_codebooks
+            return {"tokens": meta(batch_size, K, S_a),
+                    "labels": meta(batch_size, K, S_a),
+                    "cond_embeds": meta(batch_size, cfg.n_cond_tokens,
+                                        cfg.d_model, dtype=cdt)}
+        if cfg.family == "vlm":
+            S_t = seq_len - cfg.n_media_tokens
+            return {"tokens": meta(batch_size, S_t),
+                    "labels": meta(batch_size, S_t),
+                    "patch_embeds": meta(batch_size, cfg.n_media_tokens,
+                                         cfg.d_model, dtype=cdt),
+                    "positions3": meta(3, batch_size, seq_len)}
+        return {"tokens": meta(batch_size, seq_len),
+                "labels": meta(batch_size, seq_len)}
+
     def _ctx(self, x, positions3, **kw) -> Ctx:
         Btot, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(Btot, S)
@@ -173,10 +292,11 @@ class Model(nn.Module):
         logits (B, S, V) float32 ((B, K, S, V) for audio)."""
         x, p3, n_prefix = _embed_batch(self.cfg, self.embed, batch,
                                        self.embed.dtype)
+        x = constrain(x, (AGENT_SLOT, None, None))
         ctx = self._ctx(x, p3, window=window, cache_len=0)
         for layer in self.layers:
             x, _, _ = block_apply_seq(self.cfg, layer.kind, layer, x, ctx)
-        x = rms_norm(x, self.final_norm)
+        x = constrain(rms_norm(x, self.final_norm), (AGENT_SLOT, None, None))
         return _head(self.cfg, x[:, n_prefix:], self.unembed)
 
     # -- training: a forward over an explicit parameter tree ------------------
@@ -226,6 +346,7 @@ class Model(nn.Module):
             cfg = dataclasses.replace(cfg, attn_impl="chunked")
         cdt = cfg.compute_dtype
         x, p3, n_prefix = _embed_batch(cfg, params["embed"], batch, cdt)
+        x = constrain(x, (AGENT_SLOT, None, None))
         ctx = self._ctx(x, p3, window=window, cache_len=0)
 
         def cast(a):
@@ -246,7 +367,8 @@ class Model(nn.Module):
                 x, a = checkpoint(unit_apply, x, use_reentrant=False) \
                     if cfg.remat else unit_apply(x)
                 aux = aux + a
-        x = rms_norm(x, params["final_norm"])
+        x = constrain(rms_norm(x, params["final_norm"]),
+                      (AGENT_SLOT, None, None))
         return _head(cfg, x[:, n_prefix:], cast(params["unembed"])), aux
 
     def loss(self, params: Dict, batch: Dict, *, window="auto"):
@@ -286,6 +408,7 @@ class Model(nn.Module):
         for layer in self.layers:
             x, c, _ = block_apply_seq(self.cfg, layer.kind, layer, x, ctx)
             caches.append(c)
+        x = constrain(x, (AGENT_SLOT, None, None))
         logits = _head(self.cfg, rms_norm(x[:, -1:], self.final_norm),
                        self.unembed)
         return logits, {"layers": caches,

@@ -71,10 +71,28 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
 CHUNK = 1 << 25
 
 
+def _local(t):
+    """A ``DTensor``'s local shard (what this device holds and updates
+    elementwise); any other tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _laid_out_as(g, p):
+    """``g`` contiguous (autograd may give a strided gradient, as the
+    audio head's einsum does); a ``DTensor`` gradient first redistributed
+    to its parameter's placements (autograd may leave it partial or
+    replicated)."""
+    if hasattr(g, "redistribute") and \
+            tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g.contiguous()
+
+
 def slabs(*tensors, size: int = CHUNK):
     """Matching flat slices of at most ``size`` elements of contiguous
-    tensors of one size: views, so writing a slab writes the tensor."""
-    flat = [t.view(-1) for t in tensors]
+    tensors of one size: views, so writing a slab writes the tensor.  A
+    ``DTensor``'s slabs are of its local shard (tensors laid out alike)."""
+    flat = [_local(t).view(-1) for t in tensors]
     for lo in range(0, flat[0].numel(), size):
         yield [f[lo:lo + size] for f in flat]
 
@@ -87,16 +105,19 @@ def adamw_update_(params, grads, ms, vs, count, cfg: AdamWConfig,
     Writes the new parameters and moments into ``params``, ``ms`` and
     ``vs`` and returns ``(count + 1, grad_norm)``: the same values as
     :func:`adamw_update` on the trees those lists make up, the norm over
-    every gradient given."""
+    every gradient given.  ``DTensor`` leaves (the dry run's
+    tensor-parallel shards) are updated shard by shard, the norm summed
+    over every shard."""
     f = torch.float32
     count = count + 1
+    grads = [_laid_out_as(g, p) for p, g in zip(params, grads)]
     if cfg.grad_clip:
         gn = torch.sqrt(sum(torch.sum(torch.square(g.to(f)))
                             for g in grads))
         # a tensor numerator: torch computes ``float / tensor`` as a
         # reciprocal times the float, which rounds differently
-        scale = torch.clamp(torch.full_like(gn, cfg.grad_clip)
-                            / torch.clamp(gn, min=1e-9), max=1.0)
+        scale = _local(torch.clamp(torch.full_like(gn, cfg.grad_clip)
+                                   / torch.clamp(gn, min=1e-9), max=1.0))
     else:
         gn = torch.zeros((), dtype=f, device=count.device)
         scale = None

@@ -65,9 +65,10 @@ def mlp_problem():
 def runs(mesh):
     """Every run of the test on ``mesh``: MP (all_gather, ring, int8), CL
     (exact, and MLP agents), joint with re-compaction, the
-    reference_sharded sweep and the gossip coupling (each rank's agent on
-    a DistMesh)."""
-    from repro_torch.coupling import CouplingConfig, gossip_mix_tree
+    reference_sharded sweep, the gossip coupling and the dense coupling
+    of each mode (each rank's agent on a DistMesh)."""
+    from repro_torch.coupling import (CouplingConfig, gossip_mix_tree,
+                                      make_coupling)
     from repro_torch.kernels.dispatch import ReproBackend
     from repro_torch.launch import use_mesh
     from repro_torch.simulate import partition as pt
@@ -102,6 +103,15 @@ def runs(mesh):
     out["gossip"] = gossip_mix_tree(params, anchor, state,
                                     CouplingConfig(mode="mp", alpha=0.9),
                                     mesh)
+    # the dense schedule: all-gathered on a DistMesh, stacked on the
+    # LocalMesh (which the dense schedule does not use)
+    dist_mesh = mesh if mesh.kind == "dist" else None
+    for mode, kw in (("mp", {}), ("consensus", {}), ("cl", {}),
+                     ("mp", dict(mix_dtype=torch.bfloat16))):
+        cfg = CouplingConfig(mode=mode, alpha=0.9, mu=0.05, **kw)
+        name = "dense-" + mode + ("-bf16" if kw else "")
+        out[name] = make_coupling(cfg, state, mesh=dist_mesh)(
+            {k: v.clone() for k, v in params.items()}, anchor, 0)
     return out
 
 

@@ -27,8 +27,10 @@ stream's); and the partitioned simulator on a LocalMesh of the card (MP
 bit for bit with the per-op run and within 1e-5 of the fused one, CL bit
 for bit with the ``cl_edge_step`` run, joint learning with halo
 re-compaction bit for bit, ``cuda_sharded`` bit for bit with
-``reference_sharded`` and the single-device kernel sweep).  The kernels
-have no CPU mode: on a host without a CUDA card every test here skips.
+``reference_sharded`` and the single-device kernel sweep); and the dry
+run's predicted peak memory of a one-agent training step against the
+card's.  The kernels have no CPU mode: on a host without a CUDA card
+every test here skips.
 
 Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -998,3 +1000,28 @@ def test_cuda_sharded_sparse_mix_on_the_card(cuda):
                                    sparse_mix="reference_sharded"))
     assert torch.equal(got, plain)
     assert torch.equal(got, one)
+
+
+def test_dryrun_predicts_the_card_peak(cuda):
+    """``chip_smoke.py`` 10a at one layer: Llama-3-8B at full width, one
+    agent, batch 2 at sequence 1024, three ``make_train_step`` steps with
+    mp coupling on the card, and ``repro_torch.launch.dryrun`` of the same
+    configuration on a 1 x 1 mesh of the fake backend: the predicted
+    per-device peak within 25 % of ``max_memory_allocated``."""
+    import importlib.util
+    import pathlib
+    import subprocess
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cs.TRAIN_LAYERS = 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    rec, bad = cs.check_dryrun_card(torch, np, dispatch, cuda, smi)
+    assert bad is None, bad
+    assert rec["n_layers"] == 1
+    assert abs(rec["peak_rel_diff"]) <= cs.DRY_PEAK_RTOL

@@ -65,6 +65,9 @@ def test_imports_with_jax_blocked():
         "repro_torch.telemetry.frames, repro_torch.telemetry.manifest, "
         "repro_torch.telemetry.metrics, repro_torch.telemetry.report, "
         "repro_torch.experiments, repro_torch.experiments.sweep\n"
+        "import repro_torch.launch, repro_torch.launch.mesh, "
+        "repro_torch.launch.sharding, repro_torch.launch.shapes, "
+        "repro_torch.launch.cost, repro_torch.launch.dryrun\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

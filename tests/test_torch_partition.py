@@ -268,11 +268,11 @@ def test_local_mesh_equals_single_device(single, algo, P):
 
 
 @pytest.fixture(scope="module")
-def mlp_side():
-    """CL-ADMM with MLP agents (the data-hungry ``InexactPrimal`` path):
-    JAX's sharded run at this process's one device, and the port's
-    single-device run with telemetry on, both on JAX's stream and warm
-    start."""
+def mlp_jax():
+    """The JAX side of the MLP-agent problem: its topology, data, network
+    conditions, event stream, inexact primal and solitary warm start, and
+    ``run(theta_sol)``, JAX's single-device ``run_cl_scenario`` on them
+    from a given warm start."""
     jm = jflat.MLPAgent(in_dim=2, hidden=(4,))
     jt, jtrain, _, _ = jsyn.federated_moons_problem(**dw.MOONS)
     sol = np.asarray(jprimal.solitary_adamw(jtrain, loss="logistic",
@@ -283,14 +283,30 @@ def mlp_side():
         dw.MLP_RUN["batch"], dw.MLP_RUN["seed"], dw.MLP_RUN["rounds"])
     jp = jprimal.InexactPrimal(loss="logistic", model=jm, b_steps=4,
                                lr=0.05)
+    r = dw.MLP_RUN
+
+    def run(theta_sol):
+        return jeng.run_cl_scenario(
+            jt, jtrain, dw.MLP_MU, dw.MLP_RHO, jcond, r["rounds"],
+            r["batch"], seed=r["seed"], record_every=r["record_every"],
+            theta_sol=theta_sol, stream=js, primal=jp)
+    return dict(topo=jt, train=jtrain, cond=jcond, stream=js, primal=jp,
+                sol=sol, run=run)
+
+
+@pytest.fixture(scope="module")
+def mlp_side(mlp_jax):
+    """CL-ADMM with MLP agents (the data-hungry ``InexactPrimal`` path):
+    JAX's sharded run at this process's one device, and the port's
+    single-device run with telemetry on, both on JAX's stream and warm
+    start."""
+    j = mlp_jax
+    jt, jtrain, jcond, js, jp, sol = (j["topo"], j["train"], j["cond"],
+                                      j["stream"], j["primal"], j["sol"])
     want = jpart.run_cl_scenario_sharded(
         jt, jtrain, dw.MLP_MU, dw.MLP_RHO, jcond, **dw.MLP_RUN,
         theta_sol=sol, stream=js, primal=jp)
-    r = dw.MLP_RUN
-    jone = jeng.run_cl_scenario(
-        jt, jtrain, dw.MLP_MU, dw.MLP_RHO, jcond, r["rounds"], r["batch"],
-        seed=r["seed"], record_every=r["record_every"], theta_sol=sol,
-        stream=js, primal=jp)
+    jone = j["run"](sol)
     topo, _, _, primal = dw.mlp_problem()
     kw = dict(theta_sol=convert.agent_rows_from_arrays(sol, CPU),
               primal=primal, stream=convert.stream_from_arrays(js, CPU),
@@ -330,6 +346,29 @@ def test_inexact_primal_sharded_equals_single_device(mlp_side, P):
         np.testing.assert_array_equal(sh.active_hist.numpy(),
                                       np.asarray(want.active_hist))
         np.testing.assert_array_equal(np.asarray(want.theta_hist), jone)
+
+
+def test_mlp_drift_is_within_jax_rounding_sensitivity(mlp_jax, mlp_side):
+    """The port's single-device CL-ADMM with MLP agents under faults
+    leaves JAX's 1e-4 bar by the last record, and JAX leaves it too when
+    its own warm start moves by one float32 ulp: the trajectory amplifies
+    any rounding.  At every record the port's gap to JAX stays within
+    JAX's gap to itself from that one-ulp nudge (or 1e-5), and that
+    self-gap passes 1e-4 at the last record, so the bound is not
+    vacuous."""
+    (_, jone), _, _, _, one = mlp_side
+    sol = mlp_jax["sol"]
+    nudged = np.nextafter(sol, np.float32(np.inf))
+    assert nudged.dtype == np.float32 and np.all(nudged > sol)
+    jup = np.asarray(mlp_jax["run"](nudged).theta_hist)
+    port = one.theta_hist.numpy()
+    assert port.shape == jone.shape == jup.shape
+    axes = tuple(range(1, port.ndim))
+    gap = np.abs(port - jone).max(axis=axes)
+    self_gap = np.abs(jup - jone).max(axis=axes)
+    bound = np.maximum(1e-5, self_gap)
+    assert np.all(gap <= bound), (gap, self_gap)
+    assert self_gap[-1] > 1e-4, self_gap
 
 
 @pytest.mark.parametrize("algo", ["mp", "cl", "joint"])

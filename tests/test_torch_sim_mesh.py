@@ -15,8 +15,10 @@ dispatch implementations on the CPU.
   theta_hist within the port-vs-JAX bar (1e-5; 1e-4 under int8, whose
   codes can round apart where the inputs differ in the last bit);
 * one 4-rank gloo process group running MP, CL, joint learning, the
-  sharded sweep and the gossip coupling on a ``DistMesh``, bit for bit
-  against the ``LocalMesh`` of 4 shards.
+  sharded sweep, the gossip coupling and the dense coupling of every mode
+  (all-gathered, the stacked operator, this rank's row) on a
+  ``DistMesh``, bit for bit against the ``LocalMesh`` of 4 shards, whose
+  dense coupling is the tree operators on the stacked leaves.
 """
 
 import os
@@ -41,6 +43,9 @@ from repro.simulate import topology as jtopo  # noqa: E402
 import _dist_worker as dw  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
+from repro_torch.coupling import (CouplingConfig,  # noqa: E402
+                                  consensus_mean_tree, dense_mix_tree,
+                                  laplacian_pull_tree)
 from repro_torch.kernels import dispatch, ref  # noqa: E402
 from repro_torch.kernels import sparse_mix as tsm  # noqa: E402
 from repro_torch.kernels.sharded import sharded_sparse_mix  # noqa: E402
@@ -298,6 +303,12 @@ def test_jax_four_devices_against_the_local_mesh():
 # ---------------------------------------------------------------------------
 
 
+def assert_trees_equal(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -325,7 +336,7 @@ def test_gloo_dist_mesh_equals_the_local_mesh():
     assert want["recompactions"] >= 1
     for r, out in enumerate(got):
         for key, val in want.items():
-            if key == "gossip":
+            if key == "gossip" or key.startswith("dense-"):
                 for leaf in val:
                     assert torch.equal(out[key][leaf], val[leaf][r:r + 1])
             elif isinstance(val, torch.Tensor):
@@ -334,3 +345,13 @@ def test_gloo_dist_mesh_equals_the_local_mesh():
                 assert out[key] == val, (r, key)
     assert want["mp-overflow"] == want["cl-overflow"] == \
         want["cl-mlp-overflow"] == 0
+    # the stacked dense schedule is the coupling's tree operators
+    _, _, _, _, _, _, state, (params, anchor) = dw.problem()
+    assert_trees_equal(want["dense-mp"],
+                       dense_mix_tree(params, anchor, state,
+                                      CouplingConfig(mode="mp", alpha=0.9)))
+    assert_trees_equal(want["dense-consensus"],
+                       consensus_mean_tree(params, CouplingConfig()))
+    assert_trees_equal(want["dense-cl"],
+                       laplacian_pull_tree(params, state, CouplingConfig(),
+                                           0.05))
