@@ -228,6 +228,8 @@ def rank_main(rank: int, world: int, port: int, out_dir: str):
     """One rank: join the gloo group, run every family, save."""
     import torch.distributed as dist
 
+    torch.set_num_threads(1)       # as the parent (tests/_port_session.py)
+
     from repro_torch.launch.mesh import make_mesh
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)

@@ -40,6 +40,7 @@ from repro.simulate import topology as jtopo  # noqa: E402
 
 from _cl_rounds import CASES, election_round  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.core import sparse as tsparse  # noqa: E402
 from repro_torch.kernels import admm_update as tau  # noqa: E402
 from repro_torch.kernels import dispatch, ref as tref  # noqa: E402

@@ -8,7 +8,9 @@ steps)`` when every tick is recorded, one ``split`` per record chunk
 otherwise.  ``theta_hist`` and the final knowledge agree with JAX within
 1e-5 (float32 rounding of the same Eq. 6 arithmetic; measured below
 1e-6).  Within the port the sparse engine equals the dense one bit for
-bit, as the reference claims for itself (DESIGN.md §4).
+bit, as the reference claims for itself (DESIGN.md §4).  The JAX runs
+and their wake-ups come from a subprocess of their own that starts beside
+the tests before this module (``jax_references``; tests/_port_session.py).
 """
 
 import numpy as np
@@ -24,7 +26,9 @@ from repro.core import sparse as jsparse  # noqa: E402
 from repro.simulate import engines as jeng  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.core import graph as tgraph  # noqa: E402
 from repro_torch.core.model_propagation import async_gossip  # noqa: E402
 from repro_torch.core.sparse import tables_from_adjacency  # noqa: E402
@@ -73,37 +77,94 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_async_gossip_matches_jax(case):
+def as_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_dense(case):
+    """JAX's dense ``async_gossip`` on the case and its wake-ups."""
     make, steps, rec = CASES[case]
-    jg, tg, sol, c = problem(make)
+    jg, _, sol, c = problem(make)
     want = jmp.async_gossip(jg, sol, c, 0.9, steps=steps, seed=3,
                             record_every=rec)
     tabs = jsparse.to_device(jsparse.padded_neighbor_tables(jg))
-    draws = jax_draws(tabs, jg.n, 3, steps, rec)
-    got = async_gossip(tg, sol, c, 0.9, steps, record_every=rec,
-                       draws=draws, device=CPU)
-    assert got.theta_hist.shape == want.theta_hist.shape
-    close(got.theta_hist, want.theta_hist)
-    close(got.final_knowledge, want.final_knowledge)
-    np.testing.assert_array_equal(got.comms_hist, want.comms_hist)
+    return as_numpy({"theta_hist": want.theta_hist,
+                     "final_knowledge": want.final_knowledge,
+                     "comms_hist": want.comms_hist,
+                     "draws": jax_draws(tabs, jg.n, 3, steps, rec)})
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_sparse_async_gossip_matches_jax(case):
+def jax_sparse(case):
+    """JAX's ``sparse_async_gossip`` on the case and its wake-ups."""
     make, steps, rec = CASES[case]
-    jg, tg, sol, c = problem(make)
+    jg, _, sol, c = problem(make)
     jt = jtopo.SparseTopology.from_graph(jg)
     want = jeng.sparse_async_gossip(jt, sol, c, 0.9, steps=steps, seed=3,
                                     record_every=rec)
-    draws = jax_draws(jt.device_tables(), jg.n, 3, steps, rec)
+    return as_numpy({"theta_hist": want.theta_hist,
+                     "final_theta": want.final_theta,
+                     "final_knowledge": want.final_knowledge,
+                     "comms_hist": want.comms_hist,
+                     "draws": jax_draws(jt.device_tables(), jg.n, 3, steps,
+                                        rec)})
+
+
+def jax_isolated():
+    """JAX's ``sparse_async_gossip`` with a degree-0 agent, and its
+    wake-ups."""
+    from repro.core.sparse import tables_from_adjacency as jtables
+    jtabs, groups = isolated(jtables)
+    jt = jtopo.SparseTopology(jtabs, groups)
+    sol, c = isolated_models()
+    want = jeng.sparse_async_gossip(jt, sol, c, 0.9, steps=200, seed=0,
+                                    record_every=50)
+    return as_numpy({"theta_hist": want.theta_hist,
+                     "draws": jax_draws(jt.device_tables(), 12, 0, 200,
+                                        50)})
+
+
+def jax_references():
+    """The JAX side of the tests against JAX (run in a subprocess of its
+    own beside the tests before this module: tests/_port_session.py)."""
+    return {"dense": {case: jax_dense(case) for case in CASES},
+            "sparse": {case: jax_sparse(case) for case in CASES},
+            "isolated": jax_isolated()}
+
+
+_port_session.register(__name__, lambda: _port_session.ReferenceJob(
+    __name__, "jax_references"))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return _port_session.job(__name__).result()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_async_gossip_matches_jax(refs, case):
+    make, steps, rec = CASES[case]
+    _, tg, sol, c = problem(make)
+    want = refs["dense"][case]
+    got = async_gossip(tg, sol, c, 0.9, steps, record_every=rec,
+                       draws=want["draws"], device=CPU)
+    assert got.theta_hist.shape == want["theta_hist"].shape
+    close(got.theta_hist, want["theta_hist"])
+    close(got.final_knowledge, want["final_knowledge"])
+    np.testing.assert_array_equal(got.comms_hist, want["comms_hist"])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sparse_async_gossip_matches_jax(refs, case):
+    make, steps, rec = CASES[case]
+    _, tg, sol, c = problem(make)
+    want = refs["sparse"][case]
     got = sparse_async_gossip(SparseTopology.from_graph(tg), sol, c, 0.9,
-                              steps, record_every=rec, draws=draws,
+                              steps, record_every=rec, draws=want["draws"],
                               device=CPU)
-    close(got.theta_hist, want.theta_hist)
-    close(got.final_theta, want.final_theta)
-    close(got.final_knowledge, want.final_knowledge)
-    np.testing.assert_array_equal(got.comms_hist, want.comms_hist)
+    close(got.theta_hist, want["theta_hist"])
+    close(got.final_theta, want["final_theta"])
+    close(got.final_knowledge, want["final_knowledge"])
+    np.testing.assert_array_equal(got.comms_hist, want["comms_hist"])
 
 
 @pytest.mark.parametrize("seed", [0, 5])
@@ -148,26 +209,25 @@ def isolated(build_tables, n=12, iso=5):
     return tabs, groups
 
 
-def test_degree_zero_agent_is_a_no_op():
+def isolated_models():
+    rng = np.random.default_rng(4)
+    return rng.standard_normal((12, 2)).astype(np.float32), \
+        np.ones(12, np.float32)
+
+
+def test_degree_zero_agent_is_a_no_op(refs):
     """A degree-0 waker changes nothing: the isolated agent keeps its
     solitary model, and the run matches JAX's on the same wake-ups (which
     do reach the isolated agent)."""
-    from repro.core.sparse import tables_from_adjacency as jtables
-
-    jtabs, groups = isolated(jtables)
-    ttabs, _ = isolated(tables_from_adjacency)
-    jt = jtopo.SparseTopology(jtabs, groups)
+    ttabs, groups = isolated(tables_from_adjacency)
     tt = SparseTopology(ttabs, groups)
-    rng = np.random.default_rng(4)
-    sol = rng.standard_normal((12, 2)).astype(np.float32)
-    c = np.ones(12, np.float32)
-    want = jeng.sparse_async_gossip(jt, sol, c, 0.9, steps=200, seed=0,
-                                    record_every=50)
-    draws = jax_draws(jt.device_tables(), 12, 0, 200, 50)
+    sol, c = isolated_models()
+    want = refs["isolated"]
+    draws = want["draws"]
     assert (draws[0] == 5).any()
     got = sparse_async_gossip(tt, sol, c, 0.9, 200, record_every=50,
                               draws=draws, device=CPU)
-    close(got.theta_hist, want.theta_hist)
+    close(got.theta_hist, want["theta_hist"])
     assert torch.equal(got.final_theta[5], torch.as_tensor(sol[5]))
     # the dense engine builds its tables as JAX's does: no isolated agent
     g = tgraph.Graph(np.asarray(

@@ -28,6 +28,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402

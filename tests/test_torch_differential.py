@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _port_session import port_background_jobs  # noqa: E402,F401
+
 from repro_torch.core.losses import AgentData  # noqa: E402
 from repro_torch.core.primal import (ExactQuadraticPrimal,  # noqa: E402
                                      InexactPrimal)

@@ -16,45 +16,26 @@ values (1e-5, absolute, on values of order 1):
   each.
 """
 
-import os
-import socket
-import tempfile
-import time
-
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import _dtensor_worker as dw  # noqa: E402
+import _port_session  # noqa: E402
+from _port_session import port_background_jobs  # noqa: E402,F401
 
 TOL = 1e-5
 
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# the gloo group runs as a background job, beside the tests before this
+# module
+_port_session.register(__name__, lambda: _port_session.SpawnJob(
+    dw.rank_main, dw.WORLD), nprocs=dw.WORLD)
 
 
 @pytest.fixture(scope="module")
 def ranks():
     """Every rank's results, from one spawn of the gloo group."""
-    import torch.multiprocessing as mp
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.spawn(dw.rank_main, args=(dw.WORLD, _free_port(), tmp),
-                       nprocs=dw.WORLD, join=False)
-        deadline = time.monotonic() + 120
-        try:
-            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-                if time.monotonic() > deadline:
-                    raise TimeoutError("the gloo ranks did not finish in "
-                                       "120 s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
-                for r in range(dw.WORLD)]
+    return _port_session.job(__name__).results(timeout=120)
 
 
 @pytest.mark.parametrize("arch", dw.FAMILIES)

@@ -10,7 +10,9 @@ match exactly and ``theta_hist`` within 1e-5 (the bar of
 tests/test_round_fuse.py).  The port's own torch-drawn stream keeps the
 accounting invariant, and the sharding fields (with their knobs, and with
 serving) run the partitioned runners bit for bit with the single-device
-engines.
+engines.  The JAX runs and their streams come from a subprocess of their
+own that starts beside the tests before this module (``jax_references``;
+tests/_port_session.py).
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.dispatch import ReproBackend as JaxBackend  # noqa: E402
@@ -26,7 +29,9 @@ from repro.simulate import scheduler as jsched  # noqa: E402
 from repro.simulate import spec as jspec  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.simulate import (ScenarioSpec, get_scenario,  # noqa: E402
@@ -55,42 +60,86 @@ def port(sol, c):
     return convert.models_from_arrays(jnp.asarray(sol), jnp.asarray(c), CPU)
 
 
-def test_sparse_sync_mp_matches_jax(setup):
-    jt, tt, sol, c = setup
-    want = np.asarray(jeng.sparse_sync_mp(jt, sol, c, 0.9, sweeps=12))
-    got = sparse_sync_mp(tt, sol, c, 0.9, 12, device=CPU).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
-
-
 def jax_stream(jt, cond):
     return jsched.precompute_event_stream(
         jt.device_tables(), jnp.asarray(jt.partition_halves()), cond, BATCH,
         SEED, ROUNDS)
 
 
-def assert_trace_matches(got, want):
-    assert (got.delivered, got.dropped, got.invalid, got.rounds,
-            got.events) == (want.delivered, want.dropped, want.invalid,
-                            want.rounds, want.events)
-    np.testing.assert_array_equal(got.active_hist.numpy(),
-                                  np.asarray(want.active_hist))
-    np.testing.assert_allclose(got.theta_hist.numpy(),
-                               np.asarray(want.theta_hist), atol=1e-5,
-                               rtol=0)
+def trace_fields(tr):
+    """A JAX trace's counters and histories, as numpy."""
+    return {k: np.asarray(getattr(tr, k)) for k in (
+        "delivered", "dropped", "invalid", "rounds", "events",
+        "active_hist", "theta_hist")}
 
 
-@pytest.mark.parametrize("scenario", list_scenarios())
-def test_run_scenario_matches_jax(setup, scenario):
-    """Per-op and fused bodies replay the JAX run's events: counters
-    exact, trajectory within 1e-5 of the JAX per-op run."""
-    jt, tt, sol, c = setup
+def jax_problem():
+    jt = jtopo.random_geometric_topology(N, k=5, seed=0)
+    rng = np.random.default_rng(0)
+    sol = rng.standard_normal((N, P)).astype(np.float32)
+    c = rng.uniform(0.05, 1.0, N).astype(np.float32)
+    return jt, sol, c
+
+
+def jax_scenario(scenario, jt, sol, c, **kw):
+    """JAX's ``run_scenario(algo="mp")`` under ``scenario`` and the stream
+    of its events (``kw``: a JAX backend)."""
     cond_j = jsched.NetworkConditions(**vars(
         get_scenario(scenario).make_conditions(ROUNDS)))
     want = jspec.run_scenario(jspec.ScenarioSpec(
         algo="mp", topology=jt, conditions=cond_j, rounds=ROUNDS,
         batch=BATCH, seed=SEED, record_every=RECORD, theta_sol=sol, c=c,
-        alpha=0.9))
-    stream = convert.stream_from_arrays(jax_stream(jt, cond_j), CPU)
+        alpha=0.9, **kw))
+    stream = jax_stream(jt, cond_j)
+    return {"trace": trace_fields(want),
+            "stream": jax.tree_util.tree_map(np.asarray, stream)}
+
+
+def jax_references():
+    """The JAX side of the tests against JAX (run in a subprocess of its
+    own beside the tests before this module: tests/_port_session.py)."""
+    jt, sol, c = jax_problem()
+    return {"sync": np.asarray(jeng.sparse_sync_mp(jt, sol, c, 0.9,
+                                                   sweeps=12)),
+            "scenarios": {name: jax_scenario(name, jt, sol, c)
+                          for name in list_scenarios()},
+            "fused": jax_scenario("lossy-10", jt, sol, c,
+                                  backend=JaxBackend.using(
+                                      round_step="xla"))}
+
+
+_port_session.register(__name__, lambda: _port_session.ReferenceJob(
+    __name__, "jax_references"))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return _port_session.job(__name__).result()
+
+
+def test_sparse_sync_mp_matches_jax(setup, refs):
+    jt, tt, sol, c = setup
+    got = sparse_sync_mp(tt, sol, c, 0.9, 12, device=CPU).numpy()
+    np.testing.assert_allclose(got, refs["sync"], atol=1e-5, rtol=0)
+
+
+def assert_trace_matches(got, want):
+    assert (got.delivered, got.dropped, got.invalid, got.rounds,
+            got.events) == tuple(int(want[k]) for k in (
+                "delivered", "dropped", "invalid", "rounds", "events"))
+    np.testing.assert_array_equal(got.active_hist.numpy(),
+                                  want["active_hist"])
+    np.testing.assert_allclose(got.theta_hist.numpy(), want["theta_hist"],
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("scenario", list_scenarios())
+def test_run_scenario_matches_jax(setup, refs, scenario):
+    """Per-op and fused bodies replay the JAX run's events: counters
+    exact, trajectory within 1e-5 of the JAX per-op run."""
+    jt, tt, sol, c = setup
+    want = refs["scenarios"][scenario]
+    stream = convert.stream_from_arrays(want["stream"], CPU)
     cond = get_scenario(scenario).make_conditions(ROUNDS)
     sol_t, c_t = port(sol, c)
     for backend in (None, dispatch.ReproBackend()):
@@ -98,25 +147,21 @@ def test_run_scenario_matches_jax(setup, scenario):
             algo="mp", topology=tt, conditions=cond, rounds=ROUNDS,
             batch=BATCH, record_every=RECORD, theta_sol=sol_t, c=c_t,
             alpha=0.9, stream=stream, backend=backend, device=CPU))
-        assert_trace_matches(got, want)
+        assert_trace_matches(got, want["trace"])
 
 
-def test_fused_kernel_algorithm_drives_the_engine(setup):
+def test_fused_kernel_algorithm_drives_the_engine(setup, refs):
     """The fused body run through the reference round_step (the CUDA
     kernel's algorithm, in place) matches the JAX fused-XLA run."""
     jt, tt, sol, c = setup
     cond = get_scenario("lossy-10").make_conditions(ROUNDS)
-    cond_j = jsched.NetworkConditions(**vars(cond))
-    want = jspec.run_scenario(jspec.ScenarioSpec(
-        algo="mp", topology=jt, conditions=cond_j, rounds=ROUNDS,
-        batch=BATCH, seed=SEED, record_every=RECORD, theta_sol=sol, c=c,
-        alpha=0.9, backend=JaxBackend.using(round_step="xla")))
+    want = refs["fused"]
     got = run_scenario(ScenarioSpec(
         algo="mp", topology=tt, conditions=cond, rounds=ROUNDS, batch=BATCH,
         record_every=RECORD, theta_sol=sol, c=c, alpha=0.9,
-        stream=convert.stream_from_arrays(jax_stream(jt, cond_j), CPU),
+        stream=convert.stream_from_arrays(want["stream"], CPU),
         backend=dispatch.ReproBackend(), device=CPU))
-    assert_trace_matches(got, want)
+    assert_trace_matches(got, want["trace"])
 
 
 @pytest.mark.parametrize("scenario", ["straggler-tail", "churn-5",

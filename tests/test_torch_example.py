@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _port_session import port_background_jobs  # noqa: E402,F401
+
 EXAMPLE = pathlib.Path(__file__).resolve().parents[1] / "examples" \
     / "personalized_lm_torch.py"
 

@@ -10,8 +10,9 @@ across by ``convert.model_params_from_arrays``, on the same numpy inputs
 from a seed: ``forward`` logits and aux, ``loss`` (total, ce and aux), a
 prefill into a ring cache (12 slots for 16 positions; every cache leaf),
 and three ring decode steps (logits and every cache leaf after them).
-The JAX side runs under ``jax.jit``, once per arch (a module fixture),
-in the arch's default forms: the port's ``gather`` MoE and ``parallel``
+The JAX side runs under ``jax.jit``, once per arch, in a subprocess of
+its own that starts with the port's first test (``jax_references``;
+tests/_port_session.py), in the arch's default forms: the port's ``gather`` MoE and ``parallel``
 mLSTM are held against it too (the JAX package holds its own two forms
 equal, tests/test_parallel_forms.py), and the JAX forms themselves at the
 block level (``moe_apply`` in both forms, ``_mlstm_parallel``).
@@ -48,7 +49,9 @@ from repro.models import blocks as jblocks  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 
 import repro_torch.configs as tconfigs  # noqa: E402
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.convert import model_params_from_arrays  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
@@ -132,43 +135,82 @@ def layer_slots(cfg):
             for r in range(reps) for i in range(len(unit))]
 
 
-class Run:
-    """One case: both models with the same weights, and the JAX side's
-    outputs (jitted) for the arch's default forms."""
+def as_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
 
-    def __init__(self, arch, kw):
-        self.jc, self.tc = configs(arch)
-        self.tc = dataclasses.replace(self.tc, **kw)
-        jm = JModel(self.jc)
-        self.params = jm.init(jax.random.PRNGKey(0))
-        self.tm = TModel(self.tc, device="cpu")
-        self.tm.load_state_dict(model_params_from_arrays(
-            self.tc, self.params, device="cpu"))
-        assert self.tm.param_count() == jm.param_count()
-        self.batch = family_batch(self.tc, 1)
-        self.tokens = decode_tokens(self.tc, 5)
-        b = to_j(self.batch)
-        self.fwd = jax.jit(jm.forward)(self.params, b)
-        self.loss = jax.jit(jm.loss)(self.params, b)
-        self.prefill = jax.jit(lambda p, b: jm.prefill(p, b, CACHE))(
-            self.params, b)
-        dec = jax.jit(lambda p, c, t: jm.decode_step(p, c, {"token": t},
-                                                     ring=True))
-        cache, self.decoded = self.prefill[1], []
-        for tok in self.tokens:
-            logits, cache = dec(self.params, cache, jnp.asarray(tok))
-            self.decoded.append(logits)
-        self.dec_cache = cache
+
+def jax_run(arch):
+    """The JAX side of one arch, in its default forms, jitted: the
+    parameters (``init`` from ``PRNGKey(0)``), then ``forward``, ``loss``,
+    a prefill into the ring cache and three ring decode steps on the
+    family's inputs, as numpy."""
+    jc, _ = configs(arch)
+    jm = JModel(jc)
+    params = jm.init(jax.random.PRNGKey(0))
+    b = to_j(family_batch(jc, 1))
+    out = {"params": params,
+           "fwd": jax.jit(jm.forward)(params, b),
+           "loss": jax.jit(jm.loss)(params, b),
+           "prefill": jax.jit(lambda p, b: jm.prefill(p, b, CACHE))(
+               params, b)}
+    dec = jax.jit(lambda p, c, t: jm.decode_step(p, c, {"token": t},
+                                                 ring=True))
+    cache, out["decoded"] = out["prefill"][1], []
+    for tok in decode_tokens(jc, 5):
+        logits, cache = dec(params, cache, jnp.asarray(tok))
+        out["decoded"].append(logits)
+    out["dec_cache"] = cache
+    return as_numpy(out)
+
+
+def jax_references():
+    """:func:`jax_run` of every arch of ``CASES``, olmoe's loss gradient
+    and the flash route's training (run in a subprocess of its own beside
+    the tests before this module: tests/_port_session.py)."""
+    out = {"runs": {arch: jax_run(arch) for arch in dict.fromkeys(
+        arch for arch, _ in CASES.values())}}
+    out["olmoe_grad"] = jax_olmoe_gradient(
+        out["runs"]["olmoe-1b-7b"]["params"])
+    out["flash_training"] = jax_flash_training()
+    return out
 
 
 @pytest.fixture(scope="module")
-def runs():
+def refs():
+    return _port_session.job(__name__).result()
+
+
+_port_session.register(__name__, lambda: _port_session.ReferenceJob(
+    __name__, "jax_references"))
+
+
+class Run:
+    """One case: both models with the same weights, and the JAX side's
+    outputs (jitted, :func:`jax_run`) for the arch's default forms."""
+
+    def __init__(self, arch, kw, ref):
+        self.jc, self.tc = configs(arch)
+        self.tc = dataclasses.replace(self.tc, **kw)
+        self.params = ref["params"]
+        self.tm = TModel(self.tc, device="cpu")
+        self.tm.load_state_dict(model_params_from_arrays(
+            self.tc, self.params, device="cpu"))
+        assert self.tm.param_count() == JModel(self.jc).param_count()
+        self.batch = family_batch(self.tc, 1)
+        self.tokens = decode_tokens(self.tc, 5)
+        self.fwd, self.loss, self.prefill = (ref[k] for k in (
+            "fwd", "loss", "prefill"))
+        self.decoded, self.dec_cache = ref["decoded"], ref["dec_cache"]
+
+
+@pytest.fixture(scope="module")
+def runs(refs):
     made = {}
 
     def get(case):
         arch, kw = CASES[case]
         if arch not in made:
-            made[arch] = Run(arch, {})
+            made[arch] = Run(arch, {}, refs["runs"][arch])
         if case not in made:
             base = made[arch]
             run = made[case] = Run.__new__(Run)
@@ -306,11 +348,17 @@ def as_params(w):
     return _as_block({k: torch.as_tensor(v) for k, v in w.items()})
 
 
-def test_olmoe_loss_gradient_matches_jax(runs):
+def jax_olmoe_gradient(params):
+    """JAX's gradient of olmoe's loss at ``params`` on its inputs."""
+    jc, _ = configs("olmoe-1b-7b")
+    jm = JModel(jc)
+    return as_numpy(jax.jit(jax.grad(lambda p, b: jm.loss(p, b)[0]))(
+        params, to_j(family_batch(jc, 1))))
+
+
+def test_olmoe_loss_gradient_matches_jax(runs, refs):
     run = runs("olmoe")
-    jm = JModel(run.jc)
-    jgrad = jax.jit(jax.grad(lambda p, b: jm.loss(p, b)[0]))(
-        run.params, to_j(run.batch))
+    jgrad = refs["olmoe_grad"]
     tp = tree_map(lambda a: a.requires_grad_(), tparams_of(run.params))
     loss, _ = run.tm.loss(tp, to_t(run.batch))
     grads = torch.autograd.grad(loss, tree_leaves(tp))
@@ -320,22 +368,32 @@ def test_olmoe_loss_gradient_matches_jax(runs):
         close(g, j, atol=1e-5)
 
 
-def test_flash_trains_through_chunked_attention(monkeypatch):
-    """``attn_impl="flash"`` while autograd records: ``chunked_attention``
-    (the kernel has no backward), as the JAX package off the TPU; loss and
-    gradient against JAX's with the same config."""
-    monkeypatch.delenv("REPRO_PALLAS_INTERPRET", raising=False)
+def jax_flash_training():
+    """JAX's parameters (``PRNGKey(3)``), loss and gradient of reduced
+    llama3-8b with ``attn_impl="flash"`` off the TPU (interpret mode not
+    asked for), on its inputs."""
+    import os
+    os.environ.pop("REPRO_PALLAS_INTERPRET", None)
     jc = dataclasses.replace(jconfigs.get_config("llama3-8b", "reduced"),
                              compute_dtype=jnp.float32, attn_impl="flash",
                              attn_chunk=8)
+    jm = JModel(jc)
+    params = jm.init(jax.random.PRNGKey(3))
+    jloss, jgrad = jax.jit(jax.value_and_grad(
+        lambda p, b: jm.loss(p, b)[0]))(params, to_j(family_batch(jc, 4)))
+    return as_numpy({"params": params, "loss": jloss, "grad": jgrad})
+
+
+def test_flash_trains_through_chunked_attention(refs):
+    """``attn_impl="flash"`` while autograd records: ``chunked_attention``
+    (the kernel has no backward), as the JAX package off the TPU; loss and
+    gradient against JAX's with the same config."""
     tc = dataclasses.replace(tconfigs.get_config("llama3-8b", "reduced"),
                              compute_dtype=torch.float32, attn_impl="flash",
                              attn_chunk=8)
-    jm = JModel(jc)
-    params = jm.init(jax.random.PRNGKey(3))
+    want = refs["flash_training"]
+    params, jloss, jgrad = want["params"], want["loss"], want["grad"]
     batch = family_batch(tc, 4)
-    jloss, jgrad = jax.jit(jax.value_and_grad(
-        lambda p, b: jm.loss(p, b)[0]))(params, to_j(batch))
     tm = TModel(tc, device="meta")
     tp = tree_map(lambda a: a.requires_grad_(), tparams_of(params))
     loss, _ = tm.loss(tp, to_t(batch))

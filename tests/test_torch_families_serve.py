@@ -3,7 +3,9 @@ JAX package's ``Engine``: greedy decoding token for token for one MoE
 (olmoe-1b-7b), one RG-LRU hybrid (recurrentgemma-2b, local attention)
 and one xLSTM (xlstm-1.3b) REDUCED config in float32, three prompts
 through two slots, so that a finished slot is refilled and its cache
-entry (kv, or the recurrent state) spliced over the old one.  The prompts
+entry (kv, or the recurrent state) spliced over the old one.  The JAX
+engines run in a subprocess of their own that starts with the port's first
+test (``jax_references``; tests/_port_session.py).  The prompts
 share one length, so the JAX engine compiles one prefill.  The VLM and
 audio families need inputs beside the prompt's tokens, which neither
 engine passes to prefill; they are served by ``prefill`` and
@@ -26,7 +28,9 @@ from repro.serve import Engine as JEngine  # noqa: E402
 from repro.serve import ServeConfig as JServeConfig  # noqa: E402
 
 import repro_torch.configs as tconfigs  # noqa: E402
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.convert import model_params_from_arrays  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
 from repro_torch.serve import Engine as TEngine  # noqa: E402
@@ -35,34 +39,60 @@ from repro_torch.serve import ServeConfig as TServeConfig  # noqa: E402
 SERVE = dict(batch_size=2, cache_len=32, max_new_tokens=5, temperature=0.0)
 
 
-def pair(arch):
-    jc = dataclasses.replace(jconfigs.get_config(arch, "reduced"),
-                             compute_dtype=jnp.float32)
-    tc = dataclasses.replace(tconfigs.get_config(arch, "reduced"),
-                             compute_dtype=torch.float32)
+ARCHS = ("olmoe-1b-7b", "recurrentgemma-2b", "xlstm-1.3b")
+
+
+def configs(arch):
+    return (dataclasses.replace(jconfigs.get_config(arch, "reduced"),
+                                compute_dtype=jnp.float32),
+            dataclasses.replace(tconfigs.get_config(arch, "reduced"),
+                                compute_dtype=torch.float32))
+
+
+def engine_prompts(cfg):
+    rng = np.random.default_rng(21)
+    return [rng.integers(0, cfg.vocab_size, n) for n in (9, 9, 9)]
+
+
+def jax_engine(arch):
+    """The JAX engine's run of the arch: its parameters (``PRNGKey(1)``),
+    request ids, outputs, ``exhausted`` and first layer's cache keys."""
+    jc, _ = configs(arch)
     jm = JModel(jc)
     params = jm.init(jax.random.PRNGKey(1))
-    tm = TModel(tc, device="cpu")
-    tm.load_state_dict(model_params_from_arrays(tc, params, device="cpu"))
-    return jm, params, tm
-
-
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b",
-                                  "xlstm-1.3b"])
-def test_engine_greedy_matches_jax(arch):
-    jm, params, tm = pair(arch)
-    rng = np.random.default_rng(21)
-    prompts = [rng.integers(0, tm.cfg.vocab_size, n) for n in (9, 9, 9)]
     je = JEngine(jm, params, JServeConfig(**SERVE))
+    ids = [int(je.submit(p)) for p in engine_prompts(jc)]
+    jout = je.run()
+    return {"params": jax.tree_util.tree_map(np.asarray, params),
+            "ids": ids, "exhausted": bool(je.exhausted),
+            "out": {int(k): [int(t) for t in v] for k, v in jout.items()},
+            "cache_keys": sorted(je.cache["layers"][0]["b0"])}
+
+
+def jax_references():
+    """:func:`jax_engine` of every arch (run in a subprocess of its own
+    beside the tests before this module: tests/_port_session.py)."""
+    return {arch: jax_engine(arch) for arch in ARCHS}
+
+
+_port_session.register(__name__, lambda: _port_session.ReferenceJob(
+    __name__, "jax_references"))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_greedy_matches_jax(arch):
+    want = _port_session.job(__name__).result()[arch]
+    _, tc = configs(arch)
+    tm = TModel(tc, device="cpu")
+    tm.load_state_dict(model_params_from_arrays(tc, want["params"],
+                                                device="cpu"))
     te = TEngine(tm, TServeConfig(**SERVE))
-    assert [je.submit(p) for p in prompts] == \
-        [te.submit(p) for p in prompts]
-    jout, tout = je.run(), te.run()
-    assert not te.exhausted and not je.exhausted
-    assert tout == jout
+    assert [te.submit(p) for p in engine_prompts(tm.cfg)] == want["ids"]
+    tout = te.run()
+    assert not te.exhausted and not want["exhausted"]
+    assert tout == want["out"]
     assert all(len(v) == SERVE["max_new_tokens"] for v in tout.values())
-    assert sorted(te.cache["layers"][0]) == \
-        sorted(je.cache["layers"][0]["b0"])
+    assert sorted(te.cache["layers"][0]) == want["cache_keys"]
 
 
 def test_engine_token_shape_per_family():

@@ -7,12 +7,13 @@ on the CPU."""
 import ast
 import os
 import pathlib
-import subprocess
-import sys
 
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _port_session  # noqa: E402
+from _port_session import port_background_jobs  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
@@ -39,42 +40,53 @@ def test_no_jax_or_repro_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
-def test_imports_with_jax_blocked():
-    code = (
-        "import sys\n"
-        "for m in ('jax', 'jaxlib', 'repro'):\n"
-        "    sys.modules[m] = None\n"
-        "import repro_torch, repro_torch.convert, repro_torch.core, "
-        "repro_torch.data, repro_torch.simulate, repro_torch.kernels\n"
-        "import repro_torch.core.collaborative, repro_torch.core.consensus, "
-        "repro_torch.core.primal, repro_torch.kernels.admm_update, "
-        "repro_torch.kernels.round_fuse\n"
-        "import repro_torch.configs, repro_torch.configs.llama3_8b, "
-        "repro_torch.configs.deepseek_7b, "
-        "repro_torch.configs.starcoder2_15b, "
-        "repro_torch.configs.minitron_8b, "
-        "repro_torch.kernels.flash_attention, "
-        "repro_torch.models, repro_torch.models.attention, "
-        "repro_torch.models.blocks, repro_torch.models.common, "
-        "repro_torch.models.model, repro_torch.serve, "
-        "repro_torch.serve.engine\n"
-        "import repro_torch.core.graph_learning, repro_torch.optim, "
-        "repro_torch.optim.adamw, repro_torch.models.flatten, "
-        "repro_torch.tree\n"
-        "import repro_torch.telemetry, repro_torch.telemetry.config, "
-        "repro_torch.telemetry.frames, repro_torch.telemetry.manifest, "
-        "repro_torch.telemetry.metrics, repro_torch.telemetry.report, "
-        "repro_torch.experiments, repro_torch.experiments.sweep\n"
-        "import repro_torch.launch, repro_torch.launch.mesh, "
-        "repro_torch.launch.sharding, repro_torch.launch.shapes, "
-        "repro_torch.launch.cost, repro_torch.launch.dryrun\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
-        "               for m in sys.modules if sys.modules[m] is not None)\n"
-        "print('ok')\n")
+BLOCKED_IMPORTS = (
+    "import sys\n"
+    "for m in ('jax', 'jaxlib', 'repro'):\n"
+    "    sys.modules[m] = None\n"
+    "import repro_torch, repro_torch.convert, repro_torch.core, "
+    "repro_torch.data, repro_torch.simulate, repro_torch.kernels\n"
+    "import repro_torch.core.collaborative, repro_torch.core.consensus, "
+    "repro_torch.core.primal, repro_torch.kernels.admm_update, "
+    "repro_torch.kernels.round_fuse\n"
+    "import repro_torch.configs, repro_torch.configs.llama3_8b, "
+    "repro_torch.configs.deepseek_7b, "
+    "repro_torch.configs.starcoder2_15b, "
+    "repro_torch.configs.minitron_8b, "
+    "repro_torch.kernels.flash_attention, "
+    "repro_torch.models, repro_torch.models.attention, "
+    "repro_torch.models.blocks, repro_torch.models.common, "
+    "repro_torch.models.model, repro_torch.serve, "
+    "repro_torch.serve.engine\n"
+    "import repro_torch.core.graph_learning, repro_torch.optim, "
+    "repro_torch.optim.adamw, repro_torch.models.flatten, "
+    "repro_torch.tree\n"
+    "import repro_torch.telemetry, repro_torch.telemetry.config, "
+    "repro_torch.telemetry.frames, repro_torch.telemetry.manifest, "
+    "repro_torch.telemetry.metrics, repro_torch.telemetry.report, "
+    "repro_torch.experiments, repro_torch.experiments.sweep\n"
+    "import repro_torch.launch, repro_torch.launch.mesh, "
+    "repro_torch.launch.sharding, repro_torch.launch.shapes, "
+    "repro_torch.launch.cost, repro_torch.launch.dryrun\n"
+    "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+    "               for m in sys.modules if sys.modules[m] is not None)\n"
+    "print('ok')\n")
+
+
+def start_blocked_imports():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0 and "ok" in res.stdout, res.stderr
+    return _port_session.SubprocessJob(BLOCKED_IMPORTS, env=env, cwd=REPO)
+
+
+# a background job: it starts with the port's first test
+_port_session.register(__name__, start_blocked_imports)
+
+
+def test_imports_with_jax_blocked():
+    """The package's modules import with ``jax`` and ``repro``
+    unavailable."""
+    rc, log = _port_session.job(__name__).wait(timeout=120)
+    assert rc == 0 and "ok" in log, log
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -33,6 +33,7 @@ from repro.simulate import scheduler as jsched  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import graph_learning as tgl  # noqa: E402
 from repro_torch.data.synthetic import two_cluster_mean_problem  # noqa: E402

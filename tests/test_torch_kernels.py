@@ -26,6 +26,7 @@ from repro.kernels.sparse_mix import \
     sparse_gather_mix as pallas_sparse_mix  # noqa: E402
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.kernels import dispatch, ref as tref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import graph_mix as tgm  # noqa: E402

@@ -34,7 +34,9 @@ from repro.serve import Engine as JEngine  # noqa: E402
 from repro.serve import ServeConfig as JServeConfig  # noqa: E402
 
 import repro_torch.configs as tconfigs  # noqa: E402
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.convert import model_params_from_arrays  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
@@ -122,22 +124,19 @@ def test_basic_layers_match():
 # ---------------------------------------------------------------------------
 
 
-def pair(arch, impl, monkeypatch):
-    """The same REDUCED model in both frameworks, float32, chunk 8."""
-    if impl == "flash":       # the JAX side runs the Pallas kernel
-        monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
-    jc = dataclasses.replace(jconfigs.get_config(arch, "reduced"),
-                             compute_dtype=jnp.float32, attn_impl=impl,
-                             attn_chunk=8)
-    tc = dataclasses.replace(tconfigs.get_config(arch, "reduced"),
-                             compute_dtype=torch.float32, attn_impl=impl,
-                             attn_chunk=8)
-    jm = JModel(jc)
-    params = jm.init(jax.random.PRNGKey(0))
+def configs(arch, impl):
+    """The same REDUCED config in both frameworks, float32, chunk 8."""
+    kw = dict(attn_impl=impl, attn_chunk=8)
+    return (dataclasses.replace(jconfigs.get_config(arch, "reduced"),
+                                compute_dtype=jnp.float32, **kw),
+            dataclasses.replace(tconfigs.get_config(arch, "reduced"),
+                                compute_dtype=torch.float32, **kw))
+
+
+def port_model(tc, params):
     tm = TModel(tc, device="cpu")
     tm.load_state_dict(model_params_from_arrays(tc, params, device="cpu"))
-    assert tm.param_count() == jm.param_count()
-    return jm, params, tm
+    return tm
 
 
 def close(t, j, atol=ATOL):
@@ -146,20 +145,110 @@ def close(t, j, atol=ATOL):
 
 ROUTES = [(a, i) for a in ("llama3-8b", "starcoder2-15b")
           for i in ("ref", "chunked", "flash")]
+DECODES = [(a, r) for a in ("llama3-8b", "starcoder2-15b")
+           for r in (False, True)]
+
+
+def forward_tokens():
+    return np.random.default_rng(1).integers(0, 512, (2, 32)) \
+        .astype(np.int32)
+
+
+def jax_forward_and_prefill(arch, impl):
+    """The JAX side of a route: parameters from ``PRNGKey(0)``, the
+    forward logits, and a prefill into a cache of 40 and a ring of 24
+    (the ``flash`` route runs the Pallas kernel in interpret mode)."""
+    import os
+    jc, _ = configs(arch, impl)
+    jm = JModel(jc)
+    params = jm.init(jax.random.PRNGKey(0))
+    toks = jnp.asarray(forward_tokens())
+    old = os.environ.get("REPRO_PALLAS_INTERPRET")
+    if impl == "flash":
+        os.environ["REPRO_PALLAS_INTERPRET"] = "1"
+    try:
+        out = {"params": params,
+               "forward": jm.forward(params, {"tokens": toks})[0],
+               "prefill": {n: jm.prefill(params, {"tokens": toks},
+                                         cache_len=n) for n in (40, 24)}}
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_PALLAS_INTERPRET", None)
+        else:
+            os.environ["REPRO_PALLAS_INTERPRET"] = old
+    return out
+
+
+def decode_inputs(ring):
+    """The prompt, the cache length and the decode tokens' generator."""
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, 512, (2, 24)).astype(np.int32)
+    return toks, (16 if ring else 25), rng
+
+
+def jax_decode(arch, ring, params):
+    """The JAX side of a decode case on the ``ref`` route: per request
+    (rows at positions 24 and 21) and lockstep, three decode steps' logits
+    and the k caches after them."""
+    jc, _ = configs(arch, "ref")
+    jm = JModel(jc)
+    toks, cache_len, rng = decode_inputs(ring)
+    out = {}
+    for lockstep in (False, True):
+        _, jcache = jm.prefill(params, {"tokens": jnp.asarray(toks)},
+                               cache_len=cache_len)
+        if not lockstep:                     # rows at different positions
+            jcache["pos"] = jnp.asarray([24, 21], jnp.int32)
+        logits = []
+        for step in range(3):
+            tok = rng.integers(0, 512, (2,)).astype(np.int32)
+            jl, jcache = jm.decode_step(params, jcache,
+                                        {"token": jnp.asarray(tok)},
+                                        ring=ring, lockstep=lockstep)
+            logits.append(jl)
+        out[lockstep] = {"logits": logits,
+                         "k": jcache["layers"][0]["b0"]["k"]}
+    return out
+
+
+def as_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_references():
+    """The JAX side of the route, decode and engine tests (run in a
+    subprocess of its own beside the tests before this module:
+    tests/_port_session.py)."""
+    routes = {case: jax_forward_and_prefill(*case) for case in ROUTES}
+    decodes = {(arch, ring): jax_decode(arch, ring,
+                                        routes[arch, "ref"]["params"])
+               for arch, ring in DECODES}
+    return {"routes": as_numpy(routes), "decodes": as_numpy(decodes),
+            "engines": jax_engines()}
+
+
+_port_session.register(__name__, lambda: _port_session.ReferenceJob(
+    __name__, "jax_references"))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return _port_session.job(__name__).result()
 
 
 @pytest.mark.parametrize("arch,impl", ROUTES)
-def test_forward_and_prefill_match_jax(arch, impl, monkeypatch):
-    jm, params, tm = pair(arch, impl, monkeypatch)
-    toks = np.random.default_rng(1).integers(0, 512, (2, 32)).astype(np.int32)
+def test_forward_and_prefill_match_jax(refs, arch, impl):
+    want = refs["routes"][arch, impl]
+    jc, tc = configs(arch, impl)
+    tm = port_model(tc, want["params"])
+    assert tm.param_count() == JModel(jc).param_count()
+    toks = forward_tokens()
     dispatch.reset_launch_counts()
-    close(tm.forward({"tokens": torch.as_tensor(toks)}),
-          jm.forward(params, {"tokens": jnp.asarray(toks)})[0])
+    close(tm.forward({"tokens": torch.as_tensor(toks)}), want["forward"])
     for cache_len in (40, 24):               # 24 < 32: a ring cache
         tl, tcache = tm.prefill({"tokens": torch.as_tensor(toks)},
                                 cache_len=cache_len)
-        jl, jcache = jm.prefill(params, {"tokens": jnp.asarray(toks)},
-                                cache_len=cache_len)
+        jl, jcache = want["prefill"][cache_len]
         close(tl, jl)
         np.testing.assert_array_equal(tcache["pos"].numpy(),
                                       np.asarray(jcache["pos"]))
@@ -171,33 +260,27 @@ def test_forward_and_prefill_match_jax(arch, impl, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "starcoder2-15b"])
 @pytest.mark.parametrize("ring", [False, True])
-def test_decode_step_matches_jax(arch, ring, monkeypatch):
+def test_decode_step_matches_jax(refs, arch, ring):
     """Per-request positions (different per row) and lockstep; a non-ring
     cache one slot longer than the prompt, so that later tokens fall past
     its end (dropped per request, clamped in lockstep, as in JAX).  Decode
     takes no attention route, so one prefill route does."""
-    jm, params, tm = pair(arch, "ref", monkeypatch)
-    rng = np.random.default_rng(2)
-    toks = rng.integers(0, 512, (2, 24)).astype(np.int32)
-    cache_len = 16 if ring else 25
+    _, tc = configs(arch, "ref")
+    tm = port_model(tc, refs["routes"][arch, "ref"]["params"])
+    want = refs["decodes"][arch, ring]
+    toks, cache_len, rng = decode_inputs(ring)
     for lockstep in (False, True):
         _, tcache = tm.prefill({"tokens": torch.as_tensor(toks)},
                                cache_len=cache_len)
-        _, jcache = jm.prefill(params, {"tokens": jnp.asarray(toks)},
-                               cache_len=cache_len)
         if not lockstep:                     # rows at different positions
             tcache["pos"] = torch.tensor([24, 21], dtype=torch.int32)
-            jcache["pos"] = jnp.asarray([24, 21], jnp.int32)
         for step in range(3):
             tok = rng.integers(0, 512, (2,)).astype(np.int32)
             tl, tcache = tm.decode_step(tcache, {"token": torch.as_tensor(
                 tok)}, ring=ring, lockstep=lockstep)
-            jl, jcache = jm.decode_step(params, jcache,
-                                        {"token": jnp.asarray(tok)},
-                                        ring=ring, lockstep=lockstep)
-            close(tl, jl)
+            close(tl, want[lockstep]["logits"][step])
         for layer, c in enumerate(tcache["layers"]):
-            close(c["k"], jcache["layers"][0]["b0"]["k"][layer])
+            close(c["k"], want[lockstep]["k"][layer])
 
 
 def test_init_draws_and_norms():
@@ -237,17 +320,10 @@ def test_unported_blocks_raise():
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def engines_pair():
-    kw = dict(name="serve-test", family="dense", n_layers=2, d_model=64,
-              n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=128,
-              attn_impl="ref", remat=False)
-    jm = JModel(JModelConfig(**kw, compute_dtype=jnp.float32))
-    params = jm.init(jax.random.PRNGKey(0))
-    tcfg = TModelConfig(**kw, compute_dtype=torch.float32)
-    tm = TModel(tcfg, device="cpu")
-    tm.load_state_dict(model_params_from_arrays(tcfg, params, device="cpu"))
-    return jm, params, tm
+ENGINE_KW = dict(name="serve-test", family="dense", n_layers=2, d_model=64,
+                 n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=128,
+                 attn_impl="ref", remat=False)
+ENGINE_CASES = ("recycle", "eos_mid", "eos_first", "exhausted")
 
 
 def prompts(k, lens=(7, 11, 5, 9)):
@@ -255,50 +331,76 @@ def prompts(k, lens=(7, 11, 5, 9)):
     return [rng.integers(0, 128, (lens[i % len(lens)],)) for i in range(k)]
 
 
-def both(engines_pair, ps, max_ticks=10_000, **cfg):
-    jm, params, tm = engines_pair
-    je = JEngine(jm, params, JServeConfig(**cfg))
-    te = TEngine(tm, TServeConfig(**cfg))
-    jr = [je.submit(p) for p in ps]
-    tr = [te.submit(p) for p in ps]
-    assert jr == tr
-    jout, tout = je.run(max_ticks), te.run(max_ticks)
-    assert je.exhausted == te.exhausted
-    return jout, tout, te
-
-
-def free_run(engines_pair, p, eos_pick):
-    """Greedy run of one prompt (8 tokens) and the EOS id picked from it."""
-    jout, tout, _ = both(engines_pair, [p], batch_size=1, cache_len=64,
-                         max_new_tokens=8, temperature=0.0)
-    assert jout == tout
-    return int(jout[0][eos_pick])
-
-
-@pytest.mark.parametrize("case", ["recycle", "eos_mid", "eos_first",
-                                  "exhausted"])
-def test_engine_greedy_matches_jax(engines_pair, case):
+def engine_runs(case):
+    """The case's engine runs, in order: ``(prompts, max_ticks, config,
+    eos_pick)``; ``eos_pick`` names the run and position whose token the
+    next run takes as its EOS id (the free run's)."""
     if case == "recycle":          # 3 requests through 2 slots
-        jout, tout, te = both(engines_pair, prompts(3), batch_size=2,
-                              cache_len=64, max_new_tokens=6,
-                              temperature=0.0)
+        return [(prompts(3), 10_000, dict(batch_size=2, cache_len=64,
+                                          max_new_tokens=6,
+                                          temperature=0.0), None)]
+    ps = prompts(2)
+    cfg = dict(batch_size=1, cache_len=64, max_new_tokens=8,
+               temperature=0.0)
+    if case in ("eos_mid", "eos_first"):
+        # a free run of the first prompt picks the EOS id
+        return [([ps[0]], 10_000, cfg, 2 if case == "eos_mid" else 1),
+                (ps, 10_000, cfg, None)]
+    return [(ps, 3, cfg, None)]    # the tick budget runs out
+
+
+def jax_engines():
+    """The JAX engine's ids, outputs and ``exhausted`` for every run of
+    every engine case, with the model's parameters."""
+    jm = JModel(JModelConfig(**ENGINE_KW, compute_dtype=jnp.float32))
+    params = jm.init(jax.random.PRNGKey(0))
+    out = {"params": as_numpy(params)}
+    for case in ENGINE_CASES:
+        eos, runs = None, []
+        for ps, max_ticks, cfg, eos_pick in engine_runs(case):
+            je = JEngine(jm, params, JServeConfig(
+                **cfg, **({} if eos is None else {"eos_id": eos})))
+            ids = [je.submit(p) for p in ps]
+            jout = je.run(max_ticks)
+            runs.append({"ids": [int(i) for i in ids],
+                         "out": {int(k): [int(t) for t in v]
+                                 for k, v in jout.items()},
+                         "exhausted": bool(je.exhausted), "eos": eos})
+            if eos_pick is not None:
+                eos = int(jout[0][eos_pick])
+        out[case] = runs
+    return out
+
+
+@pytest.fixture(scope="module")
+def engine_model(refs):
+    tcfg = TModelConfig(**ENGINE_KW, compute_dtype=torch.float32)
+    return port_model(tcfg, refs["engines"]["params"])
+
+
+@pytest.mark.parametrize("case", ENGINE_CASES)
+def test_engine_greedy_matches_jax(refs, engine_model, case):
+    """The port's engine against the JAX engine's runs of the case: the
+    same request ids, the same greedy tokens and the same ``exhausted``,
+    run after run (an EOS id picked from the free run)."""
+    for (ps, max_ticks, cfg, _), want in zip(engine_runs(case),
+                                             refs["engines"][case]):
+        eos = want["eos"]
+        te = TEngine(engine_model, TServeConfig(
+            **cfg, **({} if eos is None else {"eos_id": eos})))
+        assert [te.submit(p) for p in ps] == want["ids"]
+        tout = te.run(max_ticks)
+        assert te.exhausted == want["exhausted"]
+        assert tout == want["out"]
+    if case == "recycle":
         assert all(len(v) == 6 for v in tout.values())
     elif case in ("eos_mid", "eos_first"):
-        ps = prompts(2)
-        eos = free_run(engines_pair, ps[0], 2 if case == "eos_mid" else 1)
-        jout, tout, te = both(engines_pair, ps, batch_size=1, cache_len=64,
-                              max_new_tokens=8, temperature=0.0, eos_id=eos)
         assert tout[0][-1] == eos and len(tout[0]) < 8
-    else:                          # tick budget runs out, then resumes
-        ps = prompts(2)
-        jout, tout, te = both(engines_pair, ps, max_ticks=3, batch_size=1,
-                              cache_len=64, max_new_tokens=8,
-                              temperature=0.0)
+    else:                          # the budget ran out; the engine resumes
         assert te.exhausted and tout == {}
         tout = te.run()
         assert not te.exhausted and len(tout) == 2
         return
-    assert tout == jout
     assert not any(s.active for s in te.slots) and not te._pending
 
 

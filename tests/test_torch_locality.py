@@ -20,6 +20,7 @@ from repro.simulate import engines as jeng  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.core.graph import Graph  # noqa: E402
 from repro_torch.core.sparse import padded_neighbor_tables  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402

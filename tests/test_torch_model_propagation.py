@@ -13,6 +13,7 @@ from repro.core import model_propagation as jmp  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.core import graph as tgraph  # noqa: E402
 from repro_torch.core import losses as tlosses  # noqa: E402
 from repro_torch.core import model_propagation as tmp  # noqa: E402

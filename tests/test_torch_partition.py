@@ -21,6 +21,9 @@ the CPU.
 * the sharded telemetry frames equal to the single-device ones;
 * an assignment beyond the mesh raises; a too-small buffer counts its
   overflow.
+
+JAX's runs come from a subprocess of their own that starts beside the
+tests before this module (``jax_references``; tests/_port_session.py).
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import primal as jprimal  # noqa: E402
@@ -42,7 +46,9 @@ from repro.simulate import scheduler as jsched  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
 import _dist_worker as dw  # noqa: E402
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.sparse import tables_from_adjacency  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
@@ -136,12 +142,20 @@ def test_capacity_heuristics_match_jax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def jax_side():
-    """JAX's problem, stream and sharded runs at this process's one
-    device, and the port's problem with JAX's stream carried across."""
+SHARDED_FIELDS = ("overflow", "n_shards", "edge_cut", "halo_size",
+                  "local_batch", "delivered", "dropped", "invalid", "rounds",
+                  "events", "active_hist", "theta_hist")
+
+
+def sharded_fields(tr):
+    """A JAX sharded trace's layout, counters and histories, as numpy."""
+    return {k: np.asarray(getattr(tr, k)) for k in SHARDED_FIELDS}
+
+
+def jax_data():
+    """JAX's problem arrays: topology, models, confidences, CL data and
+    its solitary warm start."""
     jt = jtopo.random_geometric_topology(dw.N, k=5, seed=0)
-    cond = jsched.NetworkConditions(**dw.COND)
     rng = np.random.default_rng(0)
     sol = rng.standard_normal((dw.N, dw.P_DIM)).astype(np.float32)
     c = rng.uniform(0.05, 1.0, dw.N).astype(np.float32)
@@ -149,6 +163,13 @@ def jax_side():
           for _ in range(dw.N)]
     data = jpad(xs, [np.zeros(len(x)) for x in xs])
     sol_cl = np.asarray(jsolitary(data), np.float32)
+    return jt, sol, c, data, sol_cl
+
+
+def jax_sharded():
+    """JAX's stream and sharded runs at one device."""
+    jt, sol, c, data, sol_cl = jax_data()
+    cond = jsched.NetworkConditions(**dw.COND)
     js = jsched.precompute_event_stream(
         jt.device_tables(), jnp.asarray(jt.partition_halves()), cond,
         SHORT["batch"], SHORT["seed"], SHORT["rounds"])
@@ -161,23 +182,34 @@ def jax_side():
         "joint": jpart.run_joint_scenario_sharded(jt, sol, c, 0.9, cond,
                                                   **SHORT, **LEARN),
     }
-    return (runs, convert.stream_from_arrays(js, CPU),
+    out = {k: sharded_fields(v) for k, v in runs.items()}
+    out["joint"].update({k: np.asarray(getattr(runs["joint"], k)) for k in (
+        "final_live", "suppressed", "live_edges_hist", "final_w")})
+    return {"runs": out, "stream": jax.tree_util.tree_map(np.asarray, js)}
+
+
+@pytest.fixture(scope="module")
+def jax_side(refs):
+    """JAX's sharded runs at one device (from the reference job), and the
+    port's problem with JAX's stream carried across."""
+    _, _, _, data, sol_cl = jax_data()
+    want = refs["sharded"]
+    return (want["runs"], convert.stream_from_arrays(want["stream"], CPU),
             convert.data_from_arrays(data, CPU), sol_cl)
 
 
 def assert_matches_jax(got, want, tol=1e-5):
     assert (got.overflow, got.n_shards, got.edge_cut, got.halo_size,
-            got.local_batch) == (want.overflow, want.n_shards,
-                                 want.edge_cut, want.halo_size,
-                                 want.local_batch)
+            got.local_batch) == tuple(int(want[k]) for k in (
+                "overflow", "n_shards", "edge_cut", "halo_size",
+                "local_batch"))
     assert (got.delivered, got.dropped, got.invalid, got.rounds,
-            got.events) == (want.delivered, want.dropped, want.invalid,
-                            want.rounds, want.events)
+            got.events) == tuple(int(want[k]) for k in (
+                "delivered", "dropped", "invalid", "rounds", "events"))
     np.testing.assert_array_equal(got.active_hist.numpy(),
-                                  np.asarray(want.active_hist))
-    np.testing.assert_allclose(got.theta_hist.numpy(),
-                               np.asarray(want.theta_hist), atol=tol,
-                               rtol=0)
+                                  want["active_hist"])
+    np.testing.assert_allclose(got.theta_hist.numpy(), want["theta_hist"],
+                               atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("algo", ["mp", "mp-overflow", "cl", "joint"])
@@ -200,14 +232,12 @@ def test_single_shard_matches_jax_sharded_runner(jax_side, algo):
     if algo == "mp-overflow":
         assert got.overflow > 0
     if algo == "joint":
-        assert np.array_equal(got.final_live.numpy(),
-                              np.asarray(want.final_live))
-        assert got.suppressed == want.suppressed
+        assert np.array_equal(got.final_live.numpy(), want["final_live"])
+        assert got.suppressed == int(want["suppressed"])
         np.testing.assert_array_equal(got.live_edges_hist.numpy(),
-                                      np.asarray(want.live_edges_hist))
-        np.testing.assert_allclose(got.final_w.numpy(),
-                                   np.asarray(want.final_w), atol=1e-5,
-                                   rtol=0)
+                                      want["live_edges_hist"])
+        np.testing.assert_allclose(got.final_w.numpy(), want["final_w"],
+                                   atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -267,12 +297,11 @@ def test_local_mesh_equals_single_device(single, algo, P):
         assert (hists[0] - fused).abs().max().item() <= 1e-5
 
 
-@pytest.fixture(scope="module")
-def mlp_jax():
-    """The JAX side of the MLP-agent problem: its topology, data, network
-    conditions, event stream, inexact primal and solitary warm start, and
-    ``run(theta_sol)``, JAX's single-device ``run_cl_scenario`` on them
-    from a given warm start."""
+def jax_mlp():
+    """The JAX side of the MLP-agent problem: the solitary warm start,
+    the event stream, JAX's sharded run at one device, and its
+    single-device ``run_cl_scenario`` from that warm start and from the
+    warm start nudged up by one float32 ulp."""
     jm = jflat.MLPAgent(in_dim=2, hidden=(4,))
     jt, jtrain, _, _ = jsyn.federated_moons_problem(**dw.MOONS)
     sol = np.asarray(jprimal.solitary_adamw(jtrain, loss="logistic",
@@ -286,12 +315,40 @@ def mlp_jax():
     r = dw.MLP_RUN
 
     def run(theta_sol):
-        return jeng.run_cl_scenario(
+        return np.asarray(jeng.run_cl_scenario(
             jt, jtrain, dw.MLP_MU, dw.MLP_RHO, jcond, r["rounds"],
             r["batch"], seed=r["seed"], record_every=r["record_every"],
-            theta_sol=theta_sol, stream=js, primal=jp)
-    return dict(topo=jt, train=jtrain, cond=jcond, stream=js, primal=jp,
-                sol=sol, run=run)
+            theta_sol=theta_sol, stream=js, primal=jp).theta_hist)
+    want = jpart.run_cl_scenario_sharded(
+        jt, jtrain, dw.MLP_MU, dw.MLP_RHO, jcond, **dw.MLP_RUN,
+        theta_sol=sol, stream=js, primal=jp)
+    nudged = np.nextafter(sol, np.float32(np.inf))
+    assert nudged.dtype == np.float32 and np.all(nudged > sol)
+    return {"sol": sol, "stream": jax.tree_util.tree_map(np.asarray, js),
+            "sharded": sharded_fields(want), "one": run(sol),
+            "nudged": run(nudged)}
+
+
+def jax_references():
+    """The JAX side of the tests against JAX's runners (run in a
+    subprocess of its own beside the tests before this module:
+    tests/_port_session.py)."""
+    return {"sharded": jax_sharded(), "mlp": jax_mlp()}
+
+
+_port_session.register(__name__, lambda: _port_session.ReferenceJob(
+    __name__, "jax_references"))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return _port_session.job(__name__).result()
+
+
+@pytest.fixture(scope="module")
+def mlp_jax(refs):
+    """The JAX side of the MLP-agent problem (:func:`jax_mlp`)."""
+    return refs["mlp"]
 
 
 @pytest.fixture(scope="module")
@@ -301,20 +358,16 @@ def mlp_side(mlp_jax):
     single-device run with telemetry on, both on JAX's stream and warm
     start."""
     j = mlp_jax
-    jt, jtrain, jcond, js, jp, sol = (j["topo"], j["train"], j["cond"],
-                                      j["stream"], j["primal"], j["sol"])
-    want = jpart.run_cl_scenario_sharded(
-        jt, jtrain, dw.MLP_MU, dw.MLP_RHO, jcond, **dw.MLP_RUN,
-        theta_sol=sol, stream=js, primal=jp)
-    jone = j["run"](sol)
+    _, jtrain, _, _ = jsyn.federated_moons_problem(**dw.MOONS)
     topo, _, _, primal = dw.mlp_problem()
-    kw = dict(theta_sol=convert.agent_rows_from_arrays(sol, CPU),
-              primal=primal, stream=convert.stream_from_arrays(js, CPU),
+    kw = dict(theta_sol=convert.agent_rows_from_arrays(j["sol"], CPU),
+              primal=primal, stream=convert.stream_from_arrays(j["stream"],
+                                                               CPU),
               telemetry=TelemetryConfig(enabled=True), **dw.MLP_RUN)
     data = convert.data_from_arrays(jtrain, CPU)
     one = run_cl_scenario(topo, data, dw.MLP_MU, dw.MLP_RHO,
                           dw.problem()[5], device=CPU, **kw)
-    return (want, np.asarray(jone.theta_hist)), topo, data, kw, one
+    return (j["sharded"], j["one"]), topo, data, kw, one
 
 
 @pytest.mark.parametrize("P", [1, 2, 4])
@@ -341,11 +394,11 @@ def test_inexact_primal_sharded_equals_single_device(mlp_side, P):
     assert not torch.equal(one.theta_hist[-1], kw["theta_sol"])
     if P == 1:
         assert (sh.overflow, sh.delivered, sh.dropped, sh.invalid,
-                sh.events) == (want.overflow, want.delivered, want.dropped,
-                               want.invalid, want.events)
+                sh.events) == tuple(int(want[k]) for k in (
+                    "overflow", "delivered", "dropped", "invalid", "events"))
         np.testing.assert_array_equal(sh.active_hist.numpy(),
-                                      np.asarray(want.active_hist))
-        np.testing.assert_array_equal(np.asarray(want.theta_hist), jone)
+                                      want["active_hist"])
+        np.testing.assert_array_equal(want["theta_hist"], jone)
 
 
 def test_mlp_drift_is_within_jax_rounding_sensitivity(mlp_jax, mlp_side):
@@ -357,10 +410,7 @@ def test_mlp_drift_is_within_jax_rounding_sensitivity(mlp_jax, mlp_side):
     self-gap passes 1e-4 at the last record, so the bound is not
     vacuous."""
     (_, jone), _, _, _, one = mlp_side
-    sol = mlp_jax["sol"]
-    nudged = np.nextafter(sol, np.float32(np.inf))
-    assert nudged.dtype == np.float32 and np.all(nudged > sol)
-    jup = np.asarray(mlp_jax["run"](nudged).theta_hist)
+    jup = mlp_jax["nudged"]
     port = one.theta_hist.numpy()
     assert port.shape == jone.shape == jup.shape
     axes = tuple(range(1, port.ndim))

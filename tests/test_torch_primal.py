@@ -42,7 +42,9 @@ from repro.simulate import engines as jeng  # noqa: E402
 from repro.simulate import scheduler as jsched  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.losses import guarded_loss, pad_datasets  # noqa: E402
 from repro_torch.core.losses import solitary_mean  # noqa: E402
@@ -373,7 +375,8 @@ def jax_stream(jt, cond, batch, seed, rounds):
         seed, rounds)
 
 
-def test_run_cl_scenario_mlp_agents_matches_jax():
+def jax_mlp_agents():
+    """JAX's warm start, stream and CL run with MLP agents (hidden 4)."""
     jm = jflat.MLPAgent(in_dim=2, hidden=(4,))
     jt, jtrain, _, _ = jsyn.federated_moons_problem(n=24, seed=0)
     sol = np.asarray(jprimal.solitary_adamw(jtrain, loss="logistic",
@@ -384,43 +387,81 @@ def test_run_cl_scenario_mlp_agents_matches_jax():
         jt, jtrain, 0.5, 0.5, cond, 30, 8, record_every=10, theta_sol=sol,
         stream=js, primal=jprimal.InexactPrimal(loss="logistic", model=jm,
                                                 b_steps=4, lr=0.05))
+    return {"sol": sol, "stream": as_numpy(js),
+            "counts": (want.delivered, want.dropped, want.invalid,
+                       want.rounds),
+            "theta_hist": np.asarray(want.theta_hist)}
+
+
+def jax_acceptance():
+    """The acceptance configuration's JAX side: the agents' initial rows
+    (``PRNGKey(0)``), 400 local AdamW steps from them, and the stream."""
+    jm = jflat.MLPAgent(in_dim=2, hidden=(8,))
+    jt, jtrain, _, _ = jsyn.federated_moons_problem(n=24, seed=0)
+    keys = jax.random.split(jax.random.PRNGKey(0), 24)
+    theta0 = jax.vmap(lambda k: jm.flattener().flatten(jm.init(k, 1.0)))(
+        keys)
+    jsol = jprimal.solitary_adamw(jtrain, loss="logistic", model=jm,
+                                  steps=400, seed=0)
+    js = jax_stream(jt, jsched.NetworkConditions(), 12, 0, 300)
+    return as_numpy({"theta0": theta0, "sol": jsol, "stream": js})
+
+
+def as_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_references():
+    """The JAX side of the two scenario tests (run in a subprocess of its
+    own beside the tests before this module: tests/_port_session.py)."""
+    return {"mlp_agents": jax_mlp_agents(), "acceptance": jax_acceptance()}
+
+
+_port_session.register(__name__, lambda: _port_session.ReferenceJob(
+    __name__, "jax_references"))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return _port_session.job(__name__).result()
+
+
+def test_run_cl_scenario_mlp_agents_matches_jax(refs):
+    _, jtrain, _, _ = jsyn.federated_moons_problem(n=24, seed=0)
+    want = refs["mlp_agents"]
+    sol = want["sol"]
     tt, _, _, _ = federated_moons_problem(n=24, seed=0, device=CPU)
     got = run_scenario(moons_run_kw(
         tt, convert.data_from_arrays(jtrain, CPU),
         convert.agent_rows_from_arrays(sol, CPU),
-        convert.stream_from_arrays(js, CPU),
+        convert.stream_from_arrays(want["stream"], CPU),
         InexactPrimal(loss="logistic", model=MLPAgent(2, (4,)), b_steps=4,
                       lr=0.05), 30, 8, 10, 0.5, 0.5,
         NetworkConditions(drop_prob=0.1)))
     assert (got.delivered, got.dropped, got.invalid, got.rounds) == \
-        (want.delivered, want.dropped, want.invalid, want.rounds)
-    close(got.theta_hist, want.theta_hist, 1e-4)
+        tuple(int(v) for v in want["counts"])
+    close(got.theta_hist, want["theta_hist"], 1e-4)
     assert torch.isfinite(got.theta_hist).all()
     assert not np.allclose(got.theta_hist[-1].numpy(), sol)
 
 
-def test_collaboration_beats_local_training_by_5_points():
+def test_collaboration_beats_local_training_by_5_points(refs):
     """tests/test_primal.py's acceptance configuration on the JAX run's
     stream and JAX's initial parameter rows: collaborative CL-ADMM with
     MLP agents beats purely-local AdamW by at least 5 accuracy points."""
-    jm, tm = jflat.MLPAgent(in_dim=2, hidden=(8,)), MLPAgent(2, (8,))
-    jt, jtrain, _, _ = jsyn.federated_moons_problem(n=24, seed=0)
+    tm = MLPAgent(2, (8,))
     tt, train, tx, ty = federated_moons_problem(n=24, seed=0, device=CPU)
-    keys = jax.random.split(jax.random.PRNGKey(0), 24)
-    theta0 = jax.vmap(lambda k: jm.flattener().flatten(jm.init(k, 1.0)))(
-        keys)
+    want = refs["acceptance"]
     sol = solitary_adamw(train, loss="logistic", model=tm, steps=400,
-                         theta0=convert.agent_rows_from_arrays(theta0, CPU))
-    jsol = jprimal.solitary_adamw(jtrain, loss="logistic", model=jm,
-                                  steps=400, seed=0)
+                         theta0=convert.agent_rows_from_arrays(
+                             want["theta0"], CPU))
     # 400 local steps agree with JAX's to float32 rounding, compounded
-    close(sol, jsol, 1e-4)
+    close(sol, want["sol"], 1e-4)
     pred = flat_predictor(tm)
     acc_sol = float(model_accuracy(sol, pred, tx, ty).mean())
     cond = NetworkConditions()
-    js = jax_stream(jt, jsched.NetworkConditions(), 12, 0, 300)
     tr = run_scenario(moons_run_kw(
-        tt, train, sol, convert.stream_from_arrays(js, CPU),
+        tt, train, sol, convert.stream_from_arrays(want["stream"], CPU),
         InexactPrimal(loss="logistic", model=tm, b_steps=10, lr=0.1), 300,
         12, 100, 0.5, 0.2, cond))
     acc = float(model_accuracy(tr.theta_hist[-1], pred, tx, ty).mean())

@@ -24,6 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _port_session import port_background_jobs  # noqa: E402,F401
+
 from repro_torch.kernels import round_fuse as rf  # noqa: E402
 from repro_torch.kernels.ref import gossip_round_step  # noqa: E402
 

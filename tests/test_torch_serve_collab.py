@@ -29,6 +29,7 @@ from repro import telemetry as jtel  # noqa: E402
 from repro.core.losses import AgentData as JAgentData  # noqa: E402
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.losses import pad_datasets, solitary_mean  # noqa: E402
 from repro_torch.serve import (AgentStateStore,  # noqa: E402

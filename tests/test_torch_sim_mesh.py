@@ -22,12 +22,7 @@ dispatch implementations on the CPU.
 """
 
 import os
-import socket
-import subprocess
-import sys
-import tempfile
 import textwrap
-import time
 
 import numpy as np
 import pytest
@@ -41,7 +36,9 @@ from repro.simulate import scheduler as jsched  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
 import _dist_worker as dw  # noqa: E402
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch.coupling import (CouplingConfig,  # noqa: E402
                                   consensus_mean_tree, dense_mix_tree,
@@ -220,7 +217,8 @@ def test_sharded_impls_match_their_inner_impls():
 
 
 # ---------------------------------------------------------------------------
-# JAX at 4 fake host devices, in a subprocess
+# JAX at 4 fake host devices, in a subprocess (a background job: it starts
+# with the port's first test and runs beside the tests before this module)
 # ---------------------------------------------------------------------------
 
 
@@ -258,20 +256,24 @@ JAX_SUBPROC = textwrap.dedent("""
 """)
 
 
-def test_jax_four_devices_against_the_local_mesh():
-    from repro.simulate import NetworkConditions as JCond
+def start_jax_four_devices():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(REPO, "src"), os.path.dirname(__file__),
          env.get("PYTHONPATH", "")])
     env.pop("XLA_FLAGS", None)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "jax4.npz")
-        res = subprocess.run([sys.executable, "-c", JAX_SUBPROC, path],
-                             env=env, capture_output=True, text=True,
-                             timeout=240)
-        assert res.returncode == 0, res.stdout + res.stderr
-        want = dict(np.load(path))
+    return _port_session.SubprocessJob(JAX_SUBPROC, ["{out}.npz"], env=env)
+
+
+_port_session.register(__name__, start_jax_four_devices, "jax4")
+
+
+def test_jax_four_devices_against_the_local_mesh():
+    from repro.simulate import NetworkConditions as JCond
+    proc = _port_session.job(__name__, "jax4")
+    rc, log = proc.wait(timeout=240)
+    assert rc == 0, log
+    want = dict(np.load(proc.out + ".npz"))
     jt = jtopo.random_geometric_topology(dw.N, k=5, seed=0)
     js = jsched.precompute_event_stream(
         jt.device_tables(), jnp.asarray(jt.partition_halves()),
@@ -299,8 +301,12 @@ def test_jax_four_devices_against_the_local_mesh():
 
 
 # ---------------------------------------------------------------------------
-# a 4-rank gloo process group: DistMesh against LocalMesh
+# a 4-rank gloo process group: DistMesh against LocalMesh (a background job,
+# as the JAX subprocess)
 # ---------------------------------------------------------------------------
+
+_port_session.register(__name__, lambda: _port_session.SpawnJob(
+    dw.rank_main, dw.WORLD), "gloo", nprocs=dw.WORLD)
 
 
 def assert_trees_equal(got, want):
@@ -309,29 +315,8 @@ def assert_trees_equal(got, want):
         assert torch.equal(got[k], want[k]), k
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_gloo_dist_mesh_equals_the_local_mesh():
-    import torch.multiprocessing as mp
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.spawn(dw.rank_main, args=(dw.WORLD, _free_port(), tmp),
-                       nprocs=dw.WORLD, join=False)
-        deadline = time.monotonic() + 90
-        try:
-            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-                if time.monotonic() > deadline:
-                    raise TimeoutError("the gloo ranks did not finish in "
-                                       "90 s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
-               for r in range(dw.WORLD)]
+    got = _port_session.job(__name__, "gloo").results(timeout=90)
     want = dw.runs(LocalMesh(dw.WORLD, CPU))
     assert want["recompactions"] >= 1
     for r, out in enumerate(got):

@@ -29,6 +29,7 @@ from repro.simulate import spec as jspec  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch import experiments as texp  # noqa: E402
 from repro_torch.core import closed_form, sync_admm, synchronous  # noqa: E402

@@ -13,6 +13,7 @@ from repro.data import synthetic as jsyn  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import graph as tgraph  # noqa: E402
 from repro_torch.core import sparse as tsparse  # noqa: E402

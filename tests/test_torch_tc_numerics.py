@@ -39,6 +39,7 @@ from repro.core import model_propagation as jmp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 # --------------------------------------------------------------------------

@@ -17,17 +17,23 @@
   JAX's keys with torch's versions and the device in place of jax's; a
   run directory the port writes loads in the JAX package, and the
   reverse.
+
+The JAX runs behind the frame tests come from a subprocess of their own
+that starts beside the tests before this module (``jax_references``;
+tests/_port_session.py).
 """
 
 import dataclasses
 import json
 import os
+import types
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import primal as jprimal  # noqa: E402
@@ -40,7 +46,9 @@ from repro.simulate import topology as jtopo  # noqa: E402
 from repro import telemetry as jtel  # noqa: E402
 from repro.telemetry import metrics as jmet  # noqa: E402
 
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch import telemetry as ttel  # noqa: E402
 from repro_torch.core.losses import pad_datasets, solitary_mean  # noqa: E402
@@ -79,10 +87,9 @@ def jax_stream(jt, cond, batch=BATCH, seed=SEED, rounds=ROUNDS):
         jax_cond(cond), batch, seed, rounds)
 
 
-@pytest.fixture(scope="module")
-def problem():
-    """Both packages' topology, the numpy models and CL data, and JAX's
-    faulty stream with the port's copy of it."""
+def problem_arrays():
+    """Both packages' topology, the numpy models and the port's CL data
+    (on the CPU, as JAX takes it)."""
     jt = jtopo.random_geometric_topology(N, k=4, seed=0)
     tt = ttopo.random_geometric_topology(N, k=4, seed=0)
     rng = np.random.default_rng(0)
@@ -91,10 +98,49 @@ def problem():
     xs = [rng.standard_normal((int(rng.integers(1, 6)), P))
           for _ in range(N)]
     data = pad_datasets(xs, [np.zeros(len(x)) for x in xs], device=CPU)
-    js = jax_stream(jt, FAULTY)
     return dict(jt=jt, tt=tt, sol=sol, c=c, data=data,
-                cl_sol=solitary_mean(data).numpy(), js=js,
-                ts=convert.stream_from_arrays(js, CPU))
+                cl_sol=solitary_mean(data).numpy())
+
+
+@pytest.fixture(scope="module")
+def problem():
+    """:func:`problem_arrays`, and JAX's faulty stream with the port's
+    copy of it."""
+    pb = problem_arrays()
+    js = jax_stream(pb["jt"], FAULTY)
+    return dict(pb, js=js, ts=convert.stream_from_arrays(js, CPU))
+
+
+FRAME_FIELDS = ("rounds",) + COUNTERS + ("staleness", "objective",
+                                         "suppressed")
+
+
+def frame_fields(frames):
+    """JAX telemetry frames as a namespace of numpy arrays."""
+    return {k: None if getattr(frames, k) is None
+            else np.asarray(getattr(frames, k)) for k in FRAME_FIELDS}
+
+
+def frames(fields):
+    return types.SimpleNamespace(**fields)
+
+
+def jax_mp_frames(pb, body):
+    jb = None if body == "per-op" else JaxBackend.using(round_step="xla")
+    want = jeng.run_mp_scenario(pb["jt"], pb["sol"], pb["c"], 0.9,
+                                jax_cond(FAULTY), ROUNDS, BATCH, seed=SEED,
+                                record_every=RECORD, telemetry=J_ON,
+                                backend=jb)
+    return {"counts": (want.delivered, want.dropped, want.invalid),
+            "frames": frame_fields(want.telemetry)}
+
+
+def jax_cl_exact_frames(pb):
+    want = jeng.run_cl_scenario(
+        pb["jt"], pb["data"], 0.1, 1.0, jax_cond(FAULTY), ROUNDS,
+        BATCH, record_every=RECORD, theta_sol=pb["cl_sol"],
+        stream=jax_stream(pb["jt"], FAULTY), telemetry=J_ON)
+    return frame_fields(want.telemetry)
 
 
 def mp_spec(pb, **kw):
@@ -127,6 +173,25 @@ def assert_frames_match(got, want):
     assert obj.shape == ref.shape and obj.dtype == np.float32
     scale = np.abs(ref).max(axis=1, keepdims=True)
     assert (np.abs(obj - ref) <= 1e-5 * scale).all()
+
+
+def jax_references():
+    """The JAX side of the frame tests (run in a subprocess of its own
+    beside the tests before this module: tests/_port_session.py)."""
+    pb = problem_arrays()
+    return {"mp": {body: jax_mp_frames(pb, body)
+                   for body in ("per-op", "fused")},
+            "cl_exact": jax_cl_exact_frames(pb),
+            "cl_inexact": jax_cl_inexact(), "joint": jax_joint()}
+
+
+_port_session.register(__name__, lambda: _port_session.ReferenceJob(
+    __name__, "jax_references"))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return _port_session.job(__name__).result()
 
 
 def assert_invariants(tr):
@@ -204,18 +269,14 @@ def test_stream_reductions_match_jax(problem):
 
 
 @pytest.mark.parametrize("body", ["per-op", "fused"])
-def test_mp_frames_match_jax(problem, body):
-    jt, sol, c = problem["jt"], problem["sol"], problem["c"]
-    jb = None if body == "per-op" else JaxBackend.using(round_step="xla")
-    want = jeng.run_mp_scenario(jt, sol, c, 0.9, jax_cond(FAULTY), ROUNDS,
-                                BATCH, seed=SEED, record_every=RECORD,
-                                telemetry=J_ON, backend=jb)
+def test_mp_frames_match_jax(problem, refs, body):
+    want = refs["mp"][body]
     got = run_scenario(mp_spec(problem, telemetry=ON, backend=None
                                if body == "per-op"
                                else dispatch.ReproBackend()))
     assert (got.delivered, got.dropped, got.invalid) == \
-        (want.delivered, want.dropped, want.invalid)
-    assert_frames_match(got.telemetry, want.telemetry)
+        tuple(int(v) for v in want["counts"])
+    assert_frames_match(got.telemetry, frames(want["frames"]))
     assert_invariants(got)
     np.testing.assert_array_equal(
         got.telemetry.staleness,
@@ -225,13 +286,9 @@ def test_mp_frames_match_jax(problem, body):
     assert got.telemetry.suppressed is None
 
 
-def test_cl_exact_frames_match_jax(problem):
-    want = jeng.run_cl_scenario(
-        problem["jt"], problem["data"], 0.1, 1.0, jax_cond(FAULTY), ROUNDS,
-        BATCH, record_every=RECORD, theta_sol=problem["cl_sol"],
-        stream=problem["js"], telemetry=J_ON)
+def test_cl_exact_frames_match_jax(problem, refs):
     got = run_scenario(cl_spec(problem, telemetry=ON))
-    assert_frames_match(got.telemetry, want.telemetry)
+    assert_frames_match(got.telemetry, frames(refs["cl_exact"]))
     assert_invariants(got)
     np.testing.assert_array_equal(
         got.telemetry.staleness,
@@ -239,9 +296,9 @@ def test_cl_exact_frames_match_jax(problem):
                                      RECORD))
 
 
-def test_cl_inexact_mlp_frames_match_jax():
-    """The inexact primal with MLP agents: the objective's loss term goes
-    through ``InexactPrimal.batch_local_loss``."""
+def jax_cl_inexact():
+    """JAX's CL run with the inexact primal over MLP agents, its warm
+    start, stream and frames."""
     jm = jflat.MLPAgent(in_dim=2, hidden=(4,))
     jt, jtrain, _, _ = jsyn.federated_moons_problem(n=24, seed=0)
     sol = np.asarray(jprimal.solitary_adamw(jtrain, loss="logistic",
@@ -253,16 +310,28 @@ def test_cl_inexact_mlp_frames_match_jax():
         theta_sol=sol, stream=js, telemetry=J_ON,
         primal=jprimal.InexactPrimal(loss="logistic", model=jm, b_steps=3,
                                      lr=0.05))
+    return {"sol": sol, "stream": jax.tree_util.tree_map(np.asarray, js),
+            "frames": frame_fields(want.telemetry)}
+
+
+def test_cl_inexact_mlp_frames_match_jax(refs):
+    """The inexact primal with MLP agents: the objective's loss term goes
+    through ``InexactPrimal.batch_local_loss``."""
+    jm = jflat.MLPAgent(in_dim=2, hidden=(4,))
+    _, jtrain, _, _ = jsyn.federated_moons_problem(n=24, seed=0)
+    want = refs["cl_inexact"]
+    cond = NetworkConditions(drop_prob=0.1, stale_prob=0.2)
     tt, _, _, _ = federated_moons_problem(n=24, seed=0, device=CPU)
     primal = InexactPrimal(loss="logistic", model=MLPAgent(2, (4,)),
                            b_steps=3, lr=0.05)
     got = run_scenario(ScenarioSpec(
         algo="cl", topology=tt, data=convert.data_from_arrays(jtrain, CPU),
         mu=0.5, rho=0.5, conditions=cond, rounds=20, batch=8,
-        record_every=10, theta_sol=convert.agent_rows_from_arrays(sol, CPU),
-        stream=convert.stream_from_arrays(js, CPU), primal=primal,
-        telemetry=ON, device=CPU))
-    assert_frames_match(got.telemetry, want.telemetry)
+        record_every=10,
+        theta_sol=convert.agent_rows_from_arrays(want["sol"], CPU),
+        stream=convert.stream_from_arrays(want["stream"], CPU),
+        primal=primal, telemetry=ON, device=CPU))
+    assert_frames_match(got.telemetry, frames(want["frames"]))
     assert_invariants(got)
     rows = got.theta_hist[-1]
     d = convert.data_from_arrays(jtrain, CPU)
@@ -274,17 +343,39 @@ def test_cl_inexact_mlp_frames_match_jax():
         rtol=1e-5, atol=1e-6)
 
 
-@pytest.fixture(scope="module")
-def two_cluster():
+JOINT_RUN = dict(rounds=120, batch=24, rec=40)
+
+
+def two_cluster_arrays():
     jt = jtopo.planted_partition_topology(64, 2, k_intra=5, k_inter=2,
                                           seed=0)
+    _, _, sol, c = two_cluster_mean_problem(64, p=4, seed=0)
+    return jt, sol, c
+
+
+@pytest.fixture(scope="module")
+def two_cluster():
+    jt, sol, c = two_cluster_arrays()
     tt = ttopo.planted_partition_topology(64, 2, k_intra=5, k_inter=2,
                                           seed=0)
-    _, _, sol, c = two_cluster_mean_problem(64, p=4, seed=0)
     return jt, tt, sol, c
 
 
-def test_joint_frames_match_jax(two_cluster, monkeypatch):
+def jax_joint():
+    """JAX's joint run with prune under FAULTY: its stream, final live
+    mask and frames."""
+    jt, sol, c = two_cluster_arrays()
+    rounds, batch, rec = (JOINT_RUN[k] for k in ("rounds", "batch", "rec"))
+    js = jax_stream(jt, FAULTY, batch=batch, seed=SEED, rounds=rounds)
+    want = jeng.run_joint_scenario(jt, sol, c, 0.9, jax_cond(FAULTY), rounds,
+                                   batch, record_every=rec, stream=js,
+                                   telemetry=J_ON, **LEARN_KW)
+    return {"stream": jax.tree_util.tree_map(np.asarray, js),
+            "final_live": np.asarray(want.final_live),
+            "frames": frame_fields(want.telemetry)}
+
+
+def test_joint_frames_match_jax(two_cluster, refs, monkeypatch):
     """Joint learning with prune: staleness and updates count the
     admitted deliveries, ``suppressed`` the voided ones, the objective is
     taken under the learned weights.  A slot whose weight came within
@@ -292,12 +383,9 @@ def test_joint_frames_match_jax(two_cluster, monkeypatch):
     rounding; tests/test_torch_joint.py), and then the admitted
     deliveries may differ; the counters are held exactly when no slot
     flipped."""
-    jt, tt, sol, c = two_cluster
-    rounds, batch, rec = 120, 24, 40
-    js = jax_stream(jt, FAULTY, batch=batch, seed=SEED, rounds=rounds)
-    want = jeng.run_joint_scenario(jt, sol, c, 0.9, jax_cond(FAULTY), rounds,
-                                   batch, record_every=rec, stream=js,
-                                   telemetry=J_ON, **LEARN_KW)
+    _, tt, sol, c = two_cluster
+    rounds, batch, rec = (JOINT_RUN[k] for k in ("rounds", "batch", "rec"))
+    want = refs["joint"]
     pre = []
     real_prune = teng.prune_rows
 
@@ -305,7 +393,7 @@ def test_joint_frames_match_jax(two_cluster, monkeypatch):
         pre.append(torch.where(live, w, 0.0))
         return real_prune(w, live, eps)
     monkeypatch.setattr(teng, "prune_rows", spy)
-    ts = convert.stream_from_arrays(js, CPU)
+    ts = convert.stream_from_arrays(want["stream"], CPU)
     got = run_scenario(ScenarioSpec(
         algo="joint", topology=tt, conditions=FAULTY, rounds=rounds,
         batch=batch, record_every=rec, theta_sol=sol, c=c, alpha=0.9,
@@ -313,7 +401,7 @@ def test_joint_frames_match_jax(two_cluster, monkeypatch):
     near = torch.zeros_like(got.final_live)
     for w in pre:
         near |= (w - LEARN_KW["prune_eps"]).abs() <= 1e-5
-    flipped = got.final_live.numpy() != np.asarray(want.final_live)
+    flipped = got.final_live.numpy() != want["final_live"]
     assert not (flipped & ~near.numpy()).any()
     f = got.telemetry
     assert_invariants(got)
@@ -321,9 +409,9 @@ def test_joint_frames_match_jax(two_cluster, monkeypatch):
     assert got.suppressed > 0
     np.testing.assert_array_equal(f.updates + f.suppressed, f.delivered)
     if not flipped.any():
-        assert_frames_match(f, want.telemetry)
+        assert_frames_match(f, frames(want["frames"]))
         np.testing.assert_array_equal(f.suppressed,
-                                      want.telemetry.suppressed)
+                                      want["frames"]["suppressed"])
     # voided deliveries leave agents staler than the stream says
     replay = tmet.stream_staleness_chunks(ts, tt.n, rounds // rec, rec)
     assert (f.staleness >= replay).all() and (f.staleness > replay).any()

@@ -48,7 +48,9 @@ from repro.train import make_train_step as jmake_step  # noqa: E402
 from repro.train import save_checkpoint as jsave  # noqa: E402
 from repro.train.trainer import init_train_state as jinit  # noqa: E402
 
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
+from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch.convert import (tensor_from_array,  # noqa: E402
                                  train_state_from_arrays)
 from repro_torch.core.graph import random_geometric_graph  # noqa: E402
@@ -76,6 +78,10 @@ def models(compute="float32", **over):
     return (JModel(JModelConfig(**kw, compute_dtype=getattr(jnp, compute))),
             Model(ModelConfig(**kw, compute_dtype=getattr(torch, compute)),
                   device="meta"))
+
+
+def as_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 def carry(tree):
@@ -148,23 +154,37 @@ def test_cross_entropy_ignores_negative_labels():
     assert float(cross_entropy(torch.as_tensor(logits), none)) == 0.0
 
 
-@pytest.mark.parametrize("compute,remat,rtol", [("float32", False, 1e-5),
-                                                ("float32", True, 1e-5),
-                                                ("bfloat16", True, 1e-2)])
-def test_model_loss_matches_jax(compute, remat, rtol):
-    jm, tm = models(compute, remat=remat)
-    params = jm.init(jax.random.PRNGKey(1))
+LOSS_CASES = [("float32", False, 1e-5), ("float32", True, 1e-5),
+              ("bfloat16", True, 1e-2)]
+
+
+def loss_batch():
     rng = np.random.default_rng(2)
     tok = rng.integers(0, 64, (3, 17)).astype(np.int32)
     labels = tok[:, 1:].copy()
     labels[0, :4] = -1
-    batch = {"tokens": tok[:, :-1], "labels": labels}
+    return {"tokens": tok[:, :-1], "labels": labels}
+
+
+def jax_loss(compute, remat):
+    """JAX's parameters from ``PRNGKey(1)`` and its jitted ``loss`` of
+    them on :func:`loss_batch`."""
+    jm, _ = models(compute, remat=remat)
+    params = jm.init(jax.random.PRNGKey(1))
     want, wm = jax.jit(jm.loss)(params, {k: jnp.asarray(v)
-                                         for k, v in batch.items()})
-    got, gm = tm.loss(carry(params), {k: torch.as_tensor(v)
-                                      for k, v in batch.items()})
-    np.testing.assert_allclose(float(got), float(want), rtol=rtol)
-    np.testing.assert_allclose(float(gm["ce"]), float(wm["ce"]), rtol=rtol)
+                                         for k, v in loss_batch().items()})
+    return as_numpy({"params": params, "loss": want, "ce": wm["ce"]})
+
+
+@pytest.mark.parametrize("compute,remat,rtol", LOSS_CASES)
+def test_model_loss_matches_jax(refs, compute, remat, rtol):
+    _, tm = models(compute, remat=remat)
+    want = refs["loss"][compute, remat]
+    got, gm = tm.loss(carry(want["params"]), {
+        k: torch.as_tensor(v) for k, v in loss_batch().items()})
+    np.testing.assert_allclose(float(got), float(want["loss"]), rtol=rtol)
+    np.testing.assert_allclose(float(gm["ce"]), float(want["ce"]),
+                               rtol=rtol)
     assert float(gm["aux"]) == 0.0
 
 
@@ -326,35 +346,76 @@ def test_in_place_adamw_slabs_keep_the_values(monkeypatch):
         assert torch.equal(a, b)
 
 
-def jax_and_port_runs(mode, moment, A=4, lr=1e-2):
-    jm, tm = models()
+STEP_CASES = [("none", "float32"), ("consensus", "float32"),
+              ("mp", "float32"), ("cl", "float32"), ("mp", "bfloat16")]
+STEP_A, STEP_LR = 4, 1e-2
+
+
+def step_configs(mode, moment, A=STEP_A, lr=STEP_LR):
     kw = dict(mode=mode, every=2, alpha=0.9, mu=0.05)
     jt = JTC(n_agents=A, steps=10, coupling=JCC(**kw),
              optimizer=JAdam(lr=lr, moment_dtype=getattr(jnp, moment)))
     tt = TrainConfig(n_agents=A, steps=10, coupling=CouplingConfig(**kw),
                      optimizer=AdamWConfig(lr=lr, moment_dtype=getattr(
                          torch, moment)))
-    jg, tg = jrgg(A, k=2, seed=0), random_geometric_graph(A, k=2, seed=0)
-    js = jinit(jm, jt, jax.random.PRNGKey(0), perturb=0.01)
-    ts = train_state_from_arrays(js, device="cpu")
-    jstep = jax.jit(jmake_step(jm, jt, jmake_state(jg, None, 0.9)))
-    tstep = make_train_step(tm, tt, make_state(tg, None, 0.9, device="cpu"))
-    return js, ts, jstep, tstep
+    return jt, tt
 
 
-@pytest.mark.parametrize("mode,moment", [("none", "float32"),
-                                         ("consensus", "float32"),
-                                         ("mp", "float32"),
-                                         ("cl", "float32"),
-                                         ("mp", "bfloat16")])
-def test_three_train_steps_match_jax(mode, moment):
-    lr, A = 1e-2, 4
-    js, ts, jstep, tstep = jax_and_port_runs(mode, moment, A, lr)
+def step_batches(A=STEP_A):
     rng = np.random.default_rng(0)
+    out = []
     for _ in range(3):
         tok = rng.integers(0, 64, (A * 2, 9)).astype(np.int32)
-        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        out.append({"tokens": tok[:, :-1], "labels": tok[:, 1:]})
+    return out
+
+
+def jax_steps(mode, moment):
+    """JAX's initial state (``PRNGKey(0)``, perturb 0.01) and three jitted
+    ``make_train_step`` steps on :func:`step_batches`: each step's
+    metrics, and the state after the last."""
+    jm, _ = models()
+    jt, _ = step_configs(mode, moment)
+    js = jinit(jm, jt, jax.random.PRNGKey(0), perturb=0.01)
+    jstep = jax.jit(jmake_step(jm, jt, jmake_state(jrgg(STEP_A, k=2,
+                                                        seed=0), None, 0.9)))
+    out = {"init": js, "metrics": []}
+    for batch in step_batches():
         js, jmet = jstep(js, {k: jnp.asarray(v) for k, v in batch.items()})
+        out["metrics"].append({k: jmet[k] for k in (
+            "loss", "grad_norm", "ce", "loss_per_agent")})
+    out["params"], out["solitary"], out["step"] = \
+        js.params, js.solitary, js.step
+    return as_numpy(out)
+
+
+def jax_references():
+    """The JAX side of the loss and train-step tests (run in a subprocess
+    of its own beside the tests before this module:
+    tests/_port_session.py)."""
+    return {"loss": {(c, r): jax_loss(c, r) for c, r, _ in LOSS_CASES},
+            "steps": {case: jax_steps(*case) for case in STEP_CASES}}
+
+
+_port_session.register(__name__, lambda: _port_session.ReferenceJob(
+    __name__, "jax_references"))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return _port_session.job(__name__).result()
+
+
+@pytest.mark.parametrize("mode,moment", STEP_CASES)
+def test_three_train_steps_match_jax(refs, mode, moment):
+    _, tm = models()
+    _, tt = step_configs(mode, moment)
+    want = refs["steps"][mode, moment]
+    ts = train_state_from_arrays(want["init"], device="cpu")
+    tstep = make_train_step(tm, tt, make_state(
+        random_geometric_graph(STEP_A, k=2, seed=0), None, 0.9,
+        device="cpu"))
+    for batch, jmet in zip(step_batches(), want["metrics"]):
         ts, tmet = tstep(ts, batch)
         for key in ("loss", "grad_norm", "ce"):
             np.testing.assert_allclose(float(tmet[key]), float(jmet[key]),
@@ -362,10 +423,11 @@ def test_three_train_steps_match_jax(mode, moment):
         np.testing.assert_allclose(as_np(tmet["loss_per_agent"]),
                                    np.asarray(jmet["loss_per_agent"]),
                                    rtol=1e-5)
-    atol = 1e-5 if moment == "float32" else 3 * lr * 2 ** -8
-    assert int(ts.step) == int(js.step) == 3
+    atol = 1e-5 if moment == "float32" else 3 * STEP_LR * 2 ** -8
+    assert int(ts.step) == int(want["step"]) == 3
     for a, b in zip(tree_leaves((ts.params, ts.solitary)),
-                    jax.tree_util.tree_leaves((js.params, js.solitary))):
+                    jax.tree_util.tree_leaves((want["params"],
+                                               want["solitary"]))):
         np.testing.assert_allclose(as_np(a), np.asarray(b), atol=atol)
 
 
