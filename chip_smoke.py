@@ -254,6 +254,28 @@ axis, collectives as tensor ops), before the LM phases:
     a leaf) bit for bit with ``dense_mix_tree`` (one card hosts one NCCL
     rank; multi-rank runs are checked on the CPU under gloo).
 
+Last, after the model families:
+
+11. the five simulator examples (``examples/<name>_torch.py``:
+    quickstart, federated_moons, network_sim_demo, joint_graph_demo,
+    nonlinear_agents_demo), each through its own ``main`` in process on
+    the card at its default size, the launch counts set to 0 just before
+    and read just after (``EXAMPLE_PHASES``): one JSON line each with the
+    figures it returned, its wall seconds and its launches by kernel.
+    Each example's own assertion must hold, each kernel output of an
+    example must be within 1e-5 of its plain version's on the same inputs
+    (quickstart's ``synchronous`` rows form and ``run_mp_sweep`` trial
+    axis through ``graph_mix``; network_sim_demo's theta* through
+    ``sparse_gather_mix`` at p = 16, against the reference backend on
+    the example's problem rebuilt from its seed), each example must
+    launch the kernels its path should (quickstart and federated_moons
+    ``graph_mix``, network_sim_demo ``sparse_gather_mix`` for theta*,
+    nonlinear_agents_demo ``cl_edge_step``), and
+    ``tools/trace_report_torch.py`` must render the run directories that
+    network_sim_demo and joint_graph_demo write with ``--out`` (under a
+    temporary directory).  The kernels line adds these launches to each
+    kernel's ``launches_by_path`` under ``examples``.
+
 Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all six
 kernels, with their launches on their paths; ``sparse_gather_mix``
 counts 4b's, 9d's (one a block) and 9e's; ``graph_mix`` counts its
@@ -278,6 +300,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -362,6 +385,20 @@ EXAMPLE = ROOT / "examples" / "personalized_lm_torch.py"
 PLM_TINY = False
 PLM_AGENTS, PLM_BATCH, PLM_SEQ, PLM_STEPS, PLM_EVERY = 8, 4, 128, 20, 4
 PLM_MODES = ("none", "consensus", "mp", "cl")
+# 11: the simulator examples at their default size, each with the kernels
+# its path should launch on the card.  network_sim_demo's scenarios pass
+# no backend, as the JAX example's do, so they run the per-op MP round
+# (round_step only runs under a backend: 4a); joint_graph_demo's graph
+# step (edge_reweight) and rounds are torch ops.  Their launches are
+# recorded all the same.
+EXAMPLE_PHASES = (
+    ("quickstart", ("graph_mix",)),
+    ("federated_moons", ("graph_mix",)),
+    ("network_sim_demo", ("sparse_gather_mix",)),
+    ("joint_graph_demo", ()),
+    ("nonlinear_agents_demo", ("cl_edge_step",)))
+EXAMPLE_RUN_DIRS = ("network_sim_demo", "joint_graph_demo")
+EXAMPLE_CUDA_TOL = 1e-5
 # 8a-8f: the model families at full published width (random bf16 weights,
 # attn_impl="flash"), one at a time: (phase, arch, depth or None, traffic).
 # "engine": prompt lengths served by Engine through FAMILY_SLOTS slots;
@@ -1294,14 +1331,115 @@ def check_train_llama(torch, np, dispatch, dev, smi):
     return rec, launches, bad
 
 
-def load_example():
-    """The repo's example, ``examples/personalized_lm_torch.py``, as a
-    module (7c runs its own ``run``)."""
-    spec = importlib.util.spec_from_file_location("personalized_lm_torch",
-                                                  EXAMPLE)
+def load_module(path: pathlib.Path):
+    """The script at ``path`` (an example or a tool) as a module."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_example():
+    """The repo's example, ``examples/personalized_lm_torch.py``, as a
+    module (7c runs its own ``run``)."""
+    return load_module(EXAMPLE)
+
+
+def scalar_figures(figures):
+    """The scalars of an example's returned figures (its arrays, vectors
+    and run-directory paths left out), for one JSON line."""
+    out = {}
+    for key, val in figures.items():
+        if isinstance(val, dict) and key != "runs":
+            out[str(key)] = scalar_figures(val)
+        elif val is None or isinstance(val, (bool, int, float)):
+            out[str(key)] = val
+    return out
+
+
+def example_theta_star_err(torch, dispatch, mod, figures):
+    """max |theta* - plain| for network_sim_demo: its ``sparse_sync_mp``
+    fixed point (``sparse_gather_mix`` on the card) against the reference
+    backend's on the example's own problem, rebuilt from its seed."""
+    from repro_torch.simulate import sparse_sync_mp
+    topo, theta_sol, c = mod.problem(figures["n"], figures["p"],
+                                     figures["seed"])
+    plain = sparse_sync_mp(topo, theta_sol, c, figures["alpha"], mod.SWEEPS,
+                           backend=dispatch.ReproBackend(default="reference"),
+                           device="cuda")
+    got = torch.as_tensor(figures["theta_star"])
+    return (got - plain.cpu()).abs().max().item()
+
+
+def check_examples(torch, dispatch, smi):
+    """11. Each simulator example's ``main`` in process on the card at its
+    default size (``EXAMPLE_PHASES``), the launch counts set to 0 just
+    before and read just after: the figures it returns, its wall seconds
+    and its launches by kernel.  Fails if an example's own assertion
+    fails, if a kernel's output in an example differs from its plain
+    version's on the same inputs by more than ``EXAMPLE_CUDA_TOL``
+    (quickstart's ``synchronous`` rows form and ``run_mp_sweep`` trial
+    axis, ``graph_mix``; network_sim_demo's theta*, ``sparse_gather_mix``
+    at p = 16), if an example launches none of the kernels its
+    path should launch, or if ``tools/trace_report_torch.py`` does not
+    render the run directories the ``--out`` examples write.  Returns
+    ``(records, launches summed over the examples, failure or None)``."""
+    recs, total = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-examples-") as tmp:
+        for name, expect in EXAMPLE_PHASES:
+            mod = load_module(ROOT / "examples" / f"{name}_torch.py")
+            argv = []                          # default size, on the card
+            if name in EXAMPLE_RUN_DIRS:
+                argv = ["--out", os.path.join(tmp, name)]
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                figures = mod.main(argv)
+            except AssertionError as e:
+                return recs, total, f"11 {name}: its assertion failed: {e!r}"
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in dispatch.launch_counts().items()
+                        if v}
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            # each kernel output of the example against its plain version
+            # on the same inputs (plain runs launch nothing)
+            checks = {}
+            if name == "quickstart":
+                checks = {k: figures["backends"][k] for k in (
+                    "cuda_vs_reference", "sweep_cuda_vs_reference")}
+            if name == "network_sim_demo":
+                checks["theta_star_cuda_vs_reference"] = \
+                    example_theta_star_err(torch, dispatch, mod, figures)
+            rec = dict(phase="11", example=name, wall_s=wall,
+                       launches=launches, expected=list(expect),
+                       cuda_vs_reference=checks, tol=EXAMPLE_CUDA_TOL,
+                       figures=scalar_figures(figures), device=smi)
+            if name in EXAMPLE_RUN_DIRS:
+                dirs = list(figures["runs"].values())
+                res = subprocess.run(
+                    [sys.executable, str(ROOT / "tools" /
+                                         "trace_report_torch.py"), *dirs],
+                    capture_output=True, text=True, timeout=120)
+                rec["trace_report"] = dict(run_dirs=len(dirs),
+                                           rc=res.returncode,
+                                           lines=len(res.stdout.splitlines()))
+            recs.append(rec)
+            log(json.dumps(rec))
+            missing = [k for k in expect if not launches.get(k)]
+            if missing:
+                return recs, total, (f"11 {name}: launched no {missing} "
+                                     f"(launches {launches})")
+            for key, err in checks.items():
+                if err is None or not err <= EXAMPLE_CUDA_TOL:
+                    return recs, total, (f"11 {name}: {key} = {err} over "
+                                         f"{EXAMPLE_CUDA_TOL}")
+            if name in EXAMPLE_RUN_DIRS and res.returncode != 0:
+                return recs, total, (f"11 {name}: trace_report_torch.py "
+                                     f"exited {res.returncode}: "
+                                     f"{res.stderr[-2000:]}")
+    return recs, total, None
 
 
 def check_train_modes(torch, np, dispatch, dev, smi):
@@ -3148,6 +3286,15 @@ def main() -> int:
     log(f"[8] {len(families)} model families served at full width in "
         f"{sum(r['phase_s'] for r in families.values()):.1f} s")
 
+    # 11. the simulator examples at their default size ------------------
+    t0 = time.perf_counter()
+    examples, counts["examples"], bad = check_examples(torch, dispatch, smi)
+    if bad:
+        return fail(bad)
+    log(f"[11] {smi}: {len(examples)} simulator examples at their default "
+        f"size in {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(counts['examples'])}")
+
     path_of = {"round_step": "fused", "sparse_gather_mix": "sparse_sync_mp",
                "graph_mix": "synchronous", "cl_edge_step": "cl-kernel",
                "admm_edge_update": "admm_edge", "flash_attention": "serve"}
@@ -3167,23 +3314,29 @@ def main() -> int:
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "library_ms")} for c in fa_cases
                 if "hd=128" in c["shape"] and "bfloat16" in c["shape"]]
-        if kr["name"] == "sparse_gather_mix":   # 4b, 9d's blocks and 9e
+        if kr["name"] == "sparse_gather_mix":   # 4b, 9d's blocks, 9e, 11
             row["launches_by_path"] = {
                 "sparse_sync_mp": kr["launches"],
                 "sharded_sweep": counts["sharded_sweep"],
-                "dist_sweep": counts["dist_sweep"]}
+                "dist_sweep": counts["dist_sweep"],
+                "examples": counts["examples"].get(kr["name"], 0)}
             row["launches"] = sum(row["launches_by_path"].values())
             row["sharded_block"] = {k: sharded["9d"][k] for k in (
                 "block_shape", "block_ms", "block_bound_ms",
                 "block_bound_by")}
-        if kr["name"] == "graph_mix":           # its three paths
+        if kr["name"] == "graph_mix":           # its paths and 11's
             row["launches_by_path"] = {
                 "synchronous": kr["launches"],
                 "synchronous_long": counts["synchronous_long"],
-                "sweep": counts["sweep"]["graph_mix"]}
-            row["launches"] += counts["synchronous_long"] \
-                + counts["sweep"]["graph_mix"]
+                "sweep": counts["sweep"]["graph_mix"],
+                "examples": counts["examples"].get(kr["name"], 0)}
+            row["launches"] = sum(row["launches_by_path"].values())
             row["trial_axis"] = batched
+        if kr["name"] in ("round_step", "cl_edge_step"):    # and 11's
+            row["launches_by_path"] = {
+                path_of[kr["name"]]: kr["launches"],
+                "examples": counts["examples"].get(kr["name"], 0)}
+            row["launches"] = sum(row["launches_by_path"].values())
         summary.append(row)
     agent = {k: agent_cases[0][k] for k in (
         "name", "route", "source", "replaces", "max_abs_err", "ms",

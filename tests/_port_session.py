@@ -9,12 +9,13 @@
   process group, a JAX subprocess, the JAX side of its comparisons run
   in a process of its own: :class:`ReferenceJob`) registers a job here
   when it is imported.  The first port test to run queues the job of
-  every module that has a selected test, in the order the modules run,
-  and a thread starts them, at most ``MAX_PROCS`` processes at a time,
-  so that they run beside the tests before their module; the module's
-  own test or fixture then waits for the job's result (and starts it at
-  once if it is still queued).  Every job still running when the session
-  ends is killed, and its files are removed.
+  every module that has a selected test, in the order the modules run
+  (the long ones registered ``first`` ahead), and a thread starts them,
+  at most ``MAX_PROCS`` processes at a time (the cores but one), so that
+  they run beside the tests before their module; the module's own test
+  or fixture then waits for the job's result (and starts it at once if
+  it is still queued).  Every job still running when the session ends is
+  killed, and its files are removed.
 
 Each test module imports :func:`port_background_jobs` (an autouse
 fixture) from here.
@@ -35,12 +36,15 @@ import torch
 
 torch.set_num_threads(1)
 
-MAX_PROCS = 6        # background processes at a time (the cores they share)
+# background processes at a time: the cores but the test process's, seven
+# on an 8-core host
+MAX_PROCS = max(1, len(os.sched_getaffinity(0)) - 1)
 _JOBS = {}           # (module name, job name) -> (start(), processes);
 #                      start() returns an object with done() and stop()
 _RUNNING = {}        # (module name, job name) -> the started job
 _QUEUE = []          # jobs not started yet, in the order their modules run
 _LOCK = threading.RLock()
+_STOP = threading.Event()    # set when the session ends
 _SESSION = {"started": False}
 
 
@@ -120,8 +124,6 @@ class SubprocessJob:
             env=env, cwd=cwd, stdout=self.log, stderr=subprocess.STDOUT,
             text=True)
 
-    nprocs = 1
-
     def done(self) -> bool:
         return self.proc.poll() is not None
 
@@ -178,10 +180,35 @@ class ReferenceJob(SubprocessJob):
         return self._result
 
 
-def register(module: str, start, name: str = "", nprocs: int = 1) -> None:
+def register(module: str, start, name: str = "", nprocs: int = 1,
+             first: bool = False) -> None:
     """Register ``start()`` as background job ``name`` of test module
-    ``module`` (its ``__name__``), a job of ``nprocs`` processes."""
-    _JOBS[module, name] = (start, nprocs)
+    ``module`` (its ``__name__``), a job of ``nprocs`` processes;
+    ``first`` queues it ahead of the module order (a job long enough to
+    be late for its module otherwise)."""
+    _JOBS[module, name] = (start, nprocs, first)
+
+
+def reference_fixture(module: str, first: bool = False):
+    """Register test module ``module``'s ``jax_references()`` as its
+    background :class:`ReferenceJob` and return the module-scoped fixture
+    ``refs`` that waits for its result; a module binds it as
+    ``refs = _port_session.reference_fixture(__name__)``."""
+    register(module, lambda: ReferenceJob(module, "jax_references"),
+             first=first)
+
+    @pytest.fixture(scope="module")
+    def refs():
+        return job(module).result()
+    return refs
+
+
+def as_numpy(tree):
+    """``tree`` with every leaf a numpy array (JAX's results, carried out
+    of its subprocess by pickle)."""
+    import jax
+    import numpy as np
+    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 def job(module: str, name: str = ""):
@@ -197,11 +224,16 @@ def job(module: str, name: str = ""):
 
 def _schedule():
     """Start the queued jobs in the order their modules run, at most
-    ``MAX_PROCS`` of their processes at a time (one job at any rate)."""
-    while True:
+    ``MAX_PROCS`` of their processes at a time (one job at any rate).
+
+    The thread lives until the session ends: a process that
+    ``torch.multiprocessing.spawn`` starts gets SIGINT when the thread
+    that started it exits (``PR_SET_PDEATHSIG``), and a rank that gets it
+    exits 0 without its results."""
+    while not _STOP.is_set():
         with _LOCK:
             if not _QUEUE:
-                return
+                break
             busy = sum(_JOBS[key][1] for key, j in _RUNNING.items()
                        if not j.done())
             key = _QUEUE[0]
@@ -209,7 +241,8 @@ def _schedule():
                 _QUEUE.pop(0)
                 _RUNNING[key] = _JOBS[key][0]()
                 continue
-        time.sleep(0.2)
+        _STOP.wait(0.2)
+    _STOP.wait()
 
 
 @pytest.fixture(autouse=True, scope="session")
@@ -222,11 +255,13 @@ def port_background_jobs(request):
         order = list(dict.fromkeys(
             item.module.__name__ for item in request.session.items
             if getattr(item, "module", None) is not None))
-        _QUEUE.extend(key for module in order for key in _JOBS
-                      if key[0] == module)
+        queued = [key for module in order for key in _JOBS
+                  if key[0] == module]
+        _QUEUE.extend(sorted(queued, key=lambda key: not _JOBS[key][2]))
         threading.Thread(target=_schedule, daemon=True).start()
     yield
     with _LOCK:
         _QUEUE.clear()
         while _RUNNING:
             _RUNNING.popitem()[1].stop()
+    _STOP.set()

@@ -29,6 +29,7 @@ from repro.simulate import topology as jtopo  # noqa: E402
 import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
+from _port_session import as_numpy  # noqa: E402
 from repro_torch.core import graph as tgraph  # noqa: E402
 from repro_torch.core.model_propagation import async_gossip  # noqa: E402
 from repro_torch.core.sparse import tables_from_adjacency  # noqa: E402
@@ -75,10 +76,6 @@ CASES = {
                           400, 50),
     "ring-every-tick": (lambda m: m.ring_graph(8), 64, 1),
 }
-
-
-def as_numpy(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 def jax_dense(case):
@@ -131,13 +128,7 @@ def jax_references():
             "isolated": jax_isolated()}
 
 
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
-
-
-@pytest.fixture(scope="module")
-def refs():
-    return _port_session.job(__name__).result()
+refs = _port_session.reference_fixture(__name__)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -44,6 +44,7 @@ from repro.simulate import topology as jtopo  # noqa: E402
 import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
+from _port_session import as_numpy  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import collaborative as tcol  # noqa: E402
 from repro_torch.core import consensus as tcons  # noqa: E402
@@ -61,10 +62,6 @@ CPU = "cpu"
 ATOL = 1e-5
 
 
-def as_numpy(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
 def jax_references():
     """The JAX side of the tests against JAX (run in a subprocess of its
     own beside the tests before this module: tests/_port_session.py)."""
@@ -72,13 +69,7 @@ def jax_references():
             "scenarios": jax_scenarios()}
 
 
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
-
-
-@pytest.fixture(scope="module")
-def refs():
-    return _port_session.job(__name__).result()
+refs = _port_session.reference_fixture(__name__)
 
 
 def close(got, want, atol=ATOL):

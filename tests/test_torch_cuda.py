@@ -29,7 +29,9 @@ for bit with the ``cl_edge_step`` run, joint learning with halo
 re-compaction bit for bit, ``cuda_sharded`` bit for bit with
 ``reference_sharded`` and the single-device kernel sweep); and the dry
 run's predicted peak memory of a one-agent training step against the
-card's.  The kernels have no CPU mode: on a host without a CUDA card
+card's; and ``examples/quickstart_torch.py``'s backend part (the
+``graph_mix`` kernel against its plain version within 1e-5, rows form
+and trial axis).  The kernels have no CPU mode: on a host without a CUDA card
 every test here skips.
 
 Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
@@ -1025,3 +1027,25 @@ def test_dryrun_predicts_the_card_peak(cuda):
     assert bad is None, bad
     assert rec["n_layers"] == 1
     assert abs(rec["peak_rel_diff"]) <= cs.DRY_PEAK_RTOL
+
+
+def test_quickstart_example_backends_on_the_card(cuda):
+    """``examples/quickstart_torch.py``'s backend part on the card: the
+    MP iterates and the trial-axis sweep through the ``graph_mix`` kernel
+    and through its plain version within 1e-5, the kernel launched."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" \
+        / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    size = example.SIZES[False]
+    dispatch.reset_launch_counts()
+    out = example.backends_and_sweeps(cuda, size["sync_steps"],
+                                      size["sweeps"])
+    assert dispatch.launch_counts()["graph_mix"] >= 1
+    assert out["cuda_vs_reference"] is not None
+    assert out["cuda_vs_reference"] <= 1e-5
+    assert out["sweep_cuda_vs_reference"] is not None
+    assert out["sweep_cuda_vs_reference"] <= 1e-5

@@ -108,13 +108,7 @@ def jax_references():
                                       round_step="xla"))}
 
 
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
-
-
-@pytest.fixture(scope="module")
-def refs():
-    return _port_session.job(__name__).result()
+refs = _port_session.reference_fixture(__name__)
 
 
 def test_sparse_sync_mp_matches_jax(setup, refs):

@@ -52,6 +52,7 @@ import repro_torch.configs as tconfigs  # noqa: E402
 import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
+from _port_session import as_numpy  # noqa: E402
 from repro_torch.convert import model_params_from_arrays  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
@@ -135,10 +136,6 @@ def layer_slots(cfg):
             for r in range(reps) for i in range(len(unit))]
 
 
-def as_numpy(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
 def jax_run(arch):
     """The JAX side of one arch, in its default forms, jitted: the
     parameters (``init`` from ``PRNGKey(0)``), then ``forward``, ``loss``,
@@ -175,13 +172,7 @@ def jax_references():
     return out
 
 
-@pytest.fixture(scope="module")
-def refs():
-    return _port_session.job(__name__).result()
-
-
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
+refs = _port_session.reference_fixture(__name__, first=True)
 
 
 class Run:

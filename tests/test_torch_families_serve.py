@@ -75,13 +75,12 @@ def jax_references():
     return {arch: jax_engine(arch) for arch in ARCHS}
 
 
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
+refs = _port_session.reference_fixture(__name__)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_engine_greedy_matches_jax(arch):
-    want = _port_session.job(__name__).result()[arch]
+def test_engine_greedy_matches_jax(arch, refs):
+    want = refs[arch]
     _, tc = configs(arch)
     tm = TModel(tc, device="cpu")
     tm.load_state_dict(model_params_from_arrays(tc, want["params"],

@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch/`` nor
-``chip_smoke.py`` imports ``jax`` or ``repro``; the package imports with
-``jax`` unavailable; and its entry points run on the CUDA card unless the
+"""The port stands alone: no file of ``src/repro_torch/``, nor
+``chip_smoke.py``, the port's examples (``examples/*_torch.py``) or
+``tools/trace_report_torch.py``, imports ``jax`` or ``repro``; they import
+with ``jax`` unavailable; and its entry points run on the CUDA card unless the
 caller names another device — without CUDA they raise instead of running
 on the CPU."""
 
@@ -16,8 +17,11 @@ import _port_session  # noqa: E402
 from _port_session import port_background_jobs  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+# the port's entry points outside the package: the examples and the tool
+PORT_SCRIPTS = sorted((REPO / "examples").glob("*_torch.py")) \
+    + [REPO / "tools" / "trace_report_torch.py"]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"]
+    + [REPO / "chip_smoke.py"] + PORT_SCRIPTS
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -68,6 +72,11 @@ BLOCKED_IMPORTS = (
     "import repro_torch.launch, repro_torch.launch.mesh, "
     "repro_torch.launch.sharding, repro_torch.launch.shapes, "
     "repro_torch.launch.cost, repro_torch.launch.dryrun\n"
+    "import importlib.util\n"
+    "for path in sys.argv[1:]:\n"
+    "    name = path.rsplit('/', 1)[-1][:-3]\n"
+    "    spec = importlib.util.spec_from_file_location(name, path)\n"
+    "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
     "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
     "               for m in sys.modules if sys.modules[m] is not None)\n"
     "print('ok')\n")
@@ -75,7 +84,8 @@ BLOCKED_IMPORTS = (
 
 def start_blocked_imports():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    return _port_session.SubprocessJob(BLOCKED_IMPORTS, env=env, cwd=REPO)
+    return _port_session.SubprocessJob(
+        BLOCKED_IMPORTS, [str(p) for p in PORT_SCRIPTS], env=env, cwd=REPO)
 
 
 # a background job: it starts with the port's first test
@@ -83,8 +93,9 @@ _port_session.register(__name__, start_blocked_imports)
 
 
 def test_imports_with_jax_blocked():
-    """The package's modules import with ``jax`` and ``repro``
-    unavailable."""
+    """The package's modules, the examples and the tool import with
+    ``jax`` and ``repro`` unavailable."""
+    assert len(PORT_SCRIPTS) >= 7, PORT_SCRIPTS
     rc, log = _port_session.job(__name__).wait(timeout=120)
     assert rc == 0 and "ok" in log, log
 

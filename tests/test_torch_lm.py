@@ -37,6 +37,7 @@ import repro_torch.configs as tconfigs  # noqa: E402
 import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
+from _port_session import as_numpy  # noqa: E402
 from repro_torch.convert import model_params_from_arrays  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
@@ -211,10 +212,6 @@ def jax_decode(arch, ring, params):
     return out
 
 
-def as_numpy(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
 def jax_references():
     """The JAX side of the route, decode and engine tests (run in a
     subprocess of its own beside the tests before this module:
@@ -227,13 +224,7 @@ def jax_references():
             "engines": jax_engines()}
 
 
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
-
-
-@pytest.fixture(scope="module")
-def refs():
-    return _port_session.job(__name__).result()
+refs = _port_session.reference_fixture(__name__)
 
 
 @pytest.mark.parametrize("arch,impl", ROUTES)

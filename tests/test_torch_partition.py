@@ -336,13 +336,7 @@ def jax_references():
     return {"sharded": jax_sharded(), "mlp": jax_mlp()}
 
 
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
-
-
-@pytest.fixture(scope="module")
-def refs():
-    return _port_session.job(__name__).result()
+refs = _port_session.reference_fixture(__name__)
 
 
 @pytest.fixture(scope="module")

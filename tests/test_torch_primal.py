@@ -45,6 +45,7 @@ from repro.simulate import topology as jtopo  # noqa: E402
 import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
+from _port_session import as_numpy  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.losses import guarded_loss, pad_datasets  # noqa: E402
 from repro_torch.core.losses import solitary_mean  # noqa: E402
@@ -407,23 +408,13 @@ def jax_acceptance():
     return as_numpy({"theta0": theta0, "sol": jsol, "stream": js})
 
 
-def as_numpy(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
 def jax_references():
     """The JAX side of the two scenario tests (run in a subprocess of its
     own beside the tests before this module: tests/_port_session.py)."""
     return {"mlp_agents": jax_mlp_agents(), "acceptance": jax_acceptance()}
 
 
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
-
-
-@pytest.fixture(scope="module")
-def refs():
-    return _port_session.job(__name__).result()
+refs = _port_session.reference_fixture(__name__)
 
 
 def test_run_cl_scenario_mlp_agents_matches_jax(refs):

@@ -185,13 +185,7 @@ def jax_references():
             "cl_inexact": jax_cl_inexact(), "joint": jax_joint()}
 
 
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
-
-
-@pytest.fixture(scope="module")
-def refs():
-    return _port_session.job(__name__).result()
+refs = _port_session.reference_fixture(__name__)
 
 
 def assert_invariants(tr):

@@ -51,6 +51,7 @@ from repro.train.trainer import init_train_state as jinit  # noqa: E402
 import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
+from _port_session import as_numpy  # noqa: E402
 from repro_torch.convert import (tensor_from_array,  # noqa: E402
                                  train_state_from_arrays)
 from repro_torch.core.graph import random_geometric_graph  # noqa: E402
@@ -78,10 +79,6 @@ def models(compute="float32", **over):
     return (JModel(JModelConfig(**kw, compute_dtype=getattr(jnp, compute))),
             Model(ModelConfig(**kw, compute_dtype=getattr(torch, compute)),
                   device="meta"))
-
-
-def as_numpy(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 def carry(tree):
@@ -397,13 +394,7 @@ def jax_references():
             "steps": {case: jax_steps(*case) for case in STEP_CASES}}
 
 
-_port_session.register(__name__, lambda: _port_session.ReferenceJob(
-    __name__, "jax_references"))
-
-
-@pytest.fixture(scope="module")
-def refs():
-    return _port_session.job(__name__).result()
+refs = _port_session.reference_fixture(__name__)
 
 
 @pytest.mark.parametrize("mode,moment", STEP_CASES)
