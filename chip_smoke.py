@@ -256,12 +256,14 @@ axis, collectives as tensor ops), before the LM phases:
 
 Last, after the model families:
 
-11. the five simulator examples (``examples/<name>_torch.py``:
-    quickstart, federated_moons, network_sim_demo, joint_graph_demo,
-    nonlinear_agents_demo), each through its own ``main`` in process on
-    the card at its default size, the launch counts set to 0 just before
-    and read just after (``EXAMPLE_PHASES``): one JSON line each with the
-    figures it returned, its wall seconds and its launches by kernel.
+11. the five simulator examples and the two serving demos
+    (``examples/<name>_torch.py``: quickstart, federated_moons,
+    network_sim_demo, joint_graph_demo, nonlinear_agents_demo,
+    serve_demo, collab_serve_demo), each through its own ``main`` in
+    process on the card at its default size, the launch counts set to 0
+    just before and read just after (``EXAMPLE_PHASES``): one JSON line
+    each with the figures it returned, its wall seconds and its launches
+    by kernel.
     Each example's own assertion must hold, each kernel output of an
     example must be within 1e-5 of its plain version's on the same inputs
     (quickstart's ``synchronous`` rows form and ``run_mp_sweep`` trial
@@ -273,7 +275,14 @@ Last, after the model families:
     nonlinear_agents_demo ``cl_edge_step``), and
     ``tools/trace_report_torch.py`` must render the run directories that
     network_sim_demo and joint_graph_demo write with ``--out`` (under a
-    temporary directory).  The kernels line adds these launches to each
+    temporary directory).  The serving demos take no kernel route
+    (serve_demo's model attends by the plain ``ref`` route, as the JAX
+    demo's; collab_serve_demo's scenario passes no backend, so its rounds
+    and its service are torch ops) and fail the phase if they launch one:
+    serve_demo must not exhaust its tick budget and must return
+    ``SERVE_DEMO_TOKENS`` tokens for every request, collab_serve_demo's
+    ``theta_hist`` must be bit for bit the same with serving and telemetry
+    on and off.  The kernels line adds these launches to each
     kernel's ``launches_by_path`` under ``examples``.
 
 Prints one JSON line per kernel, then ``{"kernels": [...]}`` (all six
@@ -385,9 +394,10 @@ EXAMPLE = ROOT / "examples" / "personalized_lm_torch.py"
 PLM_TINY = False
 PLM_AGENTS, PLM_BATCH, PLM_SEQ, PLM_STEPS, PLM_EVERY = 8, 4, 128, 20, 4
 PLM_MODES = ("none", "consensus", "mp", "cl")
-# 11: the simulator examples at their default size, each with the kernels
-# its path should launch on the card.  network_sim_demo's scenarios pass
-# no backend, as the JAX example's do, so they run the per-op MP round
+# 11: the simulator examples and the serving demos at their default size,
+# each with the kernels its path should launch on the card.
+# network_sim_demo's scenarios pass no backend, as the JAX example's do,
+# so they run the per-op MP round
 # (round_step only runs under a backend: 4a); joint_graph_demo's graph
 # step (edge_reweight) and rounds are torch ops.  Their launches are
 # recorded all the same.
@@ -396,9 +406,17 @@ EXAMPLE_PHASES = (
     ("federated_moons", ("graph_mix",)),
     ("network_sim_demo", ("sparse_gather_mix",)),
     ("joint_graph_demo", ()),
-    ("nonlinear_agents_demo", ("cl_edge_step",)))
+    ("nonlinear_agents_demo", ("cl_edge_step",)),
+    ("serve_demo", ()),
+    ("collab_serve_demo", ()))
 EXAMPLE_RUN_DIRS = ("network_sim_demo", "joint_graph_demo")
 EXAMPLE_CUDA_TOL = 1e-5
+# the serving demos launch no kernel; every serve_demo request decodes
+# its ServeConfig's max_new_tokens (no eos_id, and the longest prompt, 30,
+# plus 24 fits the 128-position cache): the JAX demo's count, which
+# tests/test_torch_examples.py holds the port to on the CPU
+SERVING_DEMOS = ("serve_demo", "collab_serve_demo")
+SERVE_DEMO_TOKENS = 24
 # 8a-8f: the model families at full published width (random bf16 weights,
 # attn_impl="flash"), one at a time: (phase, arch, depth or None, traffic).
 # "engine": prompt lengths served by Engine through FAMILY_SLOTS slots;
@@ -1371,6 +1389,26 @@ def example_theta_star_err(torch, dispatch, mod, figures):
     return (got - plain.cpu()).abs().max().item()
 
 
+def serving_failure(name, figures, launches):
+    """What is wrong with a serving demo's run in phase 11, or None: a
+    kernel launched (neither demo's path has one, so no plain version is
+    held against it here), serve_demo's tick budget exhausted or a
+    request's token count other than ``SERVE_DEMO_TOKENS``,
+    collab_serve_demo's trajectory other with serving on than off."""
+    if launches:
+        return (f"launched {launches}; its path has no kernel and no plain "
+                f"version to hold one against")
+    if name == "serve_demo":
+        if figures["exhausted"]:
+            return "the engine ran out of ticks"
+        counts = figures["tokens_by_request"]
+        if set(counts.values()) != {SERVE_DEMO_TOKENS}:
+            return f"tokens by request {counts}, not {SERVE_DEMO_TOKENS} each"
+    elif not figures["identical"]:
+        return "theta_hist differs with serving on and off"
+    return None
+
+
 def check_examples(torch, dispatch, smi):
     """11. Each simulator example's ``main`` in process on the card at its
     default size (``EXAMPLE_PHASES``), the launch counts set to 0 just
@@ -1382,7 +1420,10 @@ def check_examples(torch, dispatch, smi):
     axis, ``graph_mix``; network_sim_demo's theta*, ``sparse_gather_mix``
     at p = 16), if an example launches none of the kernels its
     path should launch, or if ``tools/trace_report_torch.py`` does not
-    render the run directories the ``--out`` examples write.  Returns
+    render the run directories the ``--out`` examples write; or if a
+    serving demo launches a kernel, exhausts its ticks, decodes other than
+    ``SERVE_DEMO_TOKENS`` tokens a request, or its trajectory differs
+    with serving on (``serving_failure``).  Returns
     ``(records, launches summed over the examples, failure or None)``."""
     recs, total = [], {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-examples-") as tmp:
@@ -1427,6 +1468,10 @@ def check_examples(torch, dispatch, smi):
                                            lines=len(res.stdout.splitlines()))
             recs.append(rec)
             log(json.dumps(rec))
+            if name in SERVING_DEMOS:
+                bad = serving_failure(name, figures, launches)
+                if bad:
+                    return recs, total, f"11 {name}: {bad}"
             missing = [k for k in expect if not launches.get(k)]
             if missing:
                 return recs, total, (f"11 {name}: launched no {missing} "
@@ -3286,12 +3331,12 @@ def main() -> int:
     log(f"[8] {len(families)} model families served at full width in "
         f"{sum(r['phase_s'] for r in families.values()):.1f} s")
 
-    # 11. the simulator examples at their default size ------------------
+    # 11. the examples at their default size ----------------------------
     t0 = time.perf_counter()
     examples, counts["examples"], bad = check_examples(torch, dispatch, smi)
     if bad:
         return fail(bad)
-    log(f"[11] {smi}: {len(examples)} simulator examples at their default "
+    log(f"[11] {smi}: {len(examples)} examples at their default "
         f"size in {time.perf_counter() - t0:.1f} s; launches "
         f"{json.dumps(counts['examples'])}")
 

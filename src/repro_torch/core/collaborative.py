@@ -20,6 +20,10 @@ sparse engine's, so ``simulate.engines.sparse_async_admm`` equals
 :func:`async_admm` bit for bit) and ``k_steps`` (sub)gradient steps
 through ``torch.func.grad`` for hinge and logistic.  The edge step is two
 ``admm_edge_halfstep`` calls, one per endpoint, from the same cells.
+:func:`sync_admm` primal-updates all n agents in one batched step: agent
+l's update reads and writes only its own row ``T[l]`` and reads only its
+own Z and dual rows, which change after every agent has updated, so the
+batch computes the reference's agent loop.
 
 torch cannot replay ``jax.random``: :func:`async_admm` takes an explicit
 ``(i, s)`` wake-up sequence (``draws``) or draws one from a
@@ -186,6 +190,58 @@ def _primal_subgrad(st: ADMMState, l: int, W, D, mask, mu, rho,
     st.T[l] = torch.where(live, row, st.T[l])
 
 
+def _primal_quadratic_all(st: ADMMState, tabs, D, m, sx, mu, rho,
+                          backend=None):
+    """:func:`_primal_quadratic` of every agent at once: one
+    ``admm_primal`` call over the n padded slot rows; writes T."""
+    n, k = tabs.nbr_idx.shape
+    idx = tabs.nbr_idx.long()
+    rows = torch.arange(n, device=idx.device)
+    r = rows[:, None]
+    live = torch.arange(k, device=idx.device) < tabs.deg_count[:, None]
+    theta_l, theta_js = quadratic_primal_core(
+        tabs.nbr_w, live, st.Z_own[r, idx], st.Z_nbr[r, idx],
+        st.L_own[r, idx], st.L_nbr[r, idx], D, m, sx, mu, rho, backend)
+    # scatter: last-write-wins — a row's pad slots collide on its diagonal
+    # cell (all with theta_l) and are overwritten just below
+    st.T[r, torch.where(live, idx, r)] = torch.where(live[..., None],
+                                                     theta_js,
+                                                     theta_l[:, None])
+    st.T[rows, rows] = theta_l  # scatter: unique targets (the diagonal)
+
+
+def _primal_subgrad_all(st: ADMMState, W, D, mask, mu, rho,
+                        data: AgentData, loss: str, k_steps: int,
+                        lr: float):
+    """:func:`_primal_subgrad` of every agent at once: ``k_steps``
+    (sub)gradient steps on the sum of the n Lagrangians over the whole
+    (n, n, p) block T, whose gradient in row T[l] is agent l's own (row
+    l's Lagrangian reads no other row); writes T."""
+    loss_fn = LOSSES[loss]
+    w = W * mask
+    m3 = mask[..., None]
+
+    def lagrangians(T):
+        theta = _diag_blocks(T)
+        th = theta[:, None]
+        smooth = 0.5 * torch.sum(w * torch.sum((th - T) ** 2, dim=-1))
+        local = mu * torch.sum(D * torch.func.vmap(loss_fn)(
+            theta, data.x, data.y, data.mask))
+        lin = torch.sum(m3 * (st.L_own * (th - st.Z_own)
+                              + st.L_nbr * (T - st.Z_nbr)))
+        quad = 0.5 * rho * torch.sum(
+            m3 * ((th - st.Z_own) ** 2 + (T - st.Z_nbr) ** 2))
+        return smooth + local + lin + quad
+
+    grad = torch.func.grad(lagrangians)
+    T = st.T
+    for _ in range(k_steps):
+        T = T - lr * grad(T)
+    n = T.shape[0]
+    live = mask | torch.eye(n, dtype=torch.bool, device=T.device)
+    st.T = torch.where(live[..., None], T, st.T)
+
+
 def _edge_zl_update(st: ADMMState, i: int, j: int, rho: float):
     """Z and dual update of edge (i, j), both endpoints (paper steps 2-3):
     every cell is read before any is written."""
@@ -257,6 +313,17 @@ def _make_primal(tabs, W, D, mask, mu, rho, data, loss, k_steps, lr,
                                          loss, k_steps, lr)
 
 
+def _make_primal_all(tabs, W, D, mask, mu, rho, data, loss, k_steps, lr,
+                     backend):
+    """:func:`_make_primal`'s update of every agent at once."""
+    if loss == "quadratic":
+        m, sx = local_stats(data)
+        return lambda st: _primal_quadratic_all(st, tabs, D, m, sx, mu, rho,
+                                                backend)
+    return lambda st: _primal_subgrad_all(st, W, D, mask, mu, rho, data,
+                                          loss, k_steps, lr)
+
+
 def async_admm(graph: Graph, data: AgentData, mu: float, rho: float,
                loss: str = "quadratic", steps: int = 1000, seed: int = 0,
                record_every: int = 50, k_steps: int = 10, lr: float = 0.05,
@@ -301,16 +368,15 @@ def sync_admm(graph: Graph, data: AgentData, mu: float, rho: float,
     """Synchronous decentralized ADMM (paper App. D) on ``device`` (CUDA
     when None); ``state`` is updated in place.  One iteration = every
     agent primal-updates, then every edge's Z/dual update; 2|E| pairwise
-    communications."""
-    n = graph.n
-    device, st, _, tabs, W, D, mask = _setup(graph, data, theta_sol, state,
-                                             device)
-    primal = _make_primal(tabs, W, D, mask, mu, rho, data, loss, k_steps,
-                          lr, backend)
+    communications.  Each iteration's primal step is one batched update
+    of all n agents (see the module's docstring)."""
+    _, st, _, tabs, W, D, mask = _setup(graph, data, theta_sol, state,
+                                        device)
+    primal = _make_primal_all(tabs, W, D, mask, mu, rho, data, loss,
+                              k_steps, lr, backend)
     hist = []
     for _ in range(steps):
-        for l in range(n):
-            primal(st, l)
+        primal(st)
         _all_zl_update(st, mask, rho)
         hist.append(st.models().clone())
     comms = 2 * len(graph.edges()) * (np.arange(steps) + 1)

@@ -7,6 +7,8 @@
   more in float32) within a relative 1e-6.
 * Dense references: ``async_admm`` (fed the JAX run's own wake-ups) and
   ``sync_admm``, quadratic and hinge, within 1e-5 per recorded snapshot;
+  ``sync_admm``'s batched primal (every agent at once) against the
+  per-agent primals in turn, quadratic, hinge and logistic, within 1e-5;
   the port's ``sparse_async_admm`` equals its dense ``async_admm`` bit for
   bit (the sparse-vs-dense claim) and the JAX ``sparse_async_admm``
   within 1e-5.
@@ -275,6 +277,37 @@ def test_sync_admm_matches_jax(dense, refs, loss):
                          theta_sol=sol, k_steps=3, device=CPU)
     close(got.theta_hist, want["theta_hist"])
     np.testing.assert_array_equal(got.comms_hist, want["comms_hist"])
+
+
+def agent_loop_sync_admm(g, data, mu, rho, loss, steps, k_steps, lr, sol):
+    """``sync_admm`` as the JAX reference orders it: each agent's own
+    primal (``_make_primal``) in turn, then every edge's Z and dual
+    update; a snapshot of the models per iteration."""
+    _, st, _, tabs, W, D, mask = tcol._setup(g, data, sol, None, CPU)
+    primal = tcol._make_primal(tabs, W, D, mask, mu, rho, data, loss,
+                               k_steps, lr, None)
+    hist = []
+    for _ in range(steps):
+        for agent in range(g.n):
+            primal(st, agent)
+        tcol._all_zl_update(st, mask, rho)
+        hist.append(st.models().clone())
+    return torch.stack(hist)
+
+
+@pytest.mark.parametrize("loss", ["quadratic", "hinge", "logistic"])
+def test_sync_admm_batched_primal_equals_agent_loop(lin, loss):
+    """The batched primal of every agent at once against the per-agent
+    primals in turn over the same state, per recorded snapshot."""
+    (tg, ttr, _, _) = lin[1]
+    sol = tloss.solitary_gd(ttr, "hinge", steps=30)
+    got = tcol.sync_admm(tg, ttr, 0.5, 1.0, loss=loss, steps=6, k_steps=4,
+                         lr=0.05, theta_sol=sol, device=CPU)
+    want = agent_loop_sync_admm(tg, ttr, 0.5, 1.0, loss, 6, 4, 0.05, sol)
+    assert got.theta_hist.shape == want.shape
+    close(got.theta_hist, want)
+    # the models moved off the warm start
+    assert (got.theta_hist[-1] - sol).abs().max() > 1e-3
 
 
 def test_sparse_async_admm_equals_dense_bit_for_bit(dense, refs):

@@ -31,8 +31,8 @@ re-compaction bit for bit, ``cuda_sharded`` bit for bit with
 run's predicted peak memory of a one-agent training step against the
 card's; and ``examples/quickstart_torch.py``'s backend part (the
 ``graph_mix`` kernel against its plain version within 1e-5, rows form
-and trial axis).  The kernels have no CPU mode: on a host without a CUDA card
-every test here skips.
+and trial axis); and the two serving demos at ``--smoke``.  The kernels
+have no CPU mode: on a host without a CUDA card every test here skips.
 
 Run on the card with ``python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -1049,3 +1049,31 @@ def test_quickstart_example_backends_on_the_card(cuda):
     assert out["cuda_vs_reference"] <= 1e-5
     assert out["sweep_cuda_vs_reference"] is not None
     assert out["sweep_cuda_vs_reference"] <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["serve_demo", "collab_serve_demo"])
+def test_serving_demo_on_the_card(cuda, name):
+    """``examples/<name>_torch.py --smoke`` on the card: serve_demo
+    decodes 24 tokens for each of its 8 requests without exhausting its
+    ticks, collab_serve_demo's gossip trajectory is bit for bit the same
+    with serving on and off; neither launches a kernel (serve_demo
+    attends by the ``ref`` route, collab_serve_demo passes no backend)."""
+    import contextlib
+    import importlib.util
+    import io
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" \
+        / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    dispatch.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = example.main(["--smoke"])
+    assert not any(dispatch.launch_counts().values())
+    if name == "serve_demo":
+        assert not out["exhausted"]
+        assert out["tokens_by_request"] == {rid: 24 for rid in range(8)}
+    else:
+        assert out["identical"] is True
+        assert out["requests"] == 800

@@ -1,5 +1,6 @@
-"""The port's simulator examples (``examples/*_torch.py``) run in process
-at their ``--smoke`` size on the CPU, through their own ``main``:
+"""The port's examples (``examples/*_torch.py``: the simulator examples
+and the two serving demos) run in process at their ``--smoke`` size on
+the CPU, through their own ``main``:
 
 * the figures that come from numpy seeds and deterministic code equal the
   JAX package's same functions at the same arguments within 1e-5: the
@@ -7,10 +8,15 @@ at their ``--smoke`` size on the CPU, through their own ``main``:
   ``synchronous``, ``sync_admm`` and ``run_mp_sweep``'s mean L2 per
   alpha; federated_moons' coupling iterates and their gap to the closed
   form; network_sim_demo's theta* (``sparse_sync_mp``); joint_graph_demo's
-  ``cluster_edge_recovery`` before learning;
+  ``cluster_edge_recovery`` before learning; serve_demo's parameter
+  count and every request's token count (the JAX demo's own run);
+  collab_serve_demo's own scenario on the JAX package's event stream
+  against JAX's ``run_scenario``: the service's counters and every served
+  staleness exactly, ``theta_hist`` within 1e-5;
 * the figures that depend on event draws (the port draws its own) hold
   the example's own property: its closing assertion, finite values, and
-  a ``rel_err`` below 1;
+  a ``rel_err`` below 1; serve_demo's tokens (drawn at temperature 0.7)
+  are the port's own;
 * without ``--device`` on a host without CUDA each example raises;
 * ``tools/trace_report_torch.py`` and the JAX package's
   ``tools/trace_report.py`` both render the run directories the two
@@ -26,6 +32,7 @@ import importlib.util
 import io
 import math
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -34,6 +41,8 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro import simulate as jsim  # noqa: E402
+from repro import telemetry as jtel  # noqa: E402
 from repro.core import closed_form as jclosed_form  # noqa: E402
 from repro.core import confidences_from_counts as jconf  # noqa: E402
 from repro.core import consensus_model as jconsensus  # noqa: E402
@@ -53,18 +62,26 @@ from repro.data.synthetic import \
     two_cluster_mean_problem as jtwo_cluster  # noqa: E402
 from repro.experiments import mean_estimation_trials as jtrials  # noqa: E402
 from repro.experiments import run_mp_sweep as jrun_mp_sweep  # noqa: E402
+from repro.models import Model as JModel  # noqa: E402
+from repro.models import ModelConfig as JModelConfig  # noqa: E402
 from repro.simulate import cluster_topology as jcluster_topology  # noqa: E402
 from repro.simulate import planted_partition_topology as jplanted  # noqa: E402
 from repro.simulate import sparse_sync_mp as jsparse_sync_mp  # noqa: E402
 
 import _port_session  # noqa: E402
+from _port_session import as_numpy  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
+from repro_torch import convert  # noqa: E402
+from repro_torch.simulate import run_scenario  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = ("quickstart", "federated_moons", "network_sim_demo",
-            "joint_graph_demo", "nonlinear_agents_demo")
+            "joint_graph_demo", "nonlinear_agents_demo", "serve_demo",
+            "collab_serve_demo")
 WRITES_RUNS = ("network_sim_demo", "joint_graph_demo")
+# collab_serve_demo's --smoke sizes: n, p, rounds, rate
+COLLAB_SMOKE = (300, 16, 80, 10.0)
 TOL = 1e-5
 
 
@@ -141,11 +158,37 @@ def test_example_runs_smoke_on_the_cpu(smoke, name):
         assert figures["eta=0.3"]["inter_mass"] < \
             figures["eta=0"]["inter_mass"]
         assert "OK: learned graph recovers the planted clusters" in text
-    else:
+    elif name == "nonlinear_agents_demo":
         assert figures["p"] == 33
         assert figures["acc"] > figures["acc_solitary"]
         assert f"Eq.7 objective (telemetry):  " \
             f"{figures['objective_first']:.1f} -> " in text
+    elif name == "serve_demo":
+        assert not figures["exhausted"]
+        assert figures["requests"] == 8
+        assert f"model: {figures['params'] / 1e6:.2f}M params" in text
+        assert "submitted 8 requests into 4 slots" in text
+        for rid, count in figures["tokens_by_request"].items():
+            assert f" req {rid}: {count} tokens -> [" in text
+        assert figures["total_tokens"] == \
+            sum(figures["tokens_by_request"].values())
+        assert f"{figures['total_tokens']} tokens in " in text
+        assert "tok/s, CPU, batched)" in text
+    else:
+        assert figures["identical"] is True
+        assert (figures["n"], figures["rounds"]) == (300, 80)
+        assert figures["requests"] == 800            # rate 10 x 80 rounds
+        assert figures["hits"] + figures["misses"] == figures["requests"]
+        assert f"served {figures['requests']} requests over 80 rounds " \
+            f"(300 agents)" in text
+        assert f"  cache: hit_rate={figures['hit_rate']:.2%} " \
+            f"hits={figures['hits']} misses={figures['misses']} " \
+            f"invalidations={figures['invalidations']}" in text
+        assert f"  served staleness: p50={figures['staleness_p50']:.0f} " \
+            f"p99={figures['staleness_p99']:.0f} rounds" in text
+        assert "  last telemetry row: round     80 " in text
+        assert "OK: gossip trajectory identical with and without serving" \
+            in text
 
 
 @pytest.mark.parametrize("name", EXAMPLES)
@@ -234,13 +277,59 @@ def jax_theta_star(n, p=16):
     return np.asarray(jsparse_sync_mp(topo, theta_sol, c, 0.9, sweeps=400))
 
 
+def jax_serve_demo():
+    """The JAX serve demo's own run (its printed lines: each request's
+    token count) and the parameter count of the JAX ``Model`` of the
+    port demo's config."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        load(REPO / "examples" / "serve_demo.py").main()
+    text = buf.getvalue()
+    counts = {int(rid): int(k) for rid, k in
+              re.findall(r"^ req (\d+): (\d+) tokens -> ", text, re.M)}
+    cfg = JModelConfig(**example("serve_demo").CONFIG)
+    return {"params": JModel(cfg).param_count(), "tokens_by_request": counts,
+            "model_line": text.splitlines()[0]}
+
+
+def jax_collab_serve(n, p, rounds, rate, seed=0):
+    """The JAX collab serve demo's scenario at these sizes through JAX's
+    ``run_scenario`` (events drawn inline), and the same events drawn by
+    ``precompute_event_stream`` for the port's spec to replay."""
+    topo = jcluster_topology(n, n_clusters=8, k_intra=5, bridges=6,
+                             seed=seed)
+    rng = np.random.default_rng(seed)
+    theta_sol = rng.standard_normal((n, p)).astype(np.float32)
+    c = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    cond = jsim.NetworkConditions(drop_prob=0.15, churn_rate=0.005)
+    batch = max(1, n // 10)
+    tr = jsim.run_scenario(jsim.ScenarioSpec(
+        algo="mp", topology=topo, theta_sol=theta_sol, c=c, alpha=0.9,
+        conditions=cond, rounds=rounds, batch=batch, seed=seed,
+        record_every=max(1, rounds // 8),
+        telemetry=jtel.TelemetryConfig(enabled=True),
+        serve=jsim.precompute_serve_stream(n, rounds, rate=rate, seed=seed),
+        serve_batch=256))
+    stream = jsim.precompute_event_stream(
+        topo.device_tables(), jnp.asarray(topo.partition_halves()), cond,
+        batch, seed, rounds)
+    rep = tr.serve
+    return as_numpy({
+        "requests": rep.requests, "hits": rep.hits, "misses": rep.misses,
+        "invalidations": rep.invalidations,
+        "served_staleness": rep.served_staleness,
+        "theta_hist": tr.theta_hist, "stream": stream})
+
+
 def jax_references():
     """The JAX side of the figure tests (run in a subprocess of its own
     beside the tests before this module: tests/_port_session.py)."""
     return {"quickstart": jax_quickstart(example("quickstart").SIZES[True]),
             "federated_moons": jax_federated_moons(
                 example("federated_moons").ITERATES),
-            "theta_star": jax_theta_star(300)}
+            "theta_star": jax_theta_star(300),
+            "serve_demo": jax_serve_demo(),
+            "collab_serve": jax_collab_serve(*COLLAB_SMOKE)}
 
 
 refs = _port_session.reference_fixture(__name__)
@@ -285,6 +374,34 @@ def test_joint_graph_recovery_before_learning_matches_jax(smoke):
     assert (got["n_intra"], got["n_inter"]) == (want.n_intra, want.n_inter)
     for key in ("intra_recovered", "inter_suppressed", "inter_mass"):
         close(got[key], getattr(want, key))
+
+
+def test_serve_demo_counts_match_jax(smoke, refs):
+    """The parameter count and every request's token count of the JAX
+    demo's run (the tokens themselves are sampled: the port's own)."""
+    figures, text = smoke["serve_demo"]
+    want = refs["serve_demo"]
+    assert figures["params"] == want["params"]
+    assert text.splitlines()[0] == want["model_line"]
+    assert figures["tokens_by_request"] == want["tokens_by_request"]
+
+
+def test_collab_serve_demo_matches_jax_on_its_stream(refs):
+    """The demo's own spec at its --smoke size, replaying the JAX
+    package's event stream, against JAX's ``run_scenario`` of the JAX
+    demo's spec: the service's counters and every served staleness
+    exactly, ``theta_hist`` within 1e-5."""
+    want = refs["collab_serve"]
+    n, p, rounds, rate = COLLAB_SMOKE
+    spec = example("collab_serve_demo").spec(
+        n, p, rounds, rate, 0, "cpu",
+        stream=convert.stream_from_arrays(want["stream"], "cpu"))
+    tr = run_scenario(spec)
+    for f in ("requests", "hits", "misses", "invalidations"):
+        assert getattr(tr.serve, f) == want[f], f
+    np.testing.assert_array_equal(tr.serve.served_staleness,
+                                  want["served_staleness"])
+    close(tr.theta_hist.numpy(), want["theta_hist"])
 
 
 @pytest.mark.parametrize("name", WRITES_RUNS)
