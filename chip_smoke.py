@@ -128,10 +128,13 @@ from the seed on the card), after the CL state is freed:
     H = K = 24, hd 64; Phi-3.5-MoE's is Llama's) and on two small float32
     cases (hd 64 and 256); kernel,
     plain, SDPA (kv heads repeated, a boolean band mask for a window) and
-    bound ms (the band's operations).  bf16 runs the wgmma kernel, which
-    rounds the softmax weights to bf16 per kv tile (128 keys, 64 at hd
-    256; the plain version keeps them in float32): 1e-2 abs and rel;
-    float32 runs the FFMA kernel: 1e-5;
+    bound ms (the band's operations), and the kernel's device ms and host
+    µs a call read apart (``queued``).  bf16 runs a wgmma kernel
+    (``flash_fwd_wgmma`` at hd 128, the warp-specialised ``flash_fwd_ws``
+    at hd 256 and 64), which rounds the softmax weights to bf16 per kv
+    tile (128 keys at hd 128, 80 at hd 256, 64 at hd 64; the plain
+    version keeps them in float32): 1e-2 abs and rel; float32 runs the
+    FFMA kernel: 1e-5;
 6b. ``Engine(ServeConfig(batch_size=4, cache_len=8192, max_new_tokens=32))``
     serving six prompts (512 to 4096 tokens) through four slots with
     ``attn_impl="flash"``: every request finishes with 32 tokens in the
@@ -1075,21 +1078,33 @@ def check_admm_edge(torch, au, slabs, rho):
         bound_ms=bms, bound_by=by, library_ms=None, library_call=None)
 
 
+def flash_inputs(torch, case, seed):
+    """Standard-normal q, k, v of one ``FA_CASES`` case, from the seed, on
+    the card."""
+    B, S, H, K, hd, window, dname = case
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=DEVICE)
+                 .to(getattr(torch, dname))
+                 for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+
+
 def check_flash(torch, fa, case, seed):
     """flash_attention against its plain version on one case of
-    ``FA_CASES`` (standard-normal q, k, v from the seed, on the card).
-    bf16 runs the wgmma kernel, which rounds the softmax weights to bf16
-    once per 128-key tile before P @ V (as the JAX oracle rounds them);
-    the plain version keeps them in float32, so the two differ by about a
-    bf16 ulp of the output: within 1e-2 abs and rel.  float32 runs the
-    FFMA kernel, all in float32: within 1e-5.  The library call is SDPA
-    on the kv heads repeated to H (a boolean mask for the window)."""
+    ``FA_CASES`` (``flash_inputs``).  bf16 runs a wgmma kernel, which
+    rounds the softmax weights to bf16 once per kv tile (128 keys at hd
+    128, 80 at hd 256, 64 at hd 64) before P @ V (as the JAX oracle rounds
+    them); the plain version keeps them in float32, so the two differ by
+    about a bf16 ulp of the output: within 1e-2 abs and rel.  float32 runs
+    the FFMA kernel, all in float32: within 1e-5.  The library call is
+    SDPA on the kv heads repeated to H (a boolean mask for the window).
+    ``ms`` times back-to-back calls, which at a small shape also reads the
+    wrapper's host work; ``device_ms`` and ``host_us`` read the device and
+    the host apart (``queued``), and ``host_kept_up`` says whether the
+    host enqueued every call before the device reached them."""
     import torch.nn.functional as F
     B, S, H, K, hd, window, dname = case
     dtype = getattr(torch, dname)
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=g, device=DEVICE).to(dtype)
-               for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    q, k, v = flash_inputs(torch, case, seed)
     got = fa.flash_attention(q, k, v, window=window)
     want = fa.flash_attention_plain(q, k, v, window=window)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
@@ -1117,17 +1132,31 @@ def check_flash(torch, fa, case, seed):
         return F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=mask is None)
 
+    def kernel():
+        return fa.flash_attention(q, k, v, window=window)
+
+    if dtype != torch.bfloat16:
+        design = "FFMA f32"
+    elif hd == 128:
+        design = "wgmma+TMA bf16, 128-key tiles, P in bf16"
+    elif hd > 128:
+        design = ("warp-specialised wgmma+TMA bf16: a producer warpgroup, "
+                  "two consumer warpgroups in ping-pong, 80-key tiles, P in "
+                  "bf16")
+    else:
+        design = ("warp-specialised wgmma+TMA bf16: two consumer warpgroups "
+                  "splitting a 64-query tile's 64-key tiles, P in bf16")
+    device_ms, host_us, kept_up = queued(torch, kernel, 10)
     plain_iters = 2 if S * H > 100_000 else 10
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:31",
-        design=(f"wgmma+TMA bf16, {64 if hd > 128 else 128}-key tiles, "
-                f"P in bf16" if dtype == torch.bfloat16 else "FFMA f32"),
+        design=design,
         shape=f"B={B} S={S} H={H} K={K} hd={hd} window={window} {dname}",
         max_abs_err=err, tol=tol, ok=excess <= tol,
-        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, window=window),
-                   10),
+        ms=time_ms(torch, kernel, 10),
+        device_ms=device_ms, host_us=host_us, host_kept_up=kept_up,
         plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, window=window), plain_iters, warmup=1),
         bound_ms=bms, bound_by=by,
@@ -3396,7 +3425,7 @@ def main() -> int:
     summary.append(agent)
     # the bf16 kernel's other head dims, each at its family's shape with
     # that family's launches: hd 256 (8c, RecurrentGemma's MQA heads,
-    # 64-key tiles) and hd 64 (8f, MusicGen's MHA heads)
+    # 80-key tiles) and hd 64 (8f, MusicGen's MHA heads)
     for hd in (256, 64):
         case = next(kr for kr in fa_cases if f"hd={hd} " in kr["shape"]
                     and "bfloat16" in kr["shape"])

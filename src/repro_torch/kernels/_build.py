@@ -58,7 +58,7 @@ SIGNATURES = {
     "repro_admm_edge": (P,) * 14 + (I, I, F, P),
     # q, k, v, o, B, S, H, KH, hd, window, is_bf16, scale, stream
     "repro_flash_attention": (P,) * 4 + (I,) * 7 + (F, P),
-    # hd, is_bf16, out (int[2]): no stream, called directly
+    # hd, is_bf16, out (int[3]): no stream, called directly
     "repro_flash_attention_attrs": (I, I, P),
 }
 

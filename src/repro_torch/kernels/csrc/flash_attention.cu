@@ -15,14 +15,21 @@
 // causal limit): fully masked tiles are never loaded, as the TPU kernel
 // skips them.  The heaviest causal tiles (the last queries) go first.
 //
-// Bound on an H100: operations.  The causal work is 4 B H hd sum_q n(q)
+// Bound on an H100.  The causal work is 4 B H hd sum_q n(q) operations
 // (n(q) = min(q + 1, window) live keys; 2 B H S^2 hd without a window)
-// against 989 TFLOP/s dense bf16; the bytes (q, o and the un-expanded k
-// and v) take far less.  So bf16 runs on the tensor cores:
+// against 989 TFLOP/s dense bf16; the bytes are q, o and the un-expanded
+// k and v, read and written once.  At the served shapes:
+//   - hd 128 and 256 (Llama-3-8B's prefill, RecurrentGemma-2B's 2048
+//     window at S 4096): operations, by several times the bytes;
+//   - hd 64 (MusicGen-medium: S 1024, 24 heads, MHA): bytes and operations
+//     are both about 3.5 us, so the time is set by fixed costs (the
+//     launch, the first copies' latency, the epilogue) and by how evenly
+//     the blocks fill the 132 SMs.
+// So bf16 runs on the tensor cores, in one of two designs:
 //
-// bf16: wgmma + TMA (flash_fwd_wgmma).  One block of two warpgroups per
-//   (batch * head, 128-query tile); each warpgroup owns 64 query rows,
-//   wgmma's M.  kv tiles are BK = 128 keys (64 at hd = 256).
+// bf16, hd 128: wgmma + TMA (flash_fwd_wgmma).  One block of two
+//   warpgroups per (batch * head, 128-query tile); each warpgroup owns 64
+//   query rows, wgmma's M.  kv tiles are BK = 128 keys.
 //   - Copies by TMA, with 4-D tensor maps (hd, heads, S, B) built on the
 //     host per call, 64-element (128-byte) boxes and 128-byte swizzle, so
 //     tiles land in the layout the wgmma descriptors read.  Q is loaded
@@ -36,16 +43,10 @@
 //   - The grid is (B * H, query tiles) with the heaviest causal tiles (the
 //     last queries) of every head launched first, so the short tiles fill
 //     the end of the run.
-//   - Shared memory at hd = 128: Q 32 KB, K and V 2 x 32 KB each: 160 KB
-//     (80 KB at hd = 64), above 48 KB by cudaFuncSetAttribute.  At hd =
-//     256 (RecurrentGemma's heads) 128-key stages would take Q 64 KB +
-//     4 x 64 KB = 320 KB, over the 227 KB a block may have, so kv tiles
-//     are 64 keys there: 64 KB + 4 x 32 KB = 192 KB.  The 64 x 256 float32
-//     O accumulator is then 128 registers a thread, kept as two 128-column
-//     wgmma accumulators (repro_flash_attention_attrs reports registers
-//     and spills).
-//   - S = Q K^T: hd / 16 wgmma.m64n128k16 (m64n64k16 at hd = 256), A and
-//     B from shared memory, both K-major (hd is contiguous in q and k).
+//   - Shared memory: Q 32 KB, K and V 2 x 32 KB each: 160 KB, above 48 KB
+//     by cudaFuncSetAttribute (once per device).
+//   - S = Q K^T: hd / 16 wgmma.m64n128k16, A and B from shared memory,
+//     both K-major (hd is contiguous in q and k).
 //   - Online softmax in registers, in the log2 domain (scale * log2 e is
 //     folded into one multiply, exp2): masks only on the diagonal tiles and
 //     the window's edge tiles; m and l in float32, a row's max over the 4
@@ -57,23 +58,71 @@
 //   - O += P V: P is rounded to bf16 once, in registers, and fed as
 //     wgmma's A operand from registers (for 16-bit types the accumulator
 //     layout of S is the A-fragment layout, so no shuffle is needed); V is
-//     read from shared memory as an MN-major B (the transposed-B form), at
-//     hd = 256 as two 128-column products; O accumulates in float32.  The output is O / max(l, 1e-20), l summed
+//     read from shared memory as an MN-major B (the transposed-B form); O
+//     accumulates in float32.  The output is O / max(l, 1e-20), l summed
 //     from the unrounded weights, rounded to bf16 and stored from
 //     registers (rows < S only).
-//   - Rounding P to bf16 per 128-key tile against the running max is what
-//     the JAX oracle repro.kernels.ref.flash_attention does too (it rounds
-//     the weights to v's dtype before P V).  Emulated on the CPU against
-//     the float32-weight plain version it stays within one bf16 ulp of the
-//     output, inside the 1e-2 abs/rel bar
-//     (tests/test_torch_tc_numerics.py).
-//   - What holds it below the tensor-core peak is issue, not the copies:
-//     a warpgroup's softmax does not overlap its own MMAs, and the two
-//     warpgroups are not scheduled against each other.  Next steps: a
-//     producer warp(group) with setmaxnreg handing registers to the
-//     consumers, ping-pong of softmax and wgmma between the two
-//     warpgroups, persistent blocks (a block's loads and epilogue now
-//     idle the SM's tensor cores), and a TMA-store epilogue.
+//   - Rounding P to bf16 per kv tile against the running max is what the
+//     JAX oracle repro.kernels.ref.flash_attention does too (it rounds the
+//     weights to v's dtype before P V).  Emulated on the CPU against the
+//     float32-weight plain version it stays within one bf16 ulp of the
+//     output, inside the 1e-2 abs/rel bar (tests/test_torch_tc_numerics.py).
+//   - A warpgroup's softmax does not overlap its own products and the two
+//     warpgroups are not scheduled against each other; flash_fwd_ws below
+//     is the design that does both.
+//
+// bf16, hd 256 and 64: warp-specialised wgmma + TMA (flash_fwd_ws).  The
+//   algorithm is flash_fwd_wgmma's (the same maps and descriptors, masks,
+//   online softmax, P rounded to bf16 per kv tile, epilogue); what changes
+//   is who does what and when, the tiles, and the instructions a weight.
+//   - Two consumer warpgroups.  K and V come through separate rings of kv
+//     tiles.  Each stage has a full mbarrier (its copy landed) and an
+//     empty one (its reader warps released it): K is released as soon as
+//     S has read it and V once P V has, so a stage's refill starts a tile
+//     before one barrier for both would let it.
+//   - Softmax under the tensor cores, inside a warpgroup: S_i = Q K_i^T is
+//     issued with O += P_{i-1} V_{i-1} behind it; wgmma.wait_group 1 waits
+//     for S_i alone, its softmax runs while P V is on the tensor cores,
+//     then wait_group 0, O is rescaled and P_i rounded.  O sees the same
+//     operations in the same order as in flash_fwd_wgmma (O *= alpha_i,
+//     then O += P_i V_i).  Fewer instructions a weight: 2^x is one
+//     ex2.approx.ftz (exp2f adds a range check for results below 2^-126);
+//     in a tile with no masked key the max is taken on the raw logits and
+//     a weight is 2^fma(s, scale, -m); the wgmma descriptors are a base
+//     plus a constant.
+//   - hd 256 (operations): 128-query blocks, the consumer warpgroups on
+//     rows 0..63 and 64..127, and a producer warpgroup whose one thread
+//     issues every copy; 384 threads, one block an SM.  setmaxnreg hands
+//     the producer's registers to the consumers (24 and 240: 128 x 24 +
+//     256 x 240 = 64,512 of 65,536), whose 64 x 256 float32 O takes 128 a
+//     thread beside an S tile (40) and P (20).  Named barriers (bar.sync
+//     1 + w, 256) let the two warpgroups issue their products in turn, so
+//     one's softmax runs under the other's products (ping-pong).  kv tiles
+//     are 80 keys: Q 64 KB + K and V 2 x 40 KB each = 224 KB.  S reads
+//     its Q operand from shared memory again for every kv tile, as many
+//     bytes as of K at 64 keys; 80 keys cut that share.  The products
+//     alone (no softmax) run at under 60 % of the tensor-core peak; that
+//     operand traffic is the suspect, unmeasured without a profiler.
+//   - hd 64 (bytes, fixed costs, fill): the time is the heaviest query
+//     tile's walk (16 kv tiles of 64 keys at S 1024) plus each block's
+//     start and end.  64-query blocks, the two consumer warpgroups on the
+//     same 64 rows, the block's kv tiles dealt to them in turn (tile i in
+//     stage i % 4, so each warpgroup reads two of the four), each with its
+//     own m, l and O; warpgroup 1 hands its state to warpgroup 0 through
+//     shared memory at the end, which merges them (m = max, O and l scaled
+//     by 2^(m_w - m) and summed) and stores: the longest walk is halved.
+//     No producer: one thread loads Q and the first four tiles, then each
+//     warpgroup refills its own stages (one thread of it, once its four
+//     warps have released the stage), because a ninth warp would cap two
+//     blocks an SM at 96 registers a thread (five warps on a scheduler).
+//     256 threads at most 128 registers, Q 8 KB + K and V 4 x 8 KB each +
+//     18 KB for the merge: two blocks an SM.
+//   - Next steps: a persistent grid walking an LPT-ordered tile list (hd
+//     256: 320 blocks whose work runs from 2 to 28 kv tiles, about 2.4
+//     waves; hd 64: 384 blocks on 264 slots, each block's start and end
+//     paid twice on most SMs), prefetching the next tile's Q and first kv
+//     tiles under the current one; Q in registers for S at hd 64 (16 a
+//     thread), so S reads only K from shared memory; a TMA-store epilogue.
 //
 // float32: FFMA (flash_fwd_kernel<float, HD>).  One block per (batch *
 //   head, 64-query tile), 256 threads as a 16 x 16 grid; q and k kept in
@@ -94,6 +143,36 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+
+// a kernel's dynamic shared memory limit (above the default 48 KB), and
+// for a kernel meant to share an SM with others of its blocks the largest
+// shared-memory carveout of the SM's 256 KB, so its occupancy does not
+// rest on the carveout CUDA would pick
+cudaError_t configure(const void* kernel, int bytes, bool max_carveout) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && max_carveout)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// configure() once per kernel and device, not on every launch: `done` is
+// the calling launch's own static flags (a second thread racing past them
+// only configures the kernel twice)
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t configure_once(const void* kernel, int bytes, bool max_carveout,
+                           bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = configure(kernel, bytes, max_carveout);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
 
 // ---- float32: FFMA --------------------------------------------------------
 
@@ -269,13 +348,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int HD>
+constexpr int smem_bytes() {
+  return sizeof(float) * (2 * HD * BQ + BK * HD + BK * BQ);
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KH, int window, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * HD * BQ + BK * HD + BK * BQ);
+  constexpr int smem = smem_bytes<HD>();
   auto kernel = flash_fwd_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool configured[MAX_DEVICES];
+  const cudaError_t err =
+      configure_once((const void*)kernel, smem, false, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(S / BQ, B * H);
   kernel<<<grid, THREADS, smem, stream>>>(
@@ -297,9 +382,10 @@ constexpr int THREADS = 256;            // two warpgroups
 constexpr int BOX = 64;                 // bf16 per 128-byte swizzle row
 constexpr uint32_t ATOM_ROWS_BYTES = 1024;   // 8 rows x 128 bytes
 
-// keys per kv tile (wgmma N of S): 128, or 64 at hd = 256, where 128-key
-// stages would take 320 KB of shared memory and the 64 x 256 float32 O
-// accumulator already takes 128 registers a thread
+// keys per kv tile (wgmma N of S) of flash_fwd_wgmma: 128.  The template
+// also compiles at hd = 256 with 64-key tiles (128-key stages would take
+// 320 KB of shared memory), but launch() sends hd 256 and 64 to
+// flash_fwd_ws and instantiates this kernel at 128 only
 template <int HD>
 constexpr int kv_tile() { return HD > 128 ? 64 : 128; }
 
@@ -560,6 +646,466 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
 }
 
+// ---- bf16 at hd 256 and 64: warp-specialised (flash_fwd_ws) ---------------
+
+// Two consumer warpgroups, in one of two layouts:
+//   hd 256 (rows): the warpgroups own query rows 0..63 and 64..127 of a
+//   128-query block and walk every kv tile, taking turns on the tensor
+//   cores; a producer warpgroup issues the copies and hands its registers
+//   to them; 2-stage K and V rings.
+//   hd 64 (split): both warpgroups own the block's 64 queries and split
+//   its kv tiles, even and odd, each with its own m, l and O, merged at
+//   the end; 4-stage rings, each warpgroup's tiles in two of the stages,
+//   which it refills itself (one thread of it issues the copies); two
+//   blocks an SM.
+template <int HD>
+struct Ws {
+  static constexpr bool SPLIT = HD <= 64;
+  static constexpr int BQ = SPLIT ? 64 : 128;
+  static constexpr int STAGES = SPLIT ? 4 : 2;
+  // keys per kv tile: 80 at hd 256 (224 KB of shared memory), where the
+  // wider S reads fewer Q bytes a key; 64 at hd 64
+  static constexpr int BK = SPLIT ? 64 : 80;
+  static constexpr int CONSUMER_THREADS = 256;
+  static constexpr int THREADS = CONSUMER_THREADS + (SPLIT ? 0 : 128);
+  static constexpr int BLOCKS_PER_SM = SPLIT ? 2 : 1;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;      // one stage of K or V
+  // split: warpgroup 1's O (HD / 2 floats a thread), m and l (2 each)
+  static constexpr int MERGE_BYTES = SPLIT ? 128 * (HD / 2 + 4) * 4 : 0;
+  static constexpr int BARS = 1 + 4 * STAGES;       // q; full, empty x K, V
+  static constexpr int BYTES = Q_BYTES + 2 * STAGES * KV_BYTES + MERGE_BYTES
+                               + 8 * BARS + 1024;   // 1024-byte alignment
+};
+
+// rows, setmaxnreg: 128 x 24 + 256 x 240 = 64,512 of the 65,536 registers
+// (the launch gives each of the 384 threads 168)
+constexpr int WS_PRODUCER_REGS = 24, WS_CONSUMER_REGS = 240;
+
+// 2^x in one MUFU.EX2 (exp2f adds a range check and two predicated
+// multiplies for results below 2^-126, which this flushes to 0: a weight
+// under 2^-126 moves no float32 sum of weights of order 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the descriptor of the address `bytes` past d's: the start address is its
+// low 14 bits (16-byte units), and no tile reaches past 256 KB, so the add
+// never carries out of them
+__device__ __forceinline__ uint64_t desc_add(uint64_t d, uint32_t bytes) {
+  return (d & 0xFFFFFFFF00000000ull) | (uint32_t)((uint32_t)d + (bytes >> 4));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Ws<HD>::THREADS, Ws<HD>::BLOCKS_PER_SM)
+flash_fwd_ws(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             __nv_bfloat16* __restrict__ o, int S, int H, int KH, int window,
+             float scale_log2) {
+  using L = Ws<HD>;
+  constexpr bool SPLIT = L::SPLIT;
+  constexpr int BK = L::BK, BQ = L::BQ, ST = L::STAGES;
+  // O accumulator, HD / 2 floats a thread, as NPART wgmma accumulators of
+  // at most 128 columns (NP floats) each
+  constexpr int NPART = HD > 128 ? HD / 128 : 1;
+  constexpr int NP = HD / 2 / NPART;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sK = sQ + L::Q_BYTES;         // ST stages
+  uint8_t* sV = sK + ST * L::KV_BYTES;   // ST stages
+  float* sMerge = reinterpret_cast<float*>(sV + ST * L::KV_BYTES);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(sMerge) + L::MERGE_BYTES);
+  uint64_t* full_k = bar_q + 1;          // a stage's tile landed
+  uint64_t* full_v = full_k + ST;
+  uint64_t* empty_k = full_v + ST;       // its consumer warps are done
+  uint64_t* empty_v = empty_k + ST;
+
+  const int qi = gridDim.y - 1 - blockIdx.y;    // heaviest tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kh = h / (H / KH);
+  const int q0 = qi * BQ;
+  const int tid = threadIdx.x;
+  // kv tiles from the window's first to the causal limit of the block's
+  // last query below S (rows >= S are never stored)
+  const int kt_end = (min(q0 + BQ, S) - 1) / BK;
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int n_tiles = kt_end - kt_begin + 1;
+
+  if (tid == 0) {
+    // a stage is released by the warps that read it: both warpgroups'
+    // (rows) or one's (split)
+    constexpr int READERS = SPLIT ? 4 : 8;
+    hopper::mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty_k[s], READERS);
+      hopper::mbar_init(&empty_v[s], READERS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // K_i and V_i of the block's tile i into stage i % ST
+  auto load_k = [&](int i) {
+    const int st = i % ST;
+    hopper::mbar_expect_tx(&full_k[st], L::KV_BYTES);
+    load_tile<HD>(sK + st * L::KV_BYTES, &tm_k, &full_k[st], BK, kh,
+                  (kt_begin + i) * BK, b);
+  };
+  auto load_v = [&](int i) {
+    const int st = i % ST;
+    hopper::mbar_expect_tx(&full_v[st], L::KV_BYTES);
+    load_tile<HD>(sV + st * L::KV_BYTES, &tm_v, &full_v[st], BK, kh,
+                  (kt_begin + i) * BK, b);
+  };
+  if constexpr (SPLIT) {
+    // Q and the first ST tiles; each warpgroup refills its own stages
+    if (tid == 0) {
+      hopper::mbar_expect_tx(bar_q, L::Q_BYTES);
+      load_tile<HD>(sQ, &tm_q, bar_q, BQ, h, q0, b);
+      for (int i = 0; i < min(n_tiles, ST); ++i) {
+        load_k(i);
+        load_v(i);
+      }
+    }
+  } else if (tid >= L::CONSUMER_THREADS) {
+    // ---- producer: one thread issues every copy ----
+    hopper::setmaxnreg_dec<WS_PRODUCER_REGS>();
+    if (tid == L::CONSUMER_THREADS) {
+      hopper::mbar_expect_tx(bar_q, L::Q_BYTES);
+      load_tile<HD>(sQ, &tm_q, bar_q, BQ, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        // use i / ST of the stage waits for the consumers' release of use
+        // i / ST - 1
+        const uint32_t parity = (i / ST + 1) & 1;
+        if (i >= ST) hopper::mbar_wait(&empty_k[i % ST], parity);
+        load_k(i);
+        if (i >= ST) hopper::mbar_wait(&empty_v[i % ST], parity);
+        load_v(i);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  if constexpr (!SPLIT) hopper::setmaxnreg_inc<WS_CONSUMER_REGS>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  const bool leader = (tid & 127) == 0;         // split: issues the refills
+  const int lane = tid & 31, quad = lane & 3;
+  const int qw0 = SPLIT ? q0 : q0 + 64 * wg;    // the warpgroup's first query
+  const int row0 = qw0 + 16 * warp + (lane >> 2), row1 = row0 + 8;
+  // the warpgroup's kv tiles: i0, i0 + STEP, ... below n_tiles
+  constexpr int STEP = SPLIT ? 2 : 1;
+  const int i0 = SPLIT ? wg : 0;
+
+  // Rows: ping-pong.  Warpgroup w issues its wgmma only on named barrier
+  // 1 + w, which the other warpgroup passes (arrives on) once it has
+  // issued its own, so one warpgroup's softmax runs under the other's
+  // products.  Warpgroup 0 goes first; each takes n_tiles + 1 turns, and
+  // warpgroup 1 skips its last pass so that every arrival is waited for.
+  auto turn_begin = [&]() {
+    if constexpr (!SPLIT) hopper::named_sync(1 + wg, 256);
+  };
+  auto turn_end = [&](bool last) {
+    if constexpr (!SPLIT)
+      if (!(last && wg == 1)) hopper::named_arrive(2 - wg, 256);
+  };
+  if constexpr (!SPLIT)
+    if (wg == 1) hopper::named_arrive(1, 256);
+
+  float o_acc[NPART][NP];
+#pragma unroll
+  for (int p = 0; p < NPART; ++p)
+#pragma unroll
+    for (int i = 0; i < NP; ++i) o_acc[p][i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float s[BK / 2];              // one S tile (64 x BK) of the warpgroup
+  uint32_t pa[BK / 16][4];      // P in bf16 as wgmma A fragments
+  const uint32_t q_addr = hopper::smem_addr(sQ) + (SPLIT ? 0 : wg * 64 * 128);
+
+  // S = Q K^T on stage st, K-major operands; a k-step of 16 bf16 is 32
+  // bytes inside a 128-byte swizzle row
+  const uint64_t dq = desc_sw128(q_addr, 0, ATOM_ROWS_BYTES);
+  auto issue_s = [&](float (&acc)[BK / 2], int st) {
+    const uint64_t dk = desc_sw128(
+        hopper::smem_addr(sK + st * L::KV_BYTES), 0, ATOM_ROWS_BYTES);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      const uint64_t da = desc_add(dq, (kk / 4) * BQ * 128 + off);
+      const uint64_t db = desc_add(dk, (kk / 4) * BK * 128 + off);
+      if constexpr (BK == 80)
+        hopper::wgmma_m64n80k16_ss(acc, da, db, kk > 0);
+      else
+        hopper::wgmma_m64n64k16_ss(acc, da, db, kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  // O += P V on stage st: V MN-major (hd contiguous), 16 keys = 2 x 8 rows
+  // of 128 bytes a k-step; the next 64-column block of V lies BK * 128
+  // bytes further (the descriptor's leading offset), and at hd = 256 the
+  // second 128 columns (part 1) start two blocks on
+  auto issue_pv = [&](int st) {
+    const uint64_t dv = desc_sw128(hopper::smem_addr(sV + st * L::KV_BYTES),
+                                   BK * 128, ATOM_ROWS_BYTES);
+#pragma unroll
+    for (int p = 0; p < NPART; ++p) hopper::fence_regs(o_acc[p]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NPART; ++p) {
+        const uint64_t db = desc_add(dv, p * 2 * BK * 128 + kk * 16 * 128);
+        if constexpr (NP == 64)
+          hopper::wgmma_m64n128k16_rs_tb(o_acc[p], pa[kk], db);
+        else
+          hopper::wgmma_m64n64k16_rs_tb(o_acc[p], pa[kk], db);
+      }
+    hopper::wgmma_commit();
+  };
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  // online softmax of kv tile kt in x, log2 domain: x becomes the weights
+  // against the new running max; returns the factors that rescale O.
+  // x[4j + e]: row row0 (e < 2) or row1, key k0 + 8 j + 2 quad + (e & 1).
+  // Masks only where a key lies past the warpgroup's first query (the
+  // diagonal) or at the window's edge.  A tile with no masked key takes
+  // the row max on the raw logits and scales it once (rounding is
+  // monotonic, so it is the max of the scaled logits) and each weight as
+  // 2^fma(s, scale, -m); a row's max is two chains (max is exact in any
+  // order)
+  auto softmax = [&](float (&x)[BK / 2], int kt, float& alpha0,
+                     float& alpha1) {
+    const int k0 = kt * BK;
+    const bool masked = k0 + BK - 1 > qw0 ||
+                        (window > 0 && k0 <= qw0 + 63 - window);
+    float mx[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float y = x[4 * j + e] * scale_log2;
+          const int kp = k0 + 8 * j + 2 * quad + (e & 1);
+          const int qp = e < 2 ? row0 : row1;
+          const bool live = kp <= qp && (window <= 0 || kp > qp - window);
+          y = live ? y : NEG_INF;
+          x[4 * j + e] = y;
+          mx[e] = fmaxf(mx[e], y);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e] = fmaxf(mx[e], x[4 * j + e]);
+    }
+    float mx0 = fmaxf(mx[0], mx[1]), mx1 = fmaxf(mx[2], mx[3]);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    if (!masked) {
+      mx0 *= scale_log2;
+      mx1 *= scale_log2;
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    alpha0 = ex2(m0 - mn0);
+    alpha1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(x[4 * j + e] - (e < 2 ? mn0 : mn1));
+          x[4 * j + e] = p;
+          if (e < 2) rs0 += p;
+          else rs1 += p;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(x[4 * j + e], scale_log2,
+                                   -(e < 2 ? mn0 : mn1)));
+          x[4 * j + e] = p;
+          if (e < 2) rs0 += p;
+          else rs1 += p;
+        }
+    }
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+  };
+  auto rescale = [&](float alpha0, float alpha1) {
+#pragma unroll
+    for (int p = 0; p < NPART; ++p)
+#pragma unroll
+      for (int j = 0; j < NP / 4; ++j) {
+        o_acc[p][4 * j] *= alpha0;
+        o_acc[p][4 * j + 1] *= alpha0;
+        o_acc[p][4 * j + 2] *= alpha1;
+        o_acc[p][4 * j + 3] *= alpha1;
+      }
+  };
+  // P rounded to bf16 once: keys 16 kk .. +15 are the accumulator's column
+  // blocks 2 kk and 2 kk + 1 (for 16-bit types the accumulator layout of S
+  // is the A-fragment layout)
+  auto pack_p = [&](const float (&x)[BK / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+    }
+  };
+  auto fence_o_p = [&]() {
+#pragma unroll
+    for (int p = 0; p < NPART; ++p) hopper::fence_regs(o_acc[p]);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hopper::fence_regs(pa[kk]);
+  };
+  // split: once the warpgroup's four warps have released tile i's stage,
+  // its leader loads tile i + ST there (the warpgroup's tile after next)
+  auto refill = [&](uint64_t* empty, int i, auto load) {
+    if constexpr (SPLIT) {
+      if (leader && i + ST < n_tiles) {
+        hopper::mbar_wait(&empty[i % ST], (i / ST) & 1);
+        load(i + ST);
+      }
+      __syncwarp();
+    }
+  };
+  auto wait_full = [&](uint64_t* full, int i) {
+    hopper::mbar_wait(&full[i % ST], (i / ST) & 1);
+    __syncwarp();          // wgmma is .aligned: the warp must be converged
+  };
+
+  hopper::mbar_wait(bar_q, 0);
+  // (split: warpgroup 1 has no tile when the block has one)
+  if (i0 < n_tiles) {
+    float alpha0, alpha1;
+    // the first tile: S alone
+    wait_full(full_k, i0);
+    turn_begin();
+    issue_s(s, i0 % ST);
+    turn_end(false);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    release(&empty_k[i0 % ST]);
+    refill(empty_k, i0, load_k);
+    softmax(s, kt_begin + i0, alpha0, alpha1);   // O is still 0
+    pack_p(s);
+
+    // tile i: S_i is issued with the previous tile's O += P V behind it;
+    // S_i's softmax runs while P V is on the tensor cores, and O is
+    // rescaled once P V has landed
+    int i = i0 + STEP;
+    for (; i < n_tiles; i += STEP) {
+      const int prev = i - STEP;
+      wait_full(full_k, i);
+      wait_full(full_v, prev);
+      turn_begin();
+      issue_s(s, i % ST);
+      issue_pv(prev % ST);
+      turn_end(false);
+      hopper::wgmma_wait<1>();           // S_i done, P V may still run
+      hopper::fence_regs(s);
+      release(&empty_k[i % ST]);
+      refill(empty_k, i, load_k);
+      softmax(s, kt_begin + i, alpha0, alpha1);
+      hopper::wgmma_wait<0>();
+      fence_o_p();
+      release(&empty_v[prev % ST]);
+      refill(empty_v, prev, load_v);
+      rescale(alpha0, alpha1);
+      pack_p(s);
+    }
+
+    // the last tile's P V
+    wait_full(full_v, i - STEP);
+    turn_begin();
+    issue_pv((i - STEP) % ST);
+    turn_end(true);
+    hopper::wgmma_wait<0>();
+    fence_o_p();
+  }
+
+  // epilogue: reduce l over the row's 4 threads
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if constexpr (SPLIT) {
+    // warpgroup 1 hands its O, m and l to the thread of warpgroup 0 that
+    // holds the same rows and columns, which merges the two:
+    // m = max(m_0, m_1), O = O_0 2^(m_0 - m) + O_1 2^(m_1 - m), l alike
+    float* mine = sMerge + (tid & 127);          // stride 128: no conflicts
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) mine[128 * i] = o_acc[0][i];
+      mine[128 * NP] = m0;
+      mine[128 * (NP + 1)] = m1;
+      mine[128 * (NP + 2)] = l0;
+      mine[128 * (NP + 3)] = l1;
+    }
+    hopper::named_sync(1, 256);
+    if (wg == 1) return;
+    const float n0 = fmaxf(m0, mine[128 * NP]);
+    const float n1 = fmaxf(m1, mine[128 * (NP + 1)]);
+    const float a0 = ex2(m0 - n0), b0 = ex2(mine[128 * NP] - n0);
+    const float a1 = ex2(m1 - n1), b1 = ex2(mine[128 * (NP + 1)] - n1);
+    l0 = l0 * a0 + mine[128 * (NP + 2)] * b0;
+    l1 = l1 * a1 + mine[128 * (NP + 3)] * b1;
+#pragma unroll
+    for (int j = 0; j < NP / 4; ++j) {
+      o_acc[0][4 * j] = o_acc[0][4 * j] * a0 + mine[128 * (4 * j)] * b0;
+      o_acc[0][4 * j + 1] =
+          o_acc[0][4 * j + 1] * a0 + mine[128 * (4 * j + 1)] * b0;
+      o_acc[0][4 * j + 2] =
+          o_acc[0][4 * j + 2] * a1 + mine[128 * (4 * j + 2)] * b1;
+      o_acc[0][4 * j + 3] =
+          o_acc[0][4 * j + 3] * a1 + mine[128 * (4 * j + 3)] * b1;
+    }
+  }
+
+  // normalise, store bf16 from registers (rows < S only)
+  const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+  const size_t q_stride = (size_t)H * HD;
+  __nv_bfloat16* ob = o + (size_t)b * S * q_stride + (size_t)h * HD +
+                      2 * quad;
+#pragma unroll
+  for (int p = 0; p < NPART; ++p)
+#pragma unroll
+    for (int j = 0; j < NP / 4; ++j) {
+      const int col = p * 128 + 8 * j;
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + col) =
+            __floats2bfloat162_rn(o_acc[p][4 * j] * inv0,
+                                  o_acc[p][4 * j + 1] * inv0);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + col) =
+            __floats2bfloat162_rn(o_acc[p][4 * j + 2] * inv1,
+                                  o_acc[p][4 * j + 3] * inv1);
+    }
+}
+
 // cuTensorMapEncodeTiled, a driver function, reached through the runtime
 // so that the library needs no -lcuda
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -609,24 +1155,42 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* base,
 // CUresult (added to the base) for a map it refused
 constexpr int ERR_NO_ENCODE = 10000;
 
+// how the bf16 kernel for head dim HD is launched: flash_fwd_wgmma at 128,
+// the warp-specialised flash_fwd_ws at 256 and 64
+struct Shape {
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16*, int,
+                 int, int, int, float);
+  int q_rows, kv_rows, threads, smem, blocks_per_sm;
+};
+
+template <int HD>
+Shape shape_for() {
+  if constexpr (HD == 128)
+    return {flash_fwd_wgmma<HD>, BQ, Smem<HD>::BK, THREADS, Smem<HD>::BYTES,
+            1};
+  else
+    return {flash_fwd_ws<HD>, Ws<HD>::BQ, Ws<HD>::BK, Ws<HD>::THREADS,
+            Ws<HD>::BYTES, Ws<HD>::BLOCKS_PER_SM};
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KH, int window, float scale, cudaStream_t stream) {
+  const Shape L = shape_for<HD>();
   const EncodeTiled encode = encode_tiled();
   if (!encode) return ERR_NO_ENCODE;
+  // the maps hold this call's pointers, so they are built per call
   CUtensorMap tq, tk, tv;
-  CUresult r = make_map(&tq, encode, q, B, S, H, HD, BQ);
-  constexpr int BK = Smem<HD>::BK;
-  if (r == CUDA_SUCCESS) r = make_map(&tk, encode, k, B, S, KH, HD, BK);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, encode, v, B, S, KH, HD, BK);
+  CUresult r = make_map(&tq, encode, q, B, S, H, HD, L.q_rows);
+  if (r == CUDA_SUCCESS) r = make_map(&tk, encode, k, B, S, KH, HD, L.kv_rows);
+  if (r == CUDA_SUCCESS) r = make_map(&tv, encode, v, B, S, KH, HD, L.kv_rows);
   if (r != CUDA_SUCCESS) return ERR_NO_ENCODE + (int)r;
-  auto kernel = flash_fwd_wgmma<HD>;
-  const int smem = Smem<HD>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool configured[MAX_DEVICES];
+  const cudaError_t err = configure_once((const void*)L.kernel, L.smem,
+                                         L.blocks_per_sm > 1, configured);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(B * H, (S + L.q_rows - 1) / L.q_rows);
+  L.kernel<<<grid, L.threads, L.smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, KH, window,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
@@ -667,25 +1231,49 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   return 1;
 }
 
-// Registers and local memory bytes (spills included) a thread of the kernel
-// that repro_flash_attention runs for (hd, is_bf16), as cudaFuncGetAttributes
-// reports them, into out[0] and out[1]; 1 for an hd outside the contract.
+// The kernel that repro_flash_attention runs for (hd, is_bf16): registers
+// and local memory bytes (spills included) a thread, as
+// cudaFuncGetAttributes reports them, and the blocks an SM holds at its
+// launch shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// out[0..2]; 1 for an hd outside the contract.
 extern "C" int repro_flash_attention_attrs(int hd, int is_bf16, int* out) {
   const void* fn = nullptr;
-  if (hd == 256)
-    fn = is_bf16 ? (const void*)tc::flash_fwd_wgmma<256>
-                 : (const void*)ffma::flash_fwd_kernel<float, 256>;
-  else if (hd == 128)
-    fn = is_bf16 ? (const void*)tc::flash_fwd_wgmma<128>
-                 : (const void*)ffma::flash_fwd_kernel<float, 128>;
-  else if (hd == 64)
-    fn = is_bf16 ? (const void*)tc::flash_fwd_wgmma<64>
-                 : (const void*)ffma::flash_fwd_kernel<float, 64>;
+  int threads = ffma::THREADS, smem = 0;
+  bool max_carveout = false;
+  auto bf16 = [&](tc::Shape s) {
+    fn = (const void*)s.kernel;
+    threads = s.threads;
+    smem = s.smem;
+    max_carveout = s.blocks_per_sm > 1;
+  };
+  auto f32 = [&](const void* kernel, int bytes) {
+    fn = kernel;
+    smem = bytes;
+  };
+  if (hd == 256) {
+    if (is_bf16) bf16(tc::shape_for<256>());
+    else f32((const void*)ffma::flash_fwd_kernel<float, 256>,
+             ffma::smem_bytes<256>());
+  } else if (hd == 128) {
+    if (is_bf16) bf16(tc::shape_for<128>());
+    else f32((const void*)ffma::flash_fwd_kernel<float, 128>,
+             ffma::smem_bytes<128>());
+  } else if (hd == 64) {
+    if (is_bf16) bf16(tc::shape_for<64>());
+    else f32((const void*)ffma::flash_fwd_kernel<float, 64>,
+             ffma::smem_bytes<64>());
+  }
   if (!fn) return 1;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess) err = configure(fn, smem, max_carveout);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                        smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
   return 0;
 }

@@ -1,8 +1,9 @@
 // hopper.cuh: inline-PTX wrappers for the sm_90a kernels of this
 // directory (flash_attention.cu's bf16 path, graph_mix.cu): shared-memory
-// addresses, mbarriers, TMA tile loads, cp.async, the wgmma descriptor and
-// the wgmma and mma.sync instructions the kernels issue.  Only PTX, no
-// CUTLASS: each .cu file builds in seconds.
+// addresses, mbarriers, named barriers, setmaxnreg, TMA tile loads,
+// cp.async, the wgmma descriptor and the wgmma and mma.sync instructions
+// the kernels issue.  Only PTX, no CUTLASS: each .cu file builds in
+// seconds.
 
 #pragma once
 
@@ -39,6 +40,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
       : "memory");
 }
 
+// one plain arrival (a consumer releasing a ring stage)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 // spin until the barrier's phase of parity `parity` has completed; a wait
 // of 2^35 clocks (over ten seconds) means a copy or an arrival was lost,
 // and traps (a launch error) instead of hanging the card
@@ -58,6 +66,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (spin == 0) t0 = clock64();
     else if (clock64() - t0 > (1ll << 35)) __trap();
   }
+}
+
+// ---- named barriers and register hand-over (warp specialisation) ---------
+
+// `threads` threads (a multiple of 32) meet at barrier `id` (1..15; 0 is
+// __syncthreads's): bar.sync arrives and waits, bar.arrive only arrives
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a whole warpgroup lowers or raises its per-thread register limit (a
+// multiple of 8 in [24, 256]); sm_90a only
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- TMA -----------------------------------------------------------------
@@ -177,6 +209,14 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// the same for 32-bit fragments (wgmma's A operand from registers, which
+// an issued wgmma reads until its group has been waited for)
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // D (64 x 128, f32) (+)= A (64 x 16, bf16, shared, K-major) . B (128 x 16,
 // bf16, shared, K-major)^T; scale_d = 0 overwrites D.
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
@@ -216,6 +256,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 80, f32) (+)= A (64 x 16, bf16, shared, K-major) . B (80 x 16,
+// bf16, shared, K-major)^T; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n80k16_ss(float (&d)[40], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -4,19 +4,24 @@ grouped kv heads, ``(q (B, S, H, hd), k, v (B, S, K, hd), *, window) ->
 
 The CUDA kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU
 kernel ``repro/kernels/flash_attention.py::flash_attention``, at head dims
-64, 128 and 256 (RecurrentGemma's).  In bf16 it
-runs on the tensor cores: one block of two warpgroups per (batch * head,
-128-query tile), Q once and K, V through a 2-stage ring brought in by TMA,
-S = Q K^T and O += P V by ``wgmma`` with the online softmax in registers
-and the weights P rounded to bf16 once per kv tile of 128 keys (64 at
-head dim 256; the JAX oracle ``repro.kernels.ref.flash_attention`` rounds
-them too).  In float32 it is the FFMA kernel (64-query tiles, all in
-float32).  Both read the kv heads in
-place and never load a fully masked kv tile; the source note says what
-bounds the kernel on the H100 and how the design answers that.  Beside it
-sits the plain PyTorch version (``kernels.ref.flash_attention``), which
-runs for tensors on the CPU only: for CUDA tensors the wrapper launches
-the kernel or raises.
+64, 128 and 256 (RecurrentGemma's).  In bf16 it runs on the tensor cores
+by ``wgmma``, Q, K and V brought in by TMA, with the online softmax in
+registers and the weights P rounded to bf16 once per kv tile (the JAX
+oracle ``repro.kernels.ref.flash_attention`` rounds them too): at head
+dim 128, one block of two warpgroups per (batch * head, 128-query tile),
+128-key tiles through a 2-stage ring; at head dims 256 and 64, a
+warp-specialised kernel with two consumer warpgroups, separate K and V
+rings and a tile's softmax under the previous tile's P V: at 256 a
+producer warpgroup hands its registers to the consumers, which own 64
+query rows each, take turns on the tensor cores and walk 80-key tiles; at
+64 the consumers share a 64-query tile and split its 64-key tiles, merged
+at the end, two blocks an SM.
+In float32 it is the FFMA kernel (64-query tiles, all in float32).  Both
+read the kv heads in place and never load a fully masked kv tile; the
+source note says what bounds the kernel on the H100 and how the design
+answers that.  Beside it sits the plain PyTorch version
+(``kernels.ref.flash_attention``), which runs for tensors on the CPU only:
+for CUDA tensors the wrapper launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from .ref import flash_attention as flash_attention_plain
 launches = 0
 
 #: S must be a multiple (the float32 kernel's query tile; the bf16
-#: kernel's 128-query tiles may end half full).
+#: kernel's 128-query tiles at head dims 128 and 256 may end half full).
 BLOCK = 64
 HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
@@ -103,10 +108,12 @@ def flash_attention_resources(hd: int, dtype) -> dict:
     """Registers and local memory bytes (spills included) a thread of the
     kernel that :func:`flash_attention` launches for head dim ``hd`` and
     ``dtype``, as the CUDA runtime reports them
-    (``cudaFuncGetAttributes``)."""
-    out = (ctypes.c_int * 2)()
+    (``cudaFuncGetAttributes``), and the blocks of it an SM holds at its
+    launch shape (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_int * 3)()
     err = _build.library().repro_flash_attention_attrs(
         hd, int(dtype == torch.bfloat16), ctypes.addressof(out))
     if err:
         raise RuntimeError(f"repro_flash_attention_attrs: CUDA error {err}")
-    return {"registers": out[0], "local_bytes": out[1]}
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}

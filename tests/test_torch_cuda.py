@@ -386,21 +386,32 @@ def randn(dev, shape, dtype, g):
     (torch.float32, 1, 128, 4, 1, 64, None),
     (torch.float32, 2, 256, 6, 3, 128, 64),
     (torch.float32, 1, 320, 2, 2, 64, 1000),    # window beyond S
-    # head dim 256 (RecurrentGemma: MQA, 64-key tiles in bf16)
+    # head dim 256 (RecurrentGemma: MQA, 80-key tiles in bf16)
     (torch.bfloat16, 1, 512, 10, 1, 256, 128),
     (torch.bfloat16, 1, 256, 4, 2, 256, None),
     (torch.bfloat16, 2, 192, 2, 1, 256, 100),   # half-full query tile
     (torch.bfloat16, 1, 64, 2, 2, 256, None),
     (torch.bfloat16, 1, 384, 4, 1, 256, 1),     # only the diagonal key
     (torch.float32, 1, 256, 4, 1, 256, None),
-    (torch.float32, 1, 320, 4, 2, 256, 64)])
+    (torch.float32, 1, 320, 4, 2, 256, 64),
+    # the warp-specialised kernel's edges: hd 64 in 64-query blocks and
+    # 64-key tiles split between two warpgroups, hd 256 in 128-query blocks
+    # and 80-key tiles
+    (torch.bfloat16, 1, 64, 2, 1, 64, 1),       # one block, diagonal only
+    (torch.bfloat16, 1, 192, 6, 3, 64, 65),     # windows not a multiple
+    (torch.bfloat16, 2, 320, 4, 2, 64, 130),    # of the 64-key tile
+    (torch.bfloat16, 1, 320, 24, 24, 64, None),     # MHA, many blocks
+    (torch.bfloat16, 2, 320, 10, 1, 256, 100),  # MQA 10:1, B = 2, the
+    (torch.bfloat16, 2, 256, 10, 1, 256, None),     # last tile half full
+    (torch.bfloat16, 1, 448, 4, 2, 256, 65),
+    (torch.bfloat16, 1, 384, 2, 1, 256, 1000)])  # window beyond S
 def test_flash_attention_kernel(cuda, dtype, B, S, H, K, hd, window):
     """bf16 (wgmma): the kernel rounds the softmax weights to bf16 once
-    per kv tile (128 keys, 64 at hd 256) before P @ V, as the JAX oracle
-    does; the plain
-    version keeps them in float32.  That moves the output by about one
-    bf16 ulp (tests/test_torch_tc_numerics.py), inside the bar of 1e-2
-    abs and rel.  float32 (FFMA): only the summation order differs, 1e-5."""
+    per kv tile (128 keys at hd 128, 80 at hd 256, 64 at hd 64) before
+    P @ V, as the JAX oracle does; the plain version keeps them in
+    float32.  That moves the output by about one bf16 ulp
+    (tests/test_torch_tc_numerics.py), inside the bar of 1e-2 abs and rel.
+    float32 (FFMA): only the summation order differs, 1e-5."""
     g = torch.Generator(device=cuda).manual_seed(S + H + K)
     q = randn(cuda, (B, S, H, hd), dtype, g)
     k = randn(cuda, (B, S, K, hd), dtype, g)
@@ -431,12 +442,20 @@ def test_flash_attention_kernel_replay_is_bit_identical(cuda, dtype, hd,
                        fa.flash_attention(q, k, v, window=window))
 
 
+@pytest.mark.parametrize("hd", [256, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_attention_hd256_does_not_spill(cuda, dtype):
-    """The 64 x 256 float32 O accumulator (128 registers a thread in
-    bf16) fits the register file: no local memory."""
-    res = fa.flash_attention_resources(256, dtype)
-    assert res["local_bytes"] == 0 and 0 < res["registers"] <= 255, res
+def test_flash_attention_hd256_does_not_spill(cuda, dtype, hd):
+    """No local memory.  In bf16 both head dims run the warp-specialised
+    kernel: at hd 256 the 64 x 256 float32 O accumulator (128 registers a
+    thread) fits the consumers' 240 after setmaxnreg (the launch's 168 a
+    thread of 384); at hd 64 two 256-thread blocks share an SM, at most
+    128 registers a thread."""
+    res = fa.flash_attention_resources(hd, dtype)
+    limit, blocks = {(torch.bfloat16, 256): (168, 1),
+                     (torch.bfloat16, 64): (128, 2)}.get((dtype, hd),
+                                                         (255, None))
+    assert res["local_bytes"] == 0 and 0 < res["registers"] <= limit, res
+    assert blocks is None or res["blocks_per_sm"] == blocks, res
 
 
 def test_flash_attention_kernel_rejects_out_of_contract(cuda):

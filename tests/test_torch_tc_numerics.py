@@ -17,8 +17,10 @@ the JAX package before any card runs them.
   port's plain version, and gives the same bits whatever the number of
   trials and whether A is read in 16- or 4-byte loads.
 * ``flash_attention`` in bf16 rounds the softmax weights to bf16 once per
-  128-key tile against the running max before P @ V (wgmma's A operand in
-  bf16).  The emulation of that tile-wise online softmax stays within the
+  kv tile (128 keys at head dim 128, 80 at 256, 64 at 64) against the
+  running max before P @ V (wgmma's A operand in bf16); at head dim 64
+  the block's kv tiles are split between two partial softmax states,
+  merged at the end.  The emulation of that tile-wise online softmax stays within the
   1e-2 abs/rel bar of the port's plain version (float32 weights) and of
   ``repro.kernels.ref.flash_attention`` (weights rounded to v's dtype).
 
@@ -243,21 +245,31 @@ def test_rows_kernel_order_ignores_trials_and_load_width(n, D):
 
 
 # --------------------------------------------------------------------------
-# flash_attention: P in bf16 per 128-key tile
+# flash_attention: P in bf16 per kv tile
 # --------------------------------------------------------------------------
 
-BQ = BK = 128
+#: (queries a block, keys a kv tile, kv split) of the bf16 kernel at each
+#: head dim: ``flash_fwd_wgmma`` at 128, the warp-specialised
+#: ``flash_fwd_ws`` at 256 (two consumer warpgroups on 64 rows each,
+#: 80-key tiles) and at 64 (two consumer warpgroups on the same 64 rows,
+#: the block's kv tiles dealt to them in turn, each with its own m, l and
+#: O, merged at the end)
+TILES = {64: (64, 64, 2), 128: (128, 128, 1), 256: (128, 80, 1)}
 NEG_INF = -1e30
 
 
 def flash_bf16_p(q, k, v, window=None):
-    """The bf16 kernel's arithmetic: per 128-query tile, kv tiles from the
-    window's first to the causal limit; logits in float32 in the log2
+    """The bf16 kernel's arithmetic at q's head dim (``TILES``): per query
+    tile, kv tiles from the window's first to the causal limit (dealt in
+    turn to ``split`` partial states); logits in float32 in the log2
     domain, -1e30 where masked; online softmax with m and l in float32 (l
     from the unrounded weights); P rounded to bf16 before P @ V; float32
-    accumulator; output acc / max(l, 1e-20) rounded to bf16."""
+    accumulator; the partial states merged (m = max, l and acc scaled by
+    2^(m_part - m) and summed); output acc / max(l, 1e-20) rounded to
+    bf16."""
     B, S, H, hd = q.shape
     K = k.shape[2]
+    BQ, BK, split = TILES[hd]
     f = torch.float32
     qf = q.to(f).transpose(1, 2)                       # (B, H, S, hd)
     kf = k.to(f).repeat_interleave(H // K, 2).transpose(1, 2)
@@ -270,31 +282,58 @@ def flash_bf16_p(q, k, v, window=None):
         kt_begin = 0
         if window is not None and q0 - window + 1 > 0:
             kt_begin = (q0 - window + 1) // BK
-        m = torch.full((B, H, len(rows), 1), NEG_INF)
-        l = torch.zeros(B, H, len(rows), 1)
-        acc = torch.zeros(B, H, len(rows), hd)
-        for kt in range(kt_begin, (q0 + BQ - 1) // BK + 1):
-            keys = pos[kt * BK:(kt + 1) * BK]
-            keys = keys[keys < S]     # past S: zero-filled and masked
-            s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2) * c
-            live = keys[None, :] <= rows[:, None]
-            if window is not None:
-                live &= keys[None, :] > rows[:, None] - window
-            s = torch.where(live, s, torch.tensor(NEG_INF))
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            alpha = torch.exp2(m - m_new)
-            p = torch.exp2(s - m_new)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + p.to(torch.bfloat16).to(f) @ vf[:, :, keys]
-            m = m_new
+        kts = range(kt_begin, (q0 + BQ - 1) // BK + 1)
+        parts = []
+        for part in range(split):
+            m = torch.full((B, H, len(rows), 1), NEG_INF)
+            l = torch.zeros(B, H, len(rows), 1)
+            acc = torch.zeros(B, H, len(rows), hd)
+            for kt in kts[part::split]:
+                keys = pos[kt * BK:(kt + 1) * BK]
+                keys = keys[keys < S]     # past S: zero-filled and masked
+                if not len(keys):
+                    continue
+                s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2) * c
+                live = keys[None, :] <= rows[:, None]
+                if window is not None:
+                    live &= keys[None, :] > rows[:, None] - window
+                s = torch.where(live, s, torch.tensor(NEG_INF))
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha \
+                    + p.to(torch.bfloat16).to(f) @ vf[:, :, keys]
+                m = m_new
+            parts.append((m, l, acc))
+        m = torch.stack([pm for pm, _, _ in parts]).amax(0)
+        l = sum(pl * torch.exp2(pm - m) for pm, pl, _ in parts)
+        acc = sum(pa * torch.exp2(pm - m) for pm, _, pa in parts)
         out[:, :, rows] = acc / torch.clamp(l, min=1e-20)
     return out.transpose(1, 2).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("window", [None, 1, 63, 200])
-def test_bf16_p_attention_within_bar(window):
-    """GQA 4:1, S = 320 (the last 128-query tile half full), hd = 64."""
-    B, S, H, K, hd = 1, 320, 8, 2, 64
+@pytest.mark.parametrize("hd,S,H,K,window", [
+    pytest.param(64, 320, 8, 2, None, id="None"),      # GQA 4:1, hd 64
+    pytest.param(64, 320, 8, 2, 1, id="1"),
+    pytest.param(64, 320, 8, 2, 63, id="63"),
+    pytest.param(64, 320, 8, 2, 200, id="200"),
+    # hd 256 (RecurrentGemma's MQA heads, 80-key tiles, which straddle S
+    # and the query tiles); S = 320 leaves the last 128-query tile half
+    # full
+    pytest.param(256, 320, 10, 1, 1, id="hd256-mqa-w1"),
+    pytest.param(256, 320, 10, 1, 100, id="hd256-mqa-w100"),
+    pytest.param(256, 320, 10, 1, 128, id="hd256-mqa-w128"),
+    pytest.param(256, 320, 10, 1, None, id="hd256-mqa-causal"),
+    # hd 64's 64-query tiles with their kv tiles split in two: windows
+    # across the tile edges (two or three tiles a block)
+    pytest.param(64, 320, 8, 2, 65, id="hd64-w65"),
+    pytest.param(64, 320, 8, 2, 129, id="hd64-w129")])
+def test_bf16_p_attention_within_bar(hd, S, H, K, window):
+    """The bf16 kernel's arithmetic at its tiles against the plain version
+    (float32 weights) and the JAX oracle (weights rounded to v's dtype),
+    1e-2 abs and rel."""
+    B = 1
     rng = np.random.default_rng(S + (window or 0))
     q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
                .to(torch.bfloat16)
