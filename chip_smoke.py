@@ -125,16 +125,19 @@ from the seed on the card), after the CL state is freed:
     4096), at RecurrentGemma-2B's (S = 4096, H = 10, K = 1, hd = 256,
     window 2048), at each other family's served shape (OLMoE-1B-7B S 2048,
     H = K = 16; Qwen2-VL-7B S 4096, H 28, K 4; MusicGen-medium S 1024,
-    H = K = 24, hd 64; Phi-3.5-MoE's is Llama's) and on two small float32
-    cases (hd 64 and 256); kernel,
-    plain, SDPA (kv heads repeated, a boolean band mask for a window) and
-    bound ms (the band's operations), and the kernel's device ms and host
-    µs a call read apart (``queued``).  bf16 runs a wgmma kernel
+    H = K = 24, hd 64; Phi-3.5-MoE's is Llama's), on two small float32
+    cases (hd 64 and 256) and in float32 at Llama-3-8B's prefill shape;
+    kernel, plain, SDPA (kv heads repeated, a boolean band mask for a
+    window; for float32 the profiler's name of SDPA's kernel) and bound
+    ms (the band's operations), and the kernel's device ms and host µs a
+    call read apart (``queued``).  bf16 runs a wgmma kernel
     (``flash_fwd_wgmma`` at hd 128, the warp-specialised ``flash_fwd_ws``
     at hd 256 and 64), which rounds the softmax weights to bf16 per kv
     tile (128 keys at hd 128, 80 at hd 256, 64 at hd 64; the plain
-    version keeps them in float32): 1e-2 abs and rel; float32 runs the
-    FFMA kernel: 1e-5;
+    version keeps them in float32): 1e-2 abs and rel; float32 runs
+    3xTF32 on wgmma at hd 64 and 128 (``flash_fwd_3xtf32``; its bound is
+    three TF32 passes, the FFMA floor beside it) and the FFMA kernel at
+    hd 256: 1e-5;
 6b. ``Engine(ServeConfig(batch_size=4, cache_len=8192, max_new_tokens=32))``
     serving six prompts (512 to 4096 tokens) through four slots with
     ``attn_impl="flash"``: every request finishes with 32 tokens in the
@@ -146,7 +149,12 @@ from the seed on the card), after the CL state is freed:
 6c. one 2048-token prompt prefilled through the ``attention`` op's
     ``cuda`` and ``reference`` implementations with the same weights:
     last-position logits within ``LM_LOGIT_RTOL`` (relative L2), and the
-    share of 16 greedy tokens on which the two agree.
+    share of 16 greedy tokens on which the two agree;
+6d. a float32 prefill: Llama-3-8B at full width, depth cut to
+    ``F32_LAYERS``, ``compute_dtype=float32``, one ``F32_PROMPT``-token
+    prompt through the ``attention`` op's ``cuda`` implementation (the
+    3xTF32 kernel, once a layer) and its ``reference`` one: last-position
+    logits within ``F32_LOGIT_RTOL`` (relative L2).
 
 Then personalized LM training with graph coupling, after the serving
 model is freed:
@@ -377,6 +385,11 @@ PROFILE_TICKS = 5
 # about 2^-8 * sqrt(32) = 2 % of the logits' norm.  A wrong kernel (a
 # wrong head, mask or tile) moves them by O(1).  So: relative L2 <= 0.1.
 LM_LOGIT_RTOL = 0.1
+# 6d: a float32 prefill through the 3xTF32 kernel (hd 128): Llama-3-8B's
+# width at 2 layers (float32 weights, 6 GB); the kernel is within 1e-5 of
+# the plain attention, so two float32 layers keep the logits far inside
+# 1e-4 (relative L2)
+F32_LAYERS, F32_PROMPT, F32_LOGIT_RTOL = 2, 4096, 1e-4
 # 4k: the personalization service's requests on the fused MP run
 SERVE_RATE, SERVE_BATCH = 5000, 65536      # requests a round, batch width
 # 7a: graph_mix's agent-axis form at the coupling's leaves: (n, D, dtype)
@@ -452,7 +465,8 @@ FA_CASES = ((1, 4096, 32, 8, 128, None, "bfloat16"),    # Llama-3-8B prefill
             (1, 512, 4, 2, 256, 128, "float32"),
             (1, 2048, 16, 16, 128, None, "bfloat16"),   # OLMoE-1B-7B
             (1, 4096, 28, 4, 128, None, "bfloat16"),    # Qwen2-VL-7B
-            (1, 1024, 24, 24, 64, None, "bfloat16"))    # MusicGen-medium
+            (1, 1024, 24, 24, 64, None, "bfloat16"),    # MusicGen-medium
+            (1, 4096, 32, 8, 128, None, "float32"))     # Llama-3-8B, f32
 
 
 def log(*a):
@@ -1094,13 +1108,16 @@ def check_flash(torch, fa, case, seed):
     rounds the softmax weights to bf16 once per kv tile (128 keys at hd
     128, 80 at hd 256, 64 at hd 64) before P @ V (as the JAX oracle rounds
     them); the plain version keeps them in float32, so the two differ by
-    about a bf16 ulp of the output: within 1e-2 abs and rel.  float32 runs
-    the FFMA kernel, all in float32: within 1e-5.  The library call is
-    SDPA on the kv heads repeated to H (a boolean mask for the window).
-    ``ms`` times back-to-back calls, which at a small shape also reads the
-    wrapper's host work; ``device_ms`` and ``host_us`` read the device and
-    the host apart (``queued``), and ``host_kept_up`` says whether the
-    host enqueued every call before the device reached them."""
+    about a bf16 ulp of the output: within 1e-2 abs and rel.  float32
+    runs 3xTF32 on wgmma at hd 64 and 128 (three TF32 passes, the bound
+    those passes at the TF32 peak, the FFMA floor of the same work beside
+    it) and the FFMA kernel at hd 256: within 1e-5.  The library call is
+    SDPA on the kv heads repeated to H (a boolean mask for the window);
+    for float32 the profiler names the kernel it ran.  ``ms`` times
+    back-to-back calls, which at a small shape also reads the wrapper's
+    host work; ``device_ms`` and ``host_us`` read the device and the host
+    apart (``queued``), and ``host_kept_up`` says whether the host
+    enqueued every call before the device reached them."""
     import torch.nn.functional as F
     B, S, H, K, hd, window, dname = case
     dtype = getattr(torch, dname)
@@ -1115,10 +1132,15 @@ def check_flash(torch, fa, case, seed):
     W = S if window is None else min(window, S)
     pairs = W * (W + 1) // 2 + (S - W) * W      # live (query, key) pairs
     esize = q.element_size()
-    bms, by = bound_ms(esize * 2 * B * S * hd * (H + K),
-                       4 * B * H * hd * pairs,
-                       BF16_FLOP_PER_S if dtype == torch.bfloat16
-                       else FP32_FLOP_PER_S)
+    n_bytes = esize * 2 * B * S * hd * (H + K)
+    n_ops = 4 * B * H * hd * pairs
+    tf32 = dtype == torch.float32 and hd in (64, 128)
+    if dtype == torch.bfloat16:
+        bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_PER_S)
+    elif tf32:
+        bms, by = bound_ms(n_bytes, 3 * n_ops, TF32_FLOP_PER_S)
+    else:
+        bms, by = bound_ms(n_bytes, n_ops)
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(H // K, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(H // K, dim=2).transpose(1, 2)
@@ -1135,7 +1157,13 @@ def check_flash(torch, fa, case, seed):
     def kernel():
         return fa.flash_attention(q, k, v, window=window)
 
-    if dtype != torch.bfloat16:
+    if tf32:
+        design = ("3xTF32 wgmma f32 (flash_fwd_3xtf32): a producer "
+                  "warpgroup loads, splits and transposes into K and V "
+                  f"rings of {1 if hd == 128 else 2} stage(s), one consumer "
+                  "warpgroup on 64 queries, 64-key tiles, P V in 32-column "
+                  "parts")
+    elif dtype != torch.bfloat16:
         design = "FFMA f32"
     elif hd == 128:
         design = "wgmma+TMA bf16, 128-key tiles, P in bf16"
@@ -1148,7 +1176,7 @@ def check_flash(torch, fa, case, seed):
                   "splitting a 64-query tile's 64-key tiles, P in bf16")
     device_ms, host_us, kept_up = queued(torch, kernel, 10)
     plain_iters = 2 if S * H > 100_000 else 10
-    return dict(
+    rec = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:31",
@@ -1161,7 +1189,74 @@ def check_flash(torch, fa, case, seed):
             q, k, v, window=window), plain_iters, warmup=1),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(torch, sdpa, 10),
+        library_device_ms=queued(torch, sdpa, 10)[0],
         library_call="F.scaled_dot_product_attention (kv heads repeated)")
+    if dtype == torch.float32:
+        rec["ffma_floor_ms"] = bound_ms(n_bytes, n_ops)[0]
+        rec["library_kernels"] = device_kernel_names(
+            torch, lambda: [sdpa() for _ in range(3)])
+    return rec
+
+
+def device_kernel_names(torch, run):
+    """The names of the device kernels ``run()`` launches, from
+    ``torch.profiler``'s raw events; "not measured" when it records no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sorted({ev.name for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA}) or "not measured"
+
+
+def check_prefill_f32(torch, dispatch, dev, rng):
+    """6d. Llama-3-8B at full width, depth cut to ``F32_LAYERS``, in
+    float32 (``compute_dtype``), one ``F32_PROMPT``-token prompt from
+    ``rng`` prefilled through the ``attention`` op's ``cuda``
+    implementation (the 3xTF32 kernel, once a layer) and its
+    ``reference`` one with the same weights: last-position logits within
+    ``F32_LOGIT_RTOL`` (relative L2).  Returns (the kernel path's
+    ``flash_attention`` launches, an error or None)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    f32 = dataclasses.replace(get_config(LM_ARCH), n_layers=F32_LAYERS,
+                              attn_impl="flash", compute_dtype=torch.float32)
+    model = Model(f32, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    tok = torch.as_tensor(rng.integers(0, f32.vocab_size, F32_PROMPT)[None],
+                          device=dev)
+    paths = {}
+    for name, backend in (("cuda", None), ("reference",
+                                           dispatch.ReproBackend.using(
+                                               attention="reference"))):
+        model.backend = backend
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill({"tokens": tok}, cache_len=F32_PROMPT)
+        torch.cuda.synchronize()
+        paths[name] = (logits[0, 0], dispatch.launch_counts()[
+            "flash_attention"], time.perf_counter() - t0)
+    lk, lr = paths["cuda"][0], paths["reference"][0]
+    rel = ((lk - lr).norm() / lr.norm()).item()
+    log(json.dumps(dict(
+        phase="6d", model=f32.name, layers=F32_LAYERS, prompt=F32_PROMPT,
+        dtype="float32", logits_rel_l2=rel, tol=F32_LOGIT_RTOL,
+        prefill_s={k: v[2] for k, v in paths.items()},
+        launches={k: v[1] for k, v in paths.items()})))
+    launches = paths["cuda"][1]
+    if launches != F32_LAYERS or paths["reference"][1] != 0:
+        return launches, f"6d launches {[v[1] for v in paths.values()]}"
+    if lk.shape != (f32.vocab_size,) or not torch.isfinite(lk).all() \
+            or not rel <= F32_LOGIT_RTOL:
+        return launches, (f"float32 kernel path logits {tuple(lk.shape)} "
+                          f"off the reference path's by {rel} (relative L2 "
+                          f"> {F32_LOGIT_RTOL}) or not finite")
+    return launches, None
 
 
 def check_serving(torch, np, dispatch, spec, fused_hist, fused_s, smi):
@@ -3294,6 +3389,13 @@ def main() -> int:
     gc.collect()     # the engine's timed methods close a reference cycle
     torch.cuda.empty_cache()
 
+    # 6d. a float32 prefill through the 3xTF32 kernel ---------------------
+    counts["prefill_f32"], bad = check_prefill_f32(torch, dispatch, dev,
+                                                   lm_rng)
+    if bad:
+        return fail(bad)
+    torch.cuda.empty_cache()
+
     # 7a. graph_mix's agent-axis form at the coupling's leaves ------------
     agent_cases = []
     for i, (n, D, dtype) in enumerate(AGENT_CASES):
@@ -3439,6 +3541,24 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
         row["resources"] = fa.flash_attention_resources(hd, torch.bfloat16)
         summary.append(row)
+    # the float32 kernel (3xTF32 at hd 64 and 128; hd 256 stays on FFMA):
+    # 6d's launches, timed at Llama-3-8B's prefill shape, every float32
+    # 6a case beside it
+    f32_cases = [kr for kr in fa_cases if "float32" in kr["shape"]]
+    case = next(kr for kr in f32_cases if "hd=128 " in kr["shape"])
+    row = {k: case[k] for k in (
+        "name", "route", "source", "replaces", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "design", "shape",
+        "ffma_floor_ms", "library_kernels")}
+    row["launches_by_path"] = {"prefill_f32": counts["prefill_f32"]}
+    row["launches"] = counts["prefill_f32"]
+    row["cases"] = [{k: c[k] for k in (
+        "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+        "ffma_floor_ms", "library_ms", "library_device_ms", "design")}
+        for c in f32_cases]
+    row["resources"] = {hd: fa.flash_attention_resources(hd, torch.float32)
+                        for hd in (64, 128)}
+    summary.append(row)
     log(json.dumps({"kernels": summary}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,9 @@
 //
 // Bound on an H100.  The causal work is 4 B H hd sum_q n(q) operations
 // (n(q) = min(q + 1, window) live keys; 2 B H S^2 hd without a window)
-// against 989 TFLOP/s dense bf16; the bytes are q, o and the un-expanded
-// k and v, read and written once.  At the served shapes:
+// against 989 TFLOP/s dense bf16 (in float32 three times that against 495
+// TFLOP/s TF32: below); the bytes are q, o and the un-expanded k and v,
+// read and written once.  At the served shapes:
 //   - hd 128 and 256 (Llama-3-8B's prefill, RecurrentGemma-2B's 2048
 //     window at S 4096): operations, by several times the bytes;
 //   - hd 64 (MusicGen-medium: S 1024, 24 heads, MHA): bytes and operations
@@ -124,14 +125,66 @@
 //     tiles under the current one; Q in registers for S at hd 64 (16 a
 //     thread), so S reads only K from shared memory; a TMA-store epilogue.
 //
-// float32: FFMA (flash_fwd_kernel<float, HD>).  One block per (batch *
-//   head, 64-query tile), 256 threads as a 16 x 16 grid; q and k kept in
-//   shared memory transposed, v as rows; thread (ty, tx) owns queries
-//   4 ty .. +3 and, of the 64 x 64 logit tile, keys 4 tx .. +3; the row
-//   max and sum are reduced over the 16 threads of a row by warp shuffles;
-//   the weights go through shared memory for P @ V, all in float32 (the
-//   1e-5 bar).  At hd = 256 its shared memory is 208 KB.  Only the card
-//   tests and a float32 model run it.
+// float32 at hd 64 and 128: 3xTF32 on wgmma (flash_fwd_3xtf32).  The bar
+//   is 1e-5 against the float32 plain version, which one TF32 pass
+//   (10-bit mantissa) misses; three meet it: each operand is x =
+//   hi + lo, hi = x rounded to the nearest TF32 (hopper::split_tf32), lo
+//   = x - hi read as TF32, and a . b ~ a_hi b_hi + (a_lo b_hi + a_hi b_lo)
+//   (tests/test_torch_tc_numerics.py emulates it at the kernel's tiles).
+//   So the bound is three TF32 passes at 495 TFLOP/s: 0.833 ms at
+//   Llama-3-8B's prefill shape in float32, whose FFMA floor is 2.05 ms.
+//   FFMA cannot come near it: at a small shape one SM's FFMA rate makes
+//   the heaviest query tile alone take twice the whole FFMA bound.
+//   - The tensor core adds into its accumulator with truncation, so each
+//     kv tile's products start from zeroed fragments: Q_hi K_hi^T in one,
+//     Q_lo K_hi^T + Q_hi K_lo^T in another, summed in IEEE float32; P V
+//     the same way, and O = alpha O + (P V)_tile by IEEE FMAs.  No
+//     truncating add carries across tiles (a row's P V sums S keys).
+//   - TF32 wgmma reads shared-memory operands K-major only.  S's are as
+//     stored (hd contiguous in q and k).  P V's A is P from registers and
+//     its B is V^T, keys contiguous, transposed on its way in.  Within
+//     each 8-key step V^T holds keys 0, 2, 4, 6, 1, 3, 5, 7: a thread's
+//     accumulator columns 2t and 2t + 1 are A's k-slots t and t + 4, so
+//     the weights computed in S's fragment are P's A fragment as they
+//     stand, with no shuffle.
+//   - One block per (batch * head, 64-query tile), heaviest first, two
+//     warpgroups.  The producer loads Q, K and V with 16-byte loads,
+//     splits each float into hi and lo (and transposes V) and stores them
+//     as 128-byte-swizzled K-major tiles (the layout TMA writes and the
+//     wgmma descriptors read); a quarter-warp's stores fill eight distinct
+//     chunks of a row.  The consumer (64 rows, wgmma's M) runs S, the
+//     online softmax (log2 domain, float32, masks only on the diagonal
+//     and window-edge tiles) and P V in 32-column parts of O.  K and V
+//     have rings of their own with full and empty mbarriers, and the
+//     producer issues a tile's loads before it waits for a stage: K_{i+1}
+//     lands under tile i's softmax and P V, V_{i+1} under S_{i+1}.
+//   - kv tiles are 64 keys, S's wgmma N.  Every operand is held twice (hi
+//     and lo): at hd 128 Q, K and V^T take 64 KB each, 192 KB with one
+//     stage a ring; at hd 64 16 KB each, two stages, 160 KB.  One block an
+//     SM; no spills (255 registers at hd 128, 191 at hd 64).
+//   - What bounds it: shared memory and the consumer's one stream of work.
+//     A 64-key tile at hd 128 reads 288 KB of operands (S re-reads Q for
+//     every tile) and the producer writes 128 KB: about as long at 128
+//     bytes a clock as the three passes at the TF32 peak.  The consumer's
+//     softmax and the parts' adds do not overlap its products.
+//   - Tried and dropped: 32-key tiles through one 2-stage ring of K and V
+//     (two stages fit at hd 128 only at 32 keys; S's wgmma N = 32 reads
+//     Q's 2 KB for every 1 KB of K); two P V parts in flight with S_{i+1}
+//     issued under the last (255 registers and spills); 2^x by one
+//     ex2.approx with the scale folded into an FMA on unmasked tiles.
+//   - Next steps: overlap the softmax with the products (a second
+//     consumer warpgroup has no shared memory left at hd 128); Q in
+//     registers for S at hd 64.
+//
+// float32 at hd 256: FFMA (flash_fwd_kernel<float, 256>).  Its hi and lo
+//   operands would leave room only for 16-key tiles (Q alone is 128 KB at
+//   64 queries), so it stays on FFMA: one block per (batch * head,
+//   64-query tile), 256 threads as a 16 x 16 grid; q and k kept in shared
+//   memory transposed, v as rows; thread (ty, tx) owns queries 4 ty .. +3
+//   and, of the 64 x 64 logit tile, keys 4 tx .. +3; the row max and sum
+//   are reduced over the 16 threads of a row by warp shuffles; the weights
+//   go through shared memory for P @ V, all in float32.  Its shared memory
+//   is 208 KB.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -174,7 +227,7 @@ cudaError_t configure_once(const void* kernel, int bytes, bool max_carveout,
   return err;
 }
 
-// ---- float32: FFMA --------------------------------------------------------
+// ---- float32 at hd 256: FFMA ----------------------------------------------
 
 namespace ffma {
 
@@ -1198,11 +1251,436 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace tc
 
+// ---- float32 at hd 64 and 128: 3xTF32 on wgmma (flash_fwd_3xtf32) --------
+
+namespace f32tc {
+
+using hopper::desc_sw128;
+using tc::ATOM_ROWS_BYTES;
+
+constexpr int BQ = 64;          // queries a block: one wgmma M
+constexpr int THREADS = 256;    // warpgroup 0 computes, warpgroup 1 loads
+
+// Shared memory: Q_hi and Q_lo, then a ring of STAGES stages of K_hi and
+// K_lo, a ring of V^T_hi and V^T_lo, then the barriers.  Every tile is
+// K-major with 128-byte swizzle in column blocks of 32 floats (one
+// 128-byte row each): Q's rows are queries and K's keys (hd contiguous),
+// V^T's rows are hd indices (keys contiguous, in P V's operand order, as
+// VTrans stores them).  kv tiles are 64 keys; at hd 128 each ring has one
+// stage (Q, K and V^T take 64 KB each), at hd 64 two.
+constexpr int BK = 64;          // keys a kv tile: S's wgmma N
+constexpr int PV_N = 32;        // columns of O a P V part: m64n32k8's N
+
+template <int HD>
+struct Tf32 {
+  static constexpr int STAGES = HD == 128 ? 1 : 2;
+  static constexpr int Q_BYTES = BQ * HD * 4;       // Q_hi or Q_lo
+  static constexpr int KV_BYTES = BK * HD * 4;      // K_hi, K_lo, V^T_*
+  static constexpr int BARS = 1 + 4 * STAGES;       // q; full, empty x K, V
+  static constexpr int BYTES = 2 * Q_BYTES + 4 * STAGES * KV_BYTES +
+                               8 * BARS + 1024;     // 1024-byte alignment
+  static_assert(BYTES <= 232448, "more than a block's shared memory");
+};
+
+// the byte offset of 16-byte chunk `chunk` (0..7) of row r in a K-major
+// tile whose column blocks hold `rows` rows of 128 bytes (block `blk` at
+// blk * rows * 128); the 128-byte swizzle XORs the chunk with r % 8, as
+// TMA's SWIZZLE_128B writes and the wgmma descriptor (layout 1) reads
+__device__ __forceinline__ uint32_t sw128(int rows, int blk, int r,
+                                          int chunk) {
+  return (uint32_t)(blk * rows * 128 + r * 128 + ((chunk ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void split4(const float4 x, float4& hi,
+                                       float4& lo) {
+  uint32_t h, l;
+  hopper::split_tf32(x.x, h, l);
+  hi.x = __uint_as_float(h);
+  lo.x = __uint_as_float(l);
+  hopper::split_tf32(x.y, h, l);
+  hi.y = __uint_as_float(h);
+  lo.y = __uint_as_float(l);
+  hopper::split_tf32(x.z, h, l);
+  hi.z = __uint_as_float(h);
+  lo.z = __uint_as_float(l);
+  hopper::split_tf32(x.w, h, l);
+  hi.w = __uint_as_float(h);
+  lo.w = __uint_as_float(l);
+}
+
+__device__ __forceinline__ void st4(uint8_t* base, uint32_t off, float4 x) {
+  *reinterpret_cast<float4*>(base + off) = x;
+}
+
+// R rows x HD floats of a K-major tile (row r at src + r * stride),
+// fetched into registers, then split and stored as hi and lo: float4
+// number it of the tile is row it / (HD / 4), so a warp's loads read whole
+// rows and each quarter-warp's 16-byte stores fill the eight chunks of one
+// swizzled row
+template <int R, int HD>
+struct KMajor {
+  static constexpr int C4 = HD / 4, N = R * C4 / 128;
+  float4 x[N];
+
+  __device__ __forceinline__ void fetch(const float* __restrict__ src,
+                                        size_t stride, int pt) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int it = pt + 128 * n;
+      x[n] = __ldg(reinterpret_cast<const float4*>(
+          src + (size_t)(it / C4) * stride + 4 * (it % C4)));
+    }
+  }
+
+  __device__ __forceinline__ void put(uint8_t* hi, uint8_t* lo, int pt) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int it = pt + 128 * n, r = it / C4, c4 = it % C4;
+      float4 h, l;
+      split4(x[n], h, l);
+      const uint32_t off = sw128(R, c4 / 8, r, c4 % 8);
+      st4(hi, off, h);
+      st4(lo, off, l);
+    }
+  }
+};
+
+// P V's operand order.  P is wgmma's A from registers, made from S's
+// accumulator without a shuffle: a thread holds S's columns 8 j + 2 t and
+// + 1 (t = lane % 4) of its rows, and A's fragment wants columns t and t +
+// 4 of each 8-deep step, so A's k-slot t of step j is key 8 j + 2 t and
+// slot t + 4 is key 8 j + 2 t + 1.  V^T stores its keys in that order:
+// slot 8 j + 4 par + i holds key 8 j + 2 i + par.  The producer moves V in
+// "key quads": quad kq (0 .. BK / 4 - 1) is keys 8 (kq / 2) + 2 i + kq % 2,
+// i = 0..3, which land in slots 4 kq .. 4 kq + 3 of every row: chunk kq % 8
+// of column block kq / 8.
+template <int BK, int HD>
+struct VTrans {
+  static constexpr int C4 = HD / 4, N = (BK / 4) * C4 / 128;
+  float4 x[N][4];
+
+  // item it: quad it % 8 + 8 (it / 8 / C4), hd chunk it / 8 % C4; a
+  // quarter-warp's eight lanes take eight quads of one hd chunk, so their
+  // 16-byte stores hit eight distinct chunks of each row
+  __device__ __forceinline__ static int quad(int it) {
+    return it % 8 + 8 * (it / 8 / C4);
+  }
+  __device__ __forceinline__ static int col(int it) {
+    return 4 * (it / 8 % C4);
+  }
+
+  __device__ __forceinline__ void fetch(const float* __restrict__ src,
+                                        size_t stride, int pt) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int it = pt + 128 * n, kq = quad(it);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[n][i] = __ldg(reinterpret_cast<const float4*>(
+            src + (size_t)(8 * (kq / 2) + 2 * i + kq % 2) * stride +
+            col(it)));
+    }
+  }
+
+  // row d0 + e of V^T takes element e of the quad's four keys
+  __device__ __forceinline__ void put(uint8_t* hi, uint8_t* lo, int pt) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int it = pt + 128 * n, kq = quad(it), d0 = col(it);
+      float4 h[4], l[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split4(x[n][i], h[i], l[i]);
+      uint32_t off = sw128(HD, kq / 8, d0, kq % 8);
+      st4(hi, off, make_float4(h[0].x, h[1].x, h[2].x, h[3].x));
+      st4(lo, off, make_float4(l[0].x, l[1].x, l[2].x, l[3].x));
+      off = sw128(HD, kq / 8, d0 + 1, kq % 8);
+      st4(hi, off, make_float4(h[0].y, h[1].y, h[2].y, h[3].y));
+      st4(lo, off, make_float4(l[0].y, l[1].y, l[2].y, l[3].y));
+      off = sw128(HD, kq / 8, d0 + 2, kq % 8);
+      st4(hi, off, make_float4(h[0].z, h[1].z, h[2].z, h[3].z));
+      st4(lo, off, make_float4(l[0].z, l[1].z, l[2].z, l[3].z));
+      off = sw128(HD, kq / 8, d0 + 3, kq % 8);
+      st4(hi, off, make_float4(h[0].w, h[1].w, h[2].w, h[3].w));
+      st4(lo, off, make_float4(l[0].w, l[1].w, l[2].w, l[3].w));
+    }
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int H, int KH, int window, float scale_log2) {
+  using L = Tf32<HD>;
+  constexpr int ST = L::STAGES;
+  constexpr int NP = HD / PV_N;         // P V in parts of PV_N columns
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQh = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sQl = sQh + L::Q_BYTES;
+  uint8_t* sK = sQl + L::Q_BYTES;       // stage st: hi, lo at 2 st KV_BYTES
+  uint8_t* sV = sK + 2 * ST * L::KV_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + 2 * ST * L::KV_BYTES);
+  uint64_t* full_k = bar_q + 1;         // a stage's tiles are stored
+  uint64_t* full_v = full_k + ST;
+  uint64_t* empty_k = full_v + ST;      // its products are done
+  uint64_t* empty_v = empty_k + ST;
+
+  const int qi = gridDim.y - 1 - blockIdx.y;    // heaviest tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kh = h / (H / KH);
+  const int q0 = qi * BQ;
+  const int tid = threadIdx.x;
+  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KH * HD;
+  const int kt_end = (q0 + BQ - 1) / BK;        // causal limit, inclusive
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int n_tiles = kt_end - kt_begin + 1;
+
+  if (tid == 0) {
+    hopper::mbar_init(bar_q, 128);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full_k[s], 128);       // every producer thread
+      hopper::mbar_init(&full_v[s], 128);
+      hopper::mbar_init(&empty_k[s], 4);        // every consumer warp
+      hopper::mbar_init(&empty_v[s], 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ---- producer: load, split (and transpose V), store ----
+    const int pt = tid - 128;
+    {
+      KMajor<BQ, HD> qt;
+      qt.fetch(q + ((size_t)b * S + q0) * q_stride + (size_t)h * HD,
+               q_stride, pt);
+      qt.put(sQh, sQl, pt);
+    }
+    hopper::fence_proxy_async_shared();
+    hopper::mbar_arrive(bar_q);
+    const float* kb = k + (size_t)b * S * kv_stride + (size_t)kh * HD;
+    const float* vb = v + (size_t)b * S * kv_stride + (size_t)kh * HD;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % ST;
+      const size_t k0 = (size_t)(kt_begin + i) * BK;
+      // use i / ST of a stage waits for the consumers' release of use
+      // i / ST - 1, with the tile's loads already in flight: K_i once
+      // S_{i - ST} is done, V_i once P_{i - ST} V_{i - ST} is
+      {
+        KMajor<BK, HD> kt;
+        kt.fetch(kb + k0 * kv_stride, kv_stride, pt);
+        if (i >= ST) hopper::mbar_wait(&empty_k[st], (i / ST + 1) & 1);
+        kt.put(sK + 2 * st * L::KV_BYTES, sK + (2 * st + 1) * L::KV_BYTES,
+               pt);
+        hopper::fence_proxy_async_shared();
+        hopper::mbar_arrive(&full_k[st]);
+      }
+      {
+        VTrans<BK, HD> vt;
+        vt.fetch(vb + k0 * kv_stride, kv_stride, pt);
+        if (i >= ST) hopper::mbar_wait(&empty_v[st], (i / ST + 1) & 1);
+        vt.put(sV + 2 * st * L::KV_BYTES, sV + (2 * st + 1) * L::KV_BYTES,
+               pt);
+        hopper::fence_proxy_async_shared();
+        hopper::mbar_arrive(&full_v[st]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: 64 query rows ----
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const int row0 = q0 + 16 * warp + (lane >> 2), row1 = row0 + 8;
+  float o_acc[NP][PV_N / 2];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < PV_N / 2; ++i) o_acc[p][i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  const uint64_t dqh = desc_sw128(hopper::smem_addr(sQh), 0,
+                                  ATOM_ROWS_BYTES);
+  const uint64_t dql = desc_sw128(hopper::smem_addr(sQl), 0,
+                                  ATOM_ROWS_BYTES);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  hopper::mbar_wait(bar_q, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % ST, k0 = (kt_begin + i) * BK;
+    const uint32_t parity = (i / ST) & 1;
+    const uint64_t dkh = desc_sw128(
+        hopper::smem_addr(sK + 2 * st * L::KV_BYTES), 0, ATOM_ROWS_BYTES);
+    const uint64_t dkl = tc::desc_add(dkh, L::KV_BYTES);
+    hopper::mbar_wait(&full_k[st], parity);
+    __syncwarp();          // wgmma is .aligned: the warp must be converged
+
+    // S = Q_hi K_hi^T into one fragment, Q_lo K_hi^T + Q_hi K_lo^T into
+    // another, each from zero; a k-step of 8 floats is 32 bytes inside a
+    // 128-byte swizzle row
+    float shh[BK / 2], ssm[BK / 2];
+    hopper::fence_regs(shh);
+    hopper::fence_regs(ssm);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const uint32_t qo = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+      const uint32_t ko = (kk / 4) * BK * 128 + (kk % 4) * 32;
+      hopper::wgmma_m64n64k8_tf32_ss(shh, tc::desc_add(dqh, qo),
+                                     tc::desc_add(dkh, ko), kk > 0);
+      hopper::wgmma_m64n64k8_tf32_ss(ssm, tc::desc_add(dql, qo),
+                                     tc::desc_add(dkh, ko), kk > 0);
+      hopper::wgmma_m64n64k8_tf32_ss(ssm, tc::desc_add(dqh, qo),
+                                     tc::desc_add(dkl, ko), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(shh);
+    hopper::fence_regs(ssm);
+    release(&empty_k[st]);         // K_{i + ST} may land under the rest
+
+    // online softmax, log2 domain, in IEEE float32: s = hh + sm.
+    // shh[4j + e]: row row0 (e < 2) or row1, key k0 + 8 j + 2 quad +
+    // (e & 1).  Masks only where a key lies past the block's first query
+    // or at the window's edge.
+    const bool masked = k0 + BK - 1 > q0 ||
+                        (window > 0 && k0 <= q0 + BQ - 1 - window);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = (shh[4 * j + e] + ssm[4 * j + e]) * scale_log2;
+        if (masked) {
+          const int kp = k0 + 8 * j + 2 * quad + (e & 1);
+          const int qp = e < 2 ? row0 : row1;
+          const bool live = kp <= qp && (window <= 0 || kp > qp - window);
+          x = live ? x : NEG_INF;
+        }
+        shh[4 * j + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+    // P split into TF32 hi and lo as A fragments (VTrans' order):
+    // slots t and t + 4 of step j are columns 8 j + 2 t and + 1, rows
+    // row0 (a[0], a[2]) and row1 (a[1], a[3])
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(shh[4 * j + e] - (e < 2 ? mn0 : mn1));
+        if (e < 2) rs0 += p[e];
+        else rs1 += p[e];
+      }
+      hopper::split_tf32(p[0], ph[j][0], pl[j][0]);
+      hopper::split_tf32(p[2], ph[j][1], pl[j][1]);
+      hopper::split_tf32(p[1], ph[j][2], pl[j][2]);
+      hopper::split_tf32(p[3], ph[j][3], pl[j][3]);
+    }
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+
+    // (P V)_tile = P_hi V_hi + (P_lo V_hi + P_hi V_lo), each from zero, in
+    // PV_N-column parts of O; O = alpha O + (hh + sm) by IEEE FMAs
+    const uint64_t dvh = desc_sw128(
+        hopper::smem_addr(sV + 2 * st * L::KV_BYTES), 0, ATOM_ROWS_BYTES);
+    const uint64_t dvl = tc::desc_add(dvh, L::KV_BYTES);
+    hopper::mbar_wait(&full_v[st], parity);
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float hh[PV_N / 2], sm[PV_N / 2];
+      hopper::fence_regs(hh);
+      hopper::fence_regs(sm);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        const uint32_t vo = (kk / 4) * HD * 128 + p * PV_N * 128 +
+                            (kk % 4) * 32;
+        hopper::wgmma_m64n32k8_tf32_rs(hh, ph[kk], tc::desc_add(dvh, vo),
+                                       kk > 0);
+        hopper::wgmma_m64n32k8_tf32_rs(sm, pl[kk], tc::desc_add(dvh, vo),
+                                       kk > 0);
+        hopper::wgmma_m64n32k8_tf32_rs(sm, ph[kk], tc::desc_add(dvl, vo),
+                                       1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(hh);
+      hopper::fence_regs(sm);
+#pragma unroll
+      for (int e = 0; e < PV_N / 2; ++e)
+        o_acc[p][e] = fmaf((e & 2) ? alpha1 : alpha0, o_acc[p][e],
+                           hh[e] + sm[e]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      hopper::fence_regs(ph[kk]);
+      hopper::fence_regs(pl[kk]);
+    }
+    release(&empty_v[st]);
+  }
+
+  // epilogue: reduce l over the row's 4 threads, normalise, store
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+  float* ob = o + (size_t)b * S * q_stride + (size_t)h * HD + 2 * quad;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < PV_N / 8; ++j) {
+      const int col = p * PV_N + 8 * j;
+      *reinterpret_cast<float2*>(ob + (size_t)row0 * q_stride + col) =
+          make_float2(o_acc[p][4 * j] * inv0, o_acc[p][4 * j + 1] * inv0);
+      *reinterpret_cast<float2*>(ob + (size_t)row1 * q_stride + col) =
+          make_float2(o_acc[p][4 * j + 2] * inv1, o_acc[p][4 * j + 3] * inv1);
+    }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int H, int KH, int window, float scale, cudaStream_t stream) {
+  constexpr int smem = Tf32<HD>::BYTES;
+  auto kernel = flash_fwd_3xtf32<HD>;
+  static bool configured[MAX_DEVICES];
+  const cudaError_t err =
+      configure_once((const void*)kernel, smem, false, configured);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, S / BQ);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KH, window,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32tc
+
 }  // namespace
 
 // q, o (B, S, H, hd) and k, v (B, S, KH, hd), contiguous and 16-byte
-// aligned, all float32 (is_bf16 = 0, the FFMA kernel) or all bfloat16
-// (is_bf16 = 1, the wgmma kernel); hd in {64, 128, 256}, S % 64 == 0, KH | H;
+// aligned, all float32 (is_bf16 = 0: the 3xTF32 wgmma kernel at hd 64 and
+// 128, the FFMA kernel at 256) or all bfloat16 (is_bf16 = 1, the wgmma
+// kernels); hd in {64, 128, 256}, S % 64 == 0, KH | H;
 // window <= 0 means none; scale multiplies q . k.  Returns 1
 // (cudaErrorInvalidValue) for a shape outside that contract, 10000 when the
 // driver has no cuTensorMapEncodeTiled and 10000 + its CUresult when it
@@ -1221,13 +1699,13 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (hd == 128)
     return is_bf16 ? tc::launch<128>(q, k, v, o, B, S, H, KH, window, scale,
                                      stream)
-                   : ffma::launch<float, 128>(q, k, v, o, B, S, H, KH,
-                                              window, scale, stream);
+                   : f32tc::launch<128>(q, k, v, o, B, S, H, KH, window,
+                                        scale, stream);
   if (hd == 64)
     return is_bf16 ? tc::launch<64>(q, k, v, o, B, S, H, KH, window, scale,
                                     stream)
-                   : ffma::launch<float, 64>(q, k, v, o, B, S, H, KH, window,
-                                             scale, stream);
+                   : f32tc::launch<64>(q, k, v, o, B, S, H, KH, window,
+                                       scale, stream);
   return 1;
 }
 
@@ -1238,6 +1716,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // out[0..2]; 1 for an hd outside the contract.
 extern "C" int repro_flash_attention_attrs(int hd, int is_bf16, int* out) {
   const void* fn = nullptr;
+  // the float32 kernels (FFMA and 3xTF32) both run 256 threads
   int threads = ffma::THREADS, smem = 0;
   bool max_carveout = false;
   auto bf16 = [&](tc::Shape s) {
@@ -1256,12 +1735,12 @@ extern "C" int repro_flash_attention_attrs(int hd, int is_bf16, int* out) {
              ffma::smem_bytes<256>());
   } else if (hd == 128) {
     if (is_bf16) bf16(tc::shape_for<128>());
-    else f32((const void*)ffma::flash_fwd_kernel<float, 128>,
-             ffma::smem_bytes<128>());
+    else f32((const void*)f32tc::flash_fwd_3xtf32<128>,
+             f32tc::Tf32<128>::BYTES);
   } else if (hd == 64) {
     if (is_bf16) bf16(tc::shape_for<64>());
-    else f32((const void*)ffma::flash_fwd_kernel<float, 64>,
-             ffma::smem_bytes<64>());
+    else f32((const void*)f32tc::flash_fwd_3xtf32<64>,
+             f32tc::Tf32<64>::BYTES);
   }
   if (!fn) return 1;
   cudaFuncAttributes attr;

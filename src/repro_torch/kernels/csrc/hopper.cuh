@@ -1,9 +1,9 @@
 // hopper.cuh: inline-PTX wrappers for the sm_90a kernels of this
-// directory (flash_attention.cu's bf16 path, graph_mix.cu): shared-memory
-// addresses, mbarriers, named barriers, setmaxnreg, TMA tile loads,
-// cp.async, the wgmma descriptor and the wgmma and mma.sync instructions
-// the kernels issue.  Only PTX, no CUTLASS: each .cu file builds in
-// seconds.
+// directory (flash_attention.cu's tensor-core kernels, graph_mix.cu):
+// shared-memory addresses, mbarriers, named barriers, setmaxnreg, TMA
+// tile loads, cp.async, the proxy fence, the wgmma descriptor and the
+// wgmma (bf16, TF32) and mma.sync instructions the kernels issue.  Only
+// PTX, no CUTLASS: each .cu file builds in seconds.
 
 #pragma once
 
@@ -136,6 +136,12 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory writes of this thread made visible to the async proxy
+// (wgmma's operand reads, TMA), before the barrier that hands them over
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- mma.sync, TF32 --------------------------------------------------------
@@ -321,6 +327,48 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- wgmma, TF32 -----------------------------------------------------------
+// TF32 wgmma reads its shared-memory operands K-major only (no transpose
+// immediates), and truncates each float32 to TF32 as it reads it.
+
+// D (64 x 64, f32) (+)= A (64 x 8, tf32, shared, K-major) . B (64 x 8,
+// tf32, shared, K-major)^T; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
+                                                      uint64_t da, uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) (+)= A (64 x 8, tf32, registers) . B (32 x 8, tf32,
+// shared, K-major)^T; scale_d = 0 overwrites D.  A's fragment: a thread of
+// warp w holds rows 16 w + lane / 4 (a[0], a[2]) and + 8 (a[1], a[3]),
+// columns lane % 4 (a[0], a[1]) and + 4 (a[2], a[3]).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 }  // namespace hopper

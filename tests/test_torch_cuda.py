@@ -404,14 +404,28 @@ def randn(dev, shape, dtype, g):
     (torch.bfloat16, 2, 320, 10, 1, 256, 100),  # MQA 10:1, B = 2, the
     (torch.bfloat16, 2, 256, 10, 1, 256, None),     # last tile half full
     (torch.bfloat16, 1, 448, 4, 2, 256, 65),
-    (torch.bfloat16, 1, 384, 2, 1, 256, 1000)])  # window beyond S
+    (torch.bfloat16, 1, 384, 2, 1, 256, 1000),   # window beyond S
+    # the float32 3xTF32 kernel's edges: 64-query blocks, 64-key tiles
+    # through K and V rings of one stage (hd 128) or two (hd 64)
+    (torch.float32, 1, 320, 8, 2, 128, 33),     # windows not a multiple
+    (torch.float32, 2, 256, 4, 2, 64, 65),      # of the key tile
+    (torch.float32, 1, 384, 4, 1, 128, 100),
+    (torch.float32, 1, 128, 2, 2, 128, 1),      # only the diagonal key
+    (torch.float32, 1, 256, 8, 1, 64, None),    # GQA 8:1
+    (torch.float32, 2, 192, 8, 1, 128, 63),
+    (torch.float32, 1, 512, 24, 24, 64, None),  # MHA, many blocks
+    (torch.float32, 2, 320, 16, 16, 128, None),
+    (torch.float32, 1, 64, 2, 1, 64, None),     # S = 64: one block a head
+    (torch.float32, 2, 64, 4, 2, 128, 1),
+    (torch.float32, 1, 4096, 8, 2, 128, None)])     # 128 kv tiles a row
 def test_flash_attention_kernel(cuda, dtype, B, S, H, K, hd, window):
     """bf16 (wgmma): the kernel rounds the softmax weights to bf16 once
     per kv tile (128 keys at hd 128, 80 at hd 256, 64 at hd 64) before
     P @ V, as the JAX oracle does; the plain version keeps them in
     float32.  That moves the output by about one bf16 ulp
     (tests/test_torch_tc_numerics.py), inside the bar of 1e-2 abs and rel.
-    float32 (FFMA): only the summation order differs, 1e-5."""
+    float32: 3xTF32 on the tensor cores at hd 64 and 128 (each kv tile's
+    products from zero, added in IEEE float32), FFMA at hd 256: 1e-5."""
     g = torch.Generator(device=cuda).manual_seed(S + H + K)
     q = randn(cuda, (B, S, H, hd), dtype, g)
     k = randn(cuda, (B, S, K, hd), dtype, g)
@@ -431,7 +445,8 @@ def test_flash_attention_kernel(cuda, dtype, B, S, H, K, hd, window):
                                               (torch.bfloat16, 64, 63),
                                               (torch.bfloat16, 256, 100),
                                               (torch.float32, 64, None),
-                                              (torch.float32, 256, None)])
+                                              (torch.float32, 256, None),
+                                              (torch.float32, 128, 100)])
 def test_flash_attention_kernel_replay_is_bit_identical(cuda, dtype, hd,
                                                         window):
     g = torch.Generator(device=cuda).manual_seed(hd)
@@ -442,17 +457,23 @@ def test_flash_attention_kernel_replay_is_bit_identical(cuda, dtype, hd,
                        fa.flash_attention(q, k, v, window=window))
 
 
-@pytest.mark.parametrize("hd", [256, 64])
+@pytest.mark.parametrize("hd", [256, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_hd256_does_not_spill(cuda, dtype, hd):
-    """No local memory.  In bf16 both head dims run the warp-specialised
+    """No local memory.  In bf16 hd 256 and 64 run the warp-specialised
     kernel: at hd 256 the 64 x 256 float32 O accumulator (128 registers a
     thread) fits the consumers' 240 after setmaxnreg (the launch's 168 a
     thread of 384); at hd 64 two 256-thread blocks share an SM, at most
-    128 registers a thread."""
+    128 registers a thread.  In float32 hd 64 and 128 run the 3xTF32
+    kernel: one 256-thread block an SM (its shared memory, 192 KB at hd
+    128), whose consumer holds O (hd / 2 registers), a 32-column part's
+    two accumulators (32) and P's hi and lo fragments of a 64-key tile
+    (64)."""
     res = fa.flash_attention_resources(hd, dtype)
     limit, blocks = {(torch.bfloat16, 256): (168, 1),
-                     (torch.bfloat16, 64): (128, 2)}.get((dtype, hd),
+                     (torch.bfloat16, 64): (128, 2),
+                     (torch.float32, 64): (255, 1),
+                     (torch.float32, 128): (255, 1)}.get((dtype, hd),
                                                          (255, None))
     assert res["local_bytes"] == 0 and 0 < res["registers"] <= limit, res
     assert blocks is None or res["blocks_per_sm"] == blocks, res

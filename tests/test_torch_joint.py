@@ -18,6 +18,7 @@ port against the JAX package.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from repro.simulate import engines as jeng  # noqa: E402
 from repro.simulate import scheduler as jsched  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
@@ -74,20 +76,30 @@ def t(*arrays):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("seed,eta,lam", [(0, 0.5, 0.7), (1, 1.0, 1e-3),
-                                          (2, 0.3, 1e3), (3, 0.1, 1.0)])
-def test_edge_reweight_matches_jax(seed, eta, lam):
+REWEIGHT = [(0, 0.5, 0.7), (1, 1.0, 1e-3), (2, 0.3, 1e3), (3, 0.1, 1.0)]
+
+
+def jax_reweight(seed, eta, lam):
+    """JAX's ``edge_reweight`` and the simplex projection of -d / (2 lam)
+    on ``rows(seed, B=64, k=9)``."""
     d, w, live = rows(seed, B=64, k=9)
-    want = jref.edge_reweight(jnp.asarray(d), jnp.asarray(w),
-                              jnp.asarray(live), eta=eta, lam=lam)
+    v = (-d / (2 * lam)).astype(np.float32)
+    return (np.asarray(jref.edge_reweight(
+                jnp.asarray(d), jnp.asarray(w), jnp.asarray(live), eta=eta,
+                lam=lam)),
+            np.asarray(jref.simplex_project_rows(jnp.asarray(v),
+                                                 jnp.asarray(live))))
+
+
+@pytest.mark.parametrize("seed,eta,lam", REWEIGHT)
+def test_edge_reweight_matches_jax(refs, seed, eta, lam):
+    d, w, live = rows(seed, B=64, k=9)
+    want, want_proj = refs["reweight"][seed, eta, lam]
     got = ref.edge_reweight(*t(d, w, live), eta=eta, lam=lam)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
-                               rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
     v = (-d / (2 * lam)).astype(np.float32)
     np.testing.assert_allclose(
-        ref.simplex_project_rows(*t(v, live)).numpy(),
-        np.asarray(jref.simplex_project_rows(jnp.asarray(v),
-                                             jnp.asarray(live))),
+        ref.simplex_project_rows(*t(v, live)).numpy(), want_proj,
         atol=1e-6, rtol=0)
 
 
@@ -152,15 +164,20 @@ def test_edge_reweight_dispatch():
 
 @pytest.fixture(scope="module")
 def two_cluster():
-    """Both packages' planted two-cluster topology and the numpy
-    problem."""
-    jt = jtopo.planted_partition_topology(80, 2, k_intra=5, k_inter=2,
-                                          seed=0)
+    """The port's planted two-cluster topology and the numpy problem (JAX
+    builds its own in ``jax_references``)."""
     tt = ttopo.planted_partition_topology(80, 2, k_intra=5, k_inter=2,
                                           seed=0)
     labels, _, sol, c = two_cluster_mean_problem(80, p=4, seed=0)
     assert np.array_equal(labels, tt.groups)
-    return jt, tt, labels, sol, c
+    return tt, labels, sol, c
+
+
+def jax_two_cluster():
+    jt = jtopo.planted_partition_topology(80, 2, k_intra=5, k_inter=2,
+                                          seed=0)
+    _, _, sol, c = two_cluster_mean_problem(80, p=4, seed=0)
+    return jt, sol, c
 
 
 def joint_spec(tt, sol, c, cond, rounds, batch, record_every, **kw):
@@ -173,7 +190,7 @@ def joint_spec(tt, sol, c, cond, rounds, batch, record_every, **kw):
 @pytest.mark.parametrize("cond", [NetworkConditions(), FAULTY],
                          ids=["clean", "faulty"])
 def test_rate_zero_is_mp_bit_for_bit(two_cluster, cond):
-    _, tt, _, sol, c = two_cluster
+    tt, _, sol, c = two_cluster
     mp = run_scenario(ScenarioSpec(
         algo="mp", topology=tt, conditions=cond, rounds=60, batch=24,
         seed=3, record_every=20, theta_sol=sol, c=c, alpha=0.9,
@@ -186,17 +203,41 @@ def test_rate_zero_is_mp_bit_for_bit(two_cluster, cond):
     assert torch.equal(jt.final_w, tt.device_tables(CPU).nbr_p)
 
 
-@pytest.mark.parametrize("prune", [False, True], ids=["no-prune", "prune"])
-def test_run_joint_scenario_matches_jax(two_cluster, prune, monkeypatch):
-    jt, tt, _, sol, c = two_cluster
-    kw = dict(LEARN_KW, prune_eps=LEARN_KW["prune_eps"] if prune else None)
-    rounds, batch, rec = 120, 32, 40
+JOINT_RUN = dict(rounds=120, batch=32, rec=40)
+JOINT_FIELDS = ("delivered", "dropped", "invalid", "rounds", "events",
+                "active_hist", "theta_hist", "final_w", "final_live",
+                "suppressed", "live_edges_hist")
+
+
+def joint_kw(prune):
+    return dict(LEARN_KW, prune_eps=LEARN_KW["prune_eps"] if prune else None)
+
+
+def jax_joint_run(prune):
+    """JAX's event stream (FAULTY) and its joint run on the planted
+    topology, its record's fields as numpy arrays."""
+    jt, sol, c = jax_two_cluster()
+    rounds, batch, rec = (JOINT_RUN[k] for k in ("rounds", "batch", "rec"))
     cond_j = jsched.NetworkConditions(**vars(FAULTY))
     js = jsched.precompute_event_stream(
         jt.device_tables(), jnp.asarray(jt.partition_halves()), cond_j,
         batch, 3, rounds)
     want = jeng.run_joint_scenario(jt, sol, c, 0.9, cond_j, rounds, batch,
-                                   record_every=rec, stream=js, **kw)
+                                   record_every=rec, stream=js,
+                                   **joint_kw(prune))
+    return {"stream": js._replace(**{f: np.asarray(getattr(js, f))
+                                     for f in js._fields}),
+            **{f: np.asarray(getattr(want, f)) for f in JOINT_FIELDS}}
+
+
+@pytest.mark.parametrize("prune", [False, True], ids=["no-prune", "prune"])
+def test_run_joint_scenario_matches_jax(refs, two_cluster, prune,
+                                        monkeypatch):
+    tt, _, sol, c = two_cluster
+    kw = joint_kw(prune)
+    rounds, batch, rec = (JOINT_RUN[k] for k in ("rounds", "batch", "rec"))
+    want = types.SimpleNamespace(**refs["joint_run"][prune])
+    js = want.stream
     # record the port's pre-prune weights at every graph step, to tell a
     # rounding-decided prune from a real disagreement
     pre = []
@@ -241,7 +282,7 @@ def test_run_joint_scenario_matches_jax(two_cluster, prune, monkeypatch):
 def test_two_cluster_recovery(two_cluster):
     """>= 90 % of the planted intra-cluster candidate edges keep weight
     and the inter-cluster ones are suppressed (the port's own stream)."""
-    _, tt, labels, sol, c = two_cluster
+    tt, labels, sol, c = two_cluster
     tr = run_scenario(ScenarioSpec(
         algo="joint", topology=tt, conditions=NetworkConditions(),
         rounds=300, batch=40, seed=1, record_every=50, theta_sol=sol, c=c,
@@ -259,17 +300,28 @@ def test_two_cluster_recovery(two_cluster):
     assert dataclasses.astuple(rec) == dataclasses.astuple(want)
 
 
-def test_learned_weight_tables_match_jax(two_cluster):
-    jt, tt, _, sol, c = two_cluster
+def jax_learned_tables():
+    """JAX's joint run on the clean network and the weight tables it
+    learned (numpy fields)."""
+    jt, sol, c = jax_two_cluster()
     tr = jeng.run_joint_scenario(jt, sol, c, 0.9, jsched.NetworkConditions(),
                                  rounds=100, batch=40, seed=1,
                                  record_every=50, **LEARN_KW)
     want = jgl.learned_weight_tables(jt.tables, tr.final_w, tr.final_live)
+    return {"final_w": np.array(tr.final_w),
+            "final_live": np.array(tr.final_live),
+            "tables": {f: np.asarray(getattr(want, f))
+                       for f in want._fields}}
+
+
+def test_learned_weight_tables_match_jax(refs, two_cluster):
+    tt, _, sol, c = two_cluster
+    want = refs["learned"]
     got = tgl.learned_weight_tables(tt.tables,
-                                    torch.tensor(np.array(tr.final_w)),
-                                    torch.tensor(np.array(tr.final_live)))
-    for f in want._fields:
-        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+                                    torch.tensor(want["final_w"]),
+                                    torch.tensor(want["final_live"]))
+    for f, w in want["tables"].items():
+        np.testing.assert_array_equal(getattr(got, f), w)
     assert got.nbr_idx is tt.tables.nbr_idx         # candidate structure
     # the learned tables drive a fixed-graph run
     again = run_scenario(ScenarioSpec(
@@ -277,3 +329,19 @@ def test_learned_weight_tables_match_jax(two_cluster):
         conditions=NetworkConditions(), rounds=20, batch=16,
         record_every=20, theta_sol=sol, c=c, alpha=0.9, device=CPU))
     assert torch.isfinite(again.theta_hist).all()
+
+
+# ---------------------------------------------------------------------------
+# the JAX side, in a subprocess of its own
+# ---------------------------------------------------------------------------
+
+
+def jax_references():
+    """JAX's results for the op and engine comparisons of this module."""
+    return {"reweight": {case: jax_reweight(*case) for case in REWEIGHT},
+            "joint_run": {prune: jax_joint_run(prune)
+                          for prune in (False, True)},
+            "learned": jax_learned_tables()}
+
+
+refs = _port_session.reference_fixture(__name__)

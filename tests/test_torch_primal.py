@@ -83,38 +83,61 @@ def close(got, want, atol, rtol=0.0):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("moments,clip,wd,lr_scale", [
-    ("bfloat16", 1.0, 0.1, 1.0), ("float32", 0.0, 0.0, 1.0),
-    ("float32", 0.5, 0.01, 0.5), ("bfloat16", 0.0, 0.1, 2.0)])
-def test_adamw_matches_jax(moments, clip, wd, lr_scale):
+ADAMW = [("bfloat16", 1.0, 0.1, 1.0), ("float32", 0.0, 0.0, 1.0),
+         ("float32", 0.5, 0.01, 0.5), ("bfloat16", 0.0, 0.1, 2.0)]
+
+
+def adamw_case():
+    """Nested-dict parameters and five steps' gradients, drawn in the
+    order the update takes them (the JAX update unzips its outputs by
+    tuple, so its parameter trees hold no tuples)."""
     rng = np.random.default_rng(0)
-    # nested dicts (the JAX update unzips its outputs by tuple, so its
-    # parameter trees hold no tuples)
     params = {"w": rng.standard_normal((3, 4)).astype(np.float32),
               "b": rng.standard_normal(4).astype(np.float32),
               "layer": {"a": rng.standard_normal(5).astype(np.float32),
                         "c": rng.standard_normal((2, 2)).astype(np.float32)}}
-    kw = dict(lr=1e-2, weight_decay=wd, grad_clip=clip)
-    jcfg = jadamw.AdamWConfig(moment_dtype=getattr(jnp, moments), **kw)
-    tcfg = AdamWConfig(moment_dtype=getattr(torch, moments), **kw)
-    jp, tp = params, to_torch(params)
-    js, ts = jadamw.adamw_init(jp, jcfg), adamw_init(tp, tcfg)
-    for step in range(5):
-        grads = tree_map(lambda a: (3 * rng.standard_normal(a.shape))
-                         .astype(np.float32), params)
-        jp, js, jgn = jadamw.adamw_update(grads, js, jp, jcfg, lr_scale)
-        tp, ts, tgn = adamw_update(to_torch(grads), ts, tp, tcfg, lr_scale)
+    grads = [tree_map(lambda a: (3 * rng.standard_normal(a.shape))
+                      .astype(np.float32), params) for _ in range(5)]
+    return params, grads
+
+
+def jax_adamw(moments, clip, wd, lr_scale):
+    """JAX's five AdamW steps on ``adamw_case``: the parameters' and
+    moments' leaves, the step count and each step's gradient norm."""
+    params, grads = adamw_case()
+    jcfg = jadamw.AdamWConfig(moment_dtype=getattr(jnp, moments), lr=1e-2,
+                              weight_decay=wd, grad_clip=clip)
+    jp, js = params, jadamw.adamw_init(params, jcfg)
+    norms = []
+    for g in grads:
+        jp, js, jgn = jadamw.adamw_update(g, js, jp, jcfg, lr_scale)
+        norms.append(np.asarray(jgn))
+    leaves = jax.tree_util.tree_leaves
+    return {"params": [np.asarray(a) for a in leaves(jp)],
+            "m": [np.asarray(a, np.float32) for a in leaves(js["m"])],
+            "v": [np.asarray(a, np.float32) for a in leaves(js["v"])],
+            "count": int(js["count"]), "norms": norms}
+
+
+@pytest.mark.parametrize("moments,clip,wd,lr_scale", ADAMW)
+def test_adamw_matches_jax(refs, moments, clip, wd, lr_scale):
+    params, grads = adamw_case()
+    want = refs["adamw"][moments, clip, wd, lr_scale]
+    tcfg = AdamWConfig(moment_dtype=getattr(torch, moments), lr=1e-2,
+                       weight_decay=wd, grad_clip=clip)
+    tp = to_torch(params)
+    ts = adamw_init(tp, tcfg)
+    for g, jgn in zip(grads, want["norms"]):
+        tp, ts, tgn = adamw_update(to_torch(g), ts, tp, tcfg, lr_scale)
         close(tgn, jgn, 0.0, rtol=1e-6)      # a float32 sum of squares
-    assert int(ts["count"]) == int(js["count"]) == 5
-    for got, want in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
-        close(got, want, 1e-6)
+    assert int(ts["count"]) == want["count"] == 5
+    for got, w in zip(tree_leaves(tp), want["params"]):
+        close(got, w, 1e-6)
     for key in ("m", "v"):
-        for got, want in zip(tree_leaves(ts[key]),
-                             jax.tree_util.tree_leaves(js[key])):
+        for got, w in zip(tree_leaves(ts[key]), want[key]):
             assert got.dtype == getattr(torch, moments)
-            want = np.asarray(want, np.float32)
             ulp = 2.0 ** -8 if moments == "bfloat16" else 1e-6
-            close(got, want, 1e-30, rtol=ulp)
+            close(got, w, 1e-30, rtol=ulp)
 
 
 def test_cosine_schedule_matches_jax():
@@ -128,32 +151,47 @@ def test_cosine_schedule_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-def loss_case(name, rng):
-    """(loss, port predict_fn, jax predict_fn, theta, x, y, mask): six
-    samples, the last two pads filled with NaN."""
+GUARDED = ["quadratic", "hinge", "logistic", "mlp-logistic"]
+
+
+def loss_case(name, theta_mlp=None):
+    """(loss, port predict_fn, theta, x, y, mask): six samples, the last
+    two pads filled with NaN; for the MLP, ``theta_mlp`` (JAX's initial
+    row) is theta."""
+    rng = np.random.default_rng(3)
     x = rng.standard_normal((6, 2)).astype(np.float32)
     y = np.sign(rng.standard_normal(6)).astype(np.float32)
     mask = np.array([1, 1, 1, 1, 0, 0], np.float32)
     x[4:] = np.nan
     y[4:] = np.nan
     if name == "mlp-logistic":
-        jm, tm = jflat.MLPAgent(2, (4,)), MLPAgent(2, (4,))
-        theta = np.asarray(jm.flattener().flatten(jm.init(
-            jax.random.PRNGKey(1))))
-        return ("logistic", flat_predictor(tm), jprimal.flat_predictor(jm),
-                theta, x, y, mask)
+        return ("logistic", flat_predictor(MLPAgent(2, (4,))), theta_mlp,
+                x, y, mask)
     theta = rng.standard_normal(2).astype(np.float32)
-    return name, None, None, theta, x, y, mask
+    return name, None, theta, x, y, mask
 
 
-@pytest.mark.parametrize("name", ["quadratic", "hinge", "logistic",
-                                  "mlp-logistic"])
-def test_guarded_loss_matches_jax_with_nan_pads(name):
-    loss, tpred, jpred, theta, x, y, mask = loss_case(
-        name, np.random.default_rng(3))
-    jfn = jloss.guarded_loss(loss, jpred)
+def jax_guarded(name):
+    """JAX's guarded loss and its gradient at ``loss_case(name)``, and
+    theta (JAX's MLP draws it)."""
+    jpred, theta_mlp = None, None
+    if name == "mlp-logistic":
+        jm = jflat.MLPAgent(2, (4,))
+        jpred = jprimal.flat_predictor(jm)
+        theta_mlp = np.asarray(jm.flattener().flatten(jm.init(
+            jax.random.PRNGKey(1))))
+    loss, _, theta, x, y, mask = loss_case(name, theta_mlp)
+    jval, jgrad = jax.value_and_grad(jloss.guarded_loss(loss, jpred))(
+        theta, x, y, mask)
+    return theta, np.asarray(jval), np.asarray(jgrad)
+
+
+@pytest.mark.parametrize("name", GUARDED)
+def test_guarded_loss_matches_jax_with_nan_pads(refs, name):
+    theta_j, jval, jgrad = refs["guarded"][name]
+    loss, tpred, theta, x, y, mask = loss_case(name, theta_j)
+    np.testing.assert_array_equal(theta, theta_j)
     tfn = guarded_loss(loss, tpred)
-    jval, jgrad = jax.value_and_grad(jfn)(theta, x, y, mask)
     th = torch.tensor(theta, requires_grad=True)
     xt = torch.tensor(x, requires_grad=True)
     val = tfn(th, xt, torch.tensor(y), torch.tensor(mask))
@@ -200,31 +238,42 @@ def test_flattener_round_trip_and_jax_order():
     assert torch.equal(flat.flatten(back), vec)
 
 
-def test_mlp_agent_layout_and_apply_match_jax():
+def jax_mlp_agent():
+    """JAX's MLP agent (2 -> 8 -> 1): its parameters, their flat row, its
+    output on seven points, and five agents' stacked parameters and rows."""
+    jm = jflat.MLPAgent(in_dim=2, hidden=(8,))
+    params = jm.init(jax.random.PRNGKey(0))
+    x = np.random.default_rng(1).standard_normal((7, 2)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(2), 5)
+    stacked = jax.vmap(lambda k: jm.init(k))(keys)
+    return {"params": as_numpy(params),
+            "row": np.asarray(jm.flattener().flatten(params)),
+            "x": x, "apply": np.asarray(jm.apply(params, x)),
+            "stacked": as_numpy(stacked),
+            "rows": np.asarray(jax.vmap(jm.flattener().flatten)(stacked))}
+
+
+def test_mlp_agent_layout_and_apply_match_jax(refs):
     """JAX flattens dicts in sorted key order, so an MLP layer {"w", "b"}
     lays out as b then w; the port's rows mean the same parameters."""
     jm, tm = jflat.MLPAgent(in_dim=2, hidden=(8,)), MLPAgent(2, (8,))
     assert tm.flattener().shapes == jm.flattener().shapes
     assert tm.flattener().dim == 33
-    params = jm.init(jax.random.PRNGKey(0))
-    row = np.asarray(jm.flattener().flatten(params))
+    want = refs["mlp_agent"]
+    params, row = want["params"], want["row"]
     assert np.array_equal(row[:8], np.asarray(params[0]["b"]))
     tparams = to_torch(params)
     assert torch.equal(tm.flattener().flatten(tparams), torch.tensor(row))
-    x = np.random.default_rng(1).standard_normal((7, 2)).astype(np.float32)
-    want = np.asarray(jm.apply(params, x))
-    close(tm.apply(tparams, torch.tensor(x)), want, 1e-6)
-    close(flat_predictor(tm)(torch.tensor(row), torch.tensor(x)), want,
-          1e-6)
+    x = want["x"]
+    close(tm.apply(tparams, torch.tensor(x)), want["apply"], 1e-6)
+    close(flat_predictor(tm)(torch.tensor(row), torch.tensor(x)),
+          want["apply"], 1e-6)
     # agent-stacked trees carried across flatten in the same order
-    keys = jax.random.split(jax.random.PRNGKey(2), 5)
-    stacked = jax.vmap(lambda k: jm.init(k))(keys)
-    rows = jax.vmap(jm.flattener().flatten)(stacked)
+    rows = want["rows"]
     np.testing.assert_array_equal(
-        convert.agent_rows_from_arrays(stacked, CPU).numpy(),
-        np.asarray(rows))
+        convert.agent_rows_from_arrays(want["stacked"], CPU).numpy(), rows)
     np.testing.assert_array_equal(
-        convert.agent_rows_from_arrays(rows, CPU).numpy(), np.asarray(rows))
+        convert.agent_rows_from_arrays(rows, CPU).numpy(), rows)
     # the port's own init draws agent parameters of the right layout
     gen = torch.Generator().manual_seed(0)
     own = tm.init(gen)
@@ -269,29 +318,43 @@ def primal_rows(rng, R, k, p, q, m=5):
     return [w, live, *zl, D, x, y, mask, theta0]
 
 
-@pytest.mark.parametrize("case", ["quadratic", "logistic", "mlp"])
-def test_inexact_primal_matches_jax(case):
+INEXACT = ["quadratic", "logistic", "mlp"]
+
+
+def inexact_args(case):
     rng = np.random.default_rng(7)
+    if case == "mlp":
+        return primal_rows(rng, 12, 5, 17, 2)
+    return primal_rows(rng, 12, 5, 3, 3)
+
+
+def jax_inexact(case):
     if case == "mlp":
         jp = jprimal.InexactPrimal(loss="logistic",
                                    model=jflat.MLPAgent(2, (4,)), b_steps=4)
-        tp = InexactPrimal(loss="logistic", model=MLPAgent(2, (4,)),
-                           b_steps=4)
-        args = primal_rows(rng, 12, 5, 17, 2)
     else:
         jp = jprimal.InexactPrimal(loss=case, b_steps=4, lr=0.2)
-        tp = InexactPrimal(loss=case, b_steps=4, lr=0.2)
-        args = primal_rows(rng, 12, 5, 3, 3)
     loss_fn, opt = jp.loss_fn(), jp.opt_config()
 
     def row(*a):
         return jref.inexact_primal(*a, 0.4, 1.0, loss_fn=loss_fn,
                                    b_steps=4, opt=opt)
-    want = jax.vmap(row)(*[jnp.asarray(a) for a in args])
+    return [np.asarray(w) for w in jax.vmap(row)(
+        *[jnp.asarray(a) for a in inexact_args(case)])]
+
+
+@pytest.mark.parametrize("case", INEXACT)
+def test_inexact_primal_matches_jax(refs, case):
+    if case == "mlp":
+        tp = InexactPrimal(loss="logistic", model=MLPAgent(2, (4,)),
+                           b_steps=4)
+    else:
+        tp = InexactPrimal(loss=case, b_steps=4, lr=0.2)
+    args = inexact_args(case)
     got = ref.inexact_primal(*[torch.tensor(a) for a in args], 0.4, 1.0,
                              loss_fn=tp.loss_fn(), b_steps=4,
                              opt=tp.opt_config())
-    for g, w_ in zip(got, want):
+    for g, w_ in zip(got, refs["inexact"][case]):
         close(g, w_, 1e-5)
     assert not np.allclose(got[0].numpy(), args[-1])     # it moved
 
@@ -409,9 +472,14 @@ def jax_acceptance():
 
 
 def jax_references():
-    """The JAX side of the two scenario tests (run in a subprocess of its
+    """The JAX side of AdamW, the guarded losses, the MLP agent, the
+    inexact primal and the two scenario tests (run in a subprocess of its
     own beside the tests before this module: tests/_port_session.py)."""
-    return {"mlp_agents": jax_mlp_agents(), "acceptance": jax_acceptance()}
+    return {"mlp_agents": jax_mlp_agents(), "acceptance": jax_acceptance(),
+            "adamw": {case: jax_adamw(*case) for case in ADAMW},
+            "guarded": {name: jax_guarded(name) for name in GUARDED},
+            "mlp_agent": jax_mlp_agent(),
+            "inexact": {case: jax_inexact(case) for case in INEXACT}}
 
 
 refs = _port_session.reference_fixture(__name__)

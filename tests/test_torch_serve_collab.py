@@ -14,6 +14,9 @@ JAX package (DESIGN.md §16).
 * the store's snapshots never torn; ``ShardedAgentStateStore`` reading
   what ``AgentStateStore`` reads, bit for bit; a sharded ``serve=`` run
   reporting what the single-device run reports.
+
+The JAX side of every comparison runs in a subprocess of its own beside
+the tests before this module (``jax_references``; tests/_port_session.py).
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ from repro import simulate as jsim  # noqa: E402
 from repro import telemetry as jtel  # noqa: E402
 from repro.core.losses import AgentData as JAgentData  # noqa: E402
 
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
@@ -50,9 +54,9 @@ COLUMNS = ("requests_c", "hits_c", "misses_c", "invalidations_c",
            "served_staleness")
 
 
-@pytest.fixture(scope="module")
-def problem():
-    jt = jsim.random_geometric_topology(N, k=4, seed=0)
+def problem_arrays():
+    """The port's topology and the problem's numpy and port arrays (the
+    JAX specs take the same arrays)."""
     tt = random_geometric_topology(N, k=4, seed=0)
     rng = np.random.default_rng(0)
     sol = rng.standard_normal((N, P)).astype(np.float32)
@@ -60,18 +64,21 @@ def problem():
     xs = [rng.standard_normal((int(rng.integers(1, 5)), P))
           for _ in range(N)]
     data = pad_datasets(xs, [np.zeros(len(x)) for x in xs], device=CPU)
-    js = jsim.precompute_event_stream(
-        jt.device_tables(), jnp.asarray(jt.partition_halves()),
-        jsim.NetworkConditions(**COND), RUN["batch"], SEED, RUN["rounds"])
-    return dict(jt=jt, tt=tt, sol=sol, c=c, data=data,
-                cl_sol=solitary_mean(data).numpy(), js=js,
-                ts=convert.stream_from_arrays(js, CPU),
+    return dict(tt=tt, sol=sol, c=c, data=data,
+                cl_sol=solitary_mean(data).numpy(),
                 serve=precompute_serve_stream(N, RUN["rounds"], rate=6.0,
                                               seed=5))
 
 
-def specs(pb, algo, **kw):
-    """(JAX spec, port spec) of one algo on the same stream."""
+@pytest.fixture(scope="module")
+def problem(refs):
+    """``problem_arrays`` and JAX's event stream, carried across."""
+    return dict(problem_arrays(),
+                ts=convert.stream_from_arrays(refs["stream"], CPU))
+
+
+def payloads(pb, algo):
+    """(JAX payload, port payload) of one algo."""
     payload = dict(theta_sol=pb["sol"], c=pb["c"], alpha=0.9)
     tpay = dict(payload)
     if algo == "cl":
@@ -83,41 +90,57 @@ def specs(pb, algo, **kw):
     elif algo == "joint":
         payload.update(LEARN_KW)
         tpay.update(LEARN_KW)
-    jstream = {} if algo == "mp" else dict(stream=pb["js"])  # mp draws inline
+    return payload, tpay
+
+
+def jax_spec(pb, jt, js, algo, **kw):
+    """JAX's spec of one algo on its stream (mp draws inline)."""
+    jstream = {} if algo == "mp" else dict(stream=js)
     jkw = {k: v for k, v in kw.items() if k != "telemetry"}
     if "telemetry" in kw:
         jkw["telemetry"] = jtel.TelemetryConfig(enabled=True)
-    return (jsim.ScenarioSpec(algo=algo, topology=pb["jt"],
-                              conditions=jsim.NetworkConditions(**COND),
-                              **RUN, **payload, **jstream, **jkw),
-            ScenarioSpec(algo=algo, topology=pb["tt"],
-                         conditions=NetworkConditions(**COND), **RUN,
-                         **tpay, stream=pb["ts"], device=CPU, **kw))
+    return jsim.ScenarioSpec(algo=algo, topology=jt,
+                             conditions=jsim.NetworkConditions(**COND),
+                             **RUN, **payloads(pb, algo)[0], **jstream,
+                             **jkw)
 
 
-def test_serve_stream_and_chunks_match_jax():
-    for rounds, rate, seed in ((40, 3.0, 0), (60, 2.5, 5), (7, 0.4, 1)):
-        got = precompute_serve_stream(N, rounds, rate, seed)
-        want = jsim.precompute_serve_stream(N, rounds, rate, seed)
-        assert got.n_requests == want.n_requests
-        for f in ("user", "round"):
-            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+def port_spec(pb, algo, **kw):
+    """The port's spec of one algo on JAX's stream."""
+    return ScenarioSpec(algo=algo, topology=pb["tt"],
+                        conditions=NetworkConditions(**COND), **RUN,
+                        **payloads(pb, algo)[1], stream=pb["ts"],
+                        device=CPU, **kw)
+
+
+SERVE_STREAMS = ((40, 3.0, 0), (60, 2.5, 5), (7, 0.4, 1))
+
+
+def test_serve_stream_and_chunks_match_jax(refs):
+    for case in SERVE_STREAMS:
+        got = precompute_serve_stream(N, *case)
+        n_requests, users, rounds, chunks = refs["serve_streams"][case]
+        assert got.n_requests == n_requests
+        for f, w in (("user", users), ("round", rounds)):
+            np.testing.assert_array_equal(getattr(got, f), w)
             assert getattr(got, f).dtype == np.int32
         for (gu, gr), (wu, wr) in zip(serve_chunk_requests(got, 4, 10),
-                                      jsim.serve_chunk_requests(want, 4,
-                                                                10)):
+                                      chunks):
             np.testing.assert_array_equal(gu, wu)
             np.testing.assert_array_equal(gr, wr)
     with pytest.raises(ValueError):
         precompute_serve_stream(N, 0, 1.0)
 
 
-@pytest.mark.parametrize("algo", ["mp", "cl", "joint"])
-def test_service_matches_jax_and_leaves_the_run_untouched(problem, algo):
-    jspec, tspec = specs(problem, algo, serve=problem["serve"],
-                         serve_batch=16)
-    want = jsim.run_scenario(jspec).serve
-    got_trace = run_scenario(tspec)
+ALGOS = ["mp", "cl", "joint"]
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+def test_service_matches_jax_and_leaves_the_run_untouched(refs, problem,
+                                                          algo):
+    want = refs["serve"][algo]
+    got_trace = run_scenario(port_spec(problem, algo, serve=problem["serve"],
+                                       serve_batch=16))
     got = got_trace.serve
     for f in REPORT:
         assert getattr(got, f) == getattr(want, f), f
@@ -127,16 +150,15 @@ def test_service_matches_jax_and_leaves_the_run_untouched(problem, algo):
     assert got.served_staleness.dtype == np.int32
     assert got.summary() == want.summary()
     assert got.hits > 0 and got.misses > 0 and got.invalidations > 0
-    plain = run_scenario(specs(problem, algo)[1])
+    plain = run_scenario(port_spec(problem, algo))
     assert plain.serve is None
     assert torch.equal(got_trace.theta_hist, plain.theta_hist)
 
 
-def test_serve_counters_reach_the_frames_as_in_jax(problem):
-    jspec, tspec = specs(problem, "mp", serve=problem["serve"],
-                         telemetry=TelemetryConfig(enabled=True))
-    want = jsim.run_scenario(jspec).telemetry
-    tr = run_scenario(tspec)
+def test_serve_counters_reach_the_frames_as_in_jax(refs, problem):
+    want = refs["telemetry"]
+    tr = run_scenario(port_spec(problem, "mp", serve=problem["serve"],
+                                telemetry=TelemetryConfig(enabled=True)))
     got = tr.telemetry
     for f in ("serve_requests", "serve_hits", "serve_misses",
               "serve_invalidations"):
@@ -147,27 +169,46 @@ def test_serve_counters_reach_the_frames_as_in_jax(problem):
         [r["serve_hits"] for r in wrows]
 
 
-def test_engine_predictions_and_cache_match_jax():
+def engine_inputs():
     rng = np.random.default_rng(3)
     theta = rng.standard_normal((N, P)).astype(np.float32)
     stale = rng.integers(0, 9, N).astype(np.int32)
     dirty = rng.random(N) < 0.3
     users = rng.integers(0, N, 300)
     x = rng.standard_normal((300, P)).astype(np.float32)
-    t = CollabServeEngine(AgentStateStore(N, P, device=CPU), N, P,
-                          batch_size=64)
+    return theta, stale, dirty, users, x
+
+
+def jax_engine():
+    """JAX's engine over three commits and serves: each commit's return,
+    each serve's predictions and staleness and the cache's counters, and
+    the report's summary."""
+    theta, stale, dirty, users, x = engine_inputs()
     j = jserve.CollabServeEngine(jserve.AgentStateStore(N, P), N, P,
                                  batch_size=64)
+    steps = []
     for rnd, xx in ((10, None), (20, x), (30, None)):
-        assert t.commit(rnd, theta + rnd, stale + rnd % 3, dirty) == \
-            j.commit(rnd, theta + rnd, stale + rnd % 3, dirty)
-        gp, gs = t.serve(users, xx)
+        commit = j.commit(rnd, theta + rnd, stale + rnd % 3, dirty)
         wp, ws = j.serve(users, xx)
+        steps.append((commit, np.asarray(wp), np.asarray(ws),
+                      (j.cache.hits, j.cache.misses, j.cache.invalidations)))
+    return steps, j.report().summary()
+
+
+def test_engine_predictions_and_cache_match_jax(refs):
+    theta, stale, dirty, users, x = engine_inputs()
+    t = CollabServeEngine(AgentStateStore(N, P, device=CPU), N, P,
+                          batch_size=64)
+    steps, summary = refs["engine"]
+    for (rnd, xx), (commit, wp, ws, counters) in zip(
+            ((10, None), (20, x), (30, None)), steps):
+        assert t.commit(rnd, theta + rnd, stale + rnd % 3, dirty) == commit
+        gp, gs = t.serve(users, xx)
         np.testing.assert_allclose(gp, wp, rtol=1e-6, atol=1e-5)
         np.testing.assert_array_equal(gs, ws)
         assert (t.cache.hits, t.cache.misses, t.cache.invalidations) == \
-            (j.cache.hits, j.cache.misses, j.cache.invalidations)
-    assert t.report().summary() == j.report().summary()
+            counters
+    assert t.report().summary() == summary
 
 
 def test_store_reads_one_snapshot_and_sharding_waits():
@@ -232,3 +273,38 @@ def test_sharded_serve_spec_equals_the_unsharded_report(algo):
     for f in COLUMNS:
         np.testing.assert_array_equal(getattr(sh.serve, f),
                                       getattr(one.serve, f))
+
+
+# ---------------------------------------------------------------------------
+# the JAX side, in a subprocess of its own
+# ---------------------------------------------------------------------------
+
+
+def jax_references():
+    """JAX's event stream, serve streams, service reports, telemetry and
+    engine for every comparison of this module."""
+    pb = problem_arrays()
+    jt = jsim.random_geometric_topology(N, k=4, seed=0)
+    js = jsim.precompute_event_stream(
+        jt.device_tables(), jnp.asarray(jt.partition_halves()),
+        jsim.NetworkConditions(**COND), RUN["batch"], SEED, RUN["rounds"])
+    streams = {}
+    for case in SERVE_STREAMS:
+        want = jsim.precompute_serve_stream(N, *case)
+        streams[case] = (want.n_requests, np.asarray(want.user),
+                         np.asarray(want.round),
+                         [(np.asarray(u), np.asarray(r)) for u, r in
+                          jsim.serve_chunk_requests(want, 4, 10)])
+    return {
+        "stream": js._replace(**{f: np.asarray(getattr(js, f))
+                                 for f in js._fields}),
+        "serve_streams": streams,
+        "serve": {algo: jsim.run_scenario(jax_spec(
+            pb, jt, js, algo, serve=pb["serve"], serve_batch=16)).serve
+            for algo in ALGOS},
+        "telemetry": jsim.run_scenario(jax_spec(
+            pb, jt, js, "mp", serve=pb["serve"], telemetry=True)).telemetry,
+        "engine": jax_engine()}
+
+
+refs = _port_session.reference_fixture(__name__)

@@ -13,6 +13,9 @@ JAX package's (``repro.experiments``) and against per-instance runs.
   per-trial loop of the unbatched one bit for bit, at D = 1 (the sweeps'
   shape) and D > 1; a joint sweep's eta = 0 column equals the MP sweep
   bit for bit.
+
+The JAX side of every comparison runs in a subprocess of its own beside
+the tests before this module (``jax_references``; tests/_port_session.py).
 """
 
 import dataclasses
@@ -28,6 +31,7 @@ from repro.simulate import scheduler as jsched  # noqa: E402
 from repro.simulate import spec as jspec  # noqa: E402
 from repro.simulate import topology as jtopo  # noqa: E402
 
+import _port_session  # noqa: E402
 from _jax_caches import fresh_jax_caches  # noqa: E402,F401
 from _port_session import port_background_jobs  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
@@ -45,10 +49,25 @@ SEEDS, ALPHAS, N = [0, 1, 2], [0.9, 0.99], 24
 
 
 @pytest.fixture(scope="module")
-def mp_trials():
-    kw = dict(seeds=SEEDS, alphas=ALPHAS, n=N)
-    return (jexp.mean_estimation_trials(**kw),
-            texp.mean_estimation_trials(**kw))
+def mp_trials(refs):
+    return (refs["mp_trials"],
+            texp.mean_estimation_trials(seeds=SEEDS, alphas=ALPHAS, n=N))
+
+
+def numpy_fields(rec):
+    """A JAX package record (a dataclass or a named tuple) with its array
+    fields as numpy arrays."""
+    if dataclasses.is_dataclass(rec):
+        names = [f.name for f in dataclasses.fields(rec)]
+        replace = lambda **kw: dataclasses.replace(rec, **kw)  # noqa: E731
+    else:
+        names, replace = rec._fields, rec._replace
+    return replace(**{name: np.asarray(getattr(rec, name)) for name in names
+                      if hasattr(getattr(rec, name), "shape")})
+
+
+def result_fields(res, names):
+    return {f: np.asarray(getattr(res, f)) for f in names}
 
 
 def assert_trials_equal(got, want, rounded=("theta_sol",)):
@@ -71,25 +90,31 @@ def close(got, want, atol=1e-4, rtol=1e-4):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("noises", [(0.0,), (0.0, 0.2)])
-def test_mp_trials_match_jax(noises):
-    kw = dict(seeds=[0, 1], alphas=[0.9], graph_noises=noises, n=20)
-    got = texp.mean_estimation_trials(**kw)
-    assert_trials_equal(got, jexp.mean_estimation_trials(**kw))
+NOISES = [(0.0,), (0.0, 0.2)]
+ADMM_TRIALS = dict(seeds=[0, 1], mus=[0.05, 0.2], rhos=[1.0], n=12)
+JOINT_TRIALS = dict(seeds=[0, 1], alphas=[0.9], etas=[0.0, 0.3],
+                    lams=[1.0, 0.5], n=16)
+
+
+def mp_trials_kw(noises):
+    return dict(seeds=[0, 1], alphas=[0.9], graph_noises=noises, n=20)
+
+
+@pytest.mark.parametrize("noises", NOISES)
+def test_mp_trials_match_jax(refs, noises):
+    got = texp.mean_estimation_trials(**mp_trials_kw(noises))
+    assert_trials_equal(got, refs["trials"][noises])
     assert got.n_trials == 2 * len(noises)
     if len(noises) == 2:
         assert np.abs(got.W[1] - got.W[0]).max() > 0
         np.testing.assert_allclose(got.W[1], got.W[1].T)
 
 
-def test_admm_and_joint_trials_match_jax():
-    kw = dict(seeds=[0, 1], mus=[0.05, 0.2], rhos=[1.0], n=12)
-    assert_trials_equal(texp.admm_mean_estimation_trials(**kw),
-                        jexp.admm_mean_estimation_trials(**kw))
-    kw = dict(seeds=[0, 1], alphas=[0.9], etas=[0.0, 0.3], lams=[1.0, 0.5],
-              n=16)
-    assert_trials_equal(texp.joint_mean_estimation_trials(**kw),
-                        jexp.joint_mean_estimation_trials(**kw))
+def test_admm_and_joint_trials_match_jax(refs):
+    assert_trials_equal(texp.admm_mean_estimation_trials(**ADMM_TRIALS),
+                        refs["admm_trials"])
+    assert_trials_equal(texp.joint_mean_estimation_trials(**JOINT_TRIALS),
+                        refs["joint_trials"])
 
 
 # ---------------------------------------------------------------------------
@@ -142,16 +167,20 @@ def test_graph_mix_wrapper_checks_the_trial_axis():
 # ---------------------------------------------------------------------------
 
 
-def test_mp_sweep_matches_jax_and_per_instance(mp_trials):
-    jt, tt = mp_trials
-    sweeps = 120
-    want = jexp.run_mp_sweep(jt, sweeps=sweeps)
+MP_SWEEPS = 120
+SWEEP_FIELDS = ("theta_final", "err_hist", "objective_hist")
+
+
+def test_mp_sweep_matches_jax_and_per_instance(refs, mp_trials):
+    _, tt = mp_trials
+    sweeps = MP_SWEEPS
+    want = refs["mp_sweep"]
     got = texp.run_mp_sweep(tt, sweeps=sweeps, device=CPU)
     assert got.objective_hist.shape == (tt.n_trials, sweeps)
     assert got.err_hist.shape == (tt.n_trials, sweeps)
-    close(got.theta_final, want.theta_final)
-    close(got.err_hist, want.err_hist)
-    close(got.objective_hist, want.objective_hist)
+    close(got.theta_final, want["theta_final"])
+    close(got.err_hist, want["err_hist"])
+    close(got.objective_hist, want["objective_hist"])
     # each trial is the port's synchronous run on its own instance
     i = 0
     for seed in SEEDS:
@@ -174,13 +203,12 @@ def test_mp_sweep_converges_to_closed_form():
         close(res.theta_final[i], star.numpy(), atol=1e-3, rtol=0)
 
 
-def test_closed_form_comparison_matches_jax(mp_trials):
-    jt, tt = mp_trials
+def test_closed_form_comparison_matches_jax(refs, mp_trials):
+    _, tt = mp_trials
     got = texp.closed_form_comparison(tt, device=CPU)
-    want = jexp.closed_form_comparison(jt)
-    for g, w in zip(got, want):
+    for g, w in zip(got, refs["closed_form"]):
         assert g.shape == (tt.n_trials,)
-        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-3)
+        np.testing.assert_allclose(g, w, rtol=1e-3)
     e_c, e_nc, win = got
     i = 0
     for seed in SEEDS:
@@ -200,16 +228,18 @@ def test_closed_form_comparison_matches_jax(mp_trials):
     assert win.mean() >= 0.5
 
 
-def test_joint_sweep_matches_jax_and_anchors_on_mp():
-    kw = dict(seeds=[0, 1], alphas=[0.9], etas=[0.0, 0.3], lams=[1.0],
-              n=N)
-    jt = jexp.joint_mean_estimation_trials(**kw)
-    tt = texp.joint_mean_estimation_trials(**kw)
-    want = jexp.run_joint_sweep(jt, sweeps=60, graph_every=5)
+JOINT_SWEEP = dict(seeds=[0, 1], alphas=[0.9], etas=[0.0, 0.3],
+                   lams=[1.0], n=N)
+JOINT_FIELDS = ("objective_hist", "err_hist", "intra_mass_hist",
+                "theta_final", "P_final")
+
+
+def test_joint_sweep_matches_jax_and_anchors_on_mp(refs):
+    tt = texp.joint_mean_estimation_trials(**JOINT_SWEEP)
+    want = refs["joint_sweep"]
     got = texp.run_joint_sweep(tt, sweeps=60, graph_every=5, device=CPU)
-    for f in ("objective_hist", "err_hist", "intra_mass_hist",
-              "theta_final", "P_final"):
-        close(getattr(got, f), getattr(want, f))
+    for f in JOINT_FIELDS:
+        close(getattr(got, f), want[f])
     # the eta = 0 column is the MP sweep on the same instance, bit for bit
     mp = texp.run_mp_sweep(texp.mean_estimation_trials(
         seeds=[0, 1], alphas=[0.9], n=N), sweeps=60, device=CPU)
@@ -223,17 +253,21 @@ def test_joint_sweep_matches_jax_and_anchors_on_mp():
     assert (learned[~tt.adj[~frozen]] == 0).all()
 
 
-def test_admm_sweep_matches_jax_and_sync_admm():
-    seeds, mus, rhos, n, iters = [0, 1], [0.05, 0.2], [1.0, 0.5], 12, 20
-    kw = dict(seeds=seeds, mus=mus, rhos=rhos, n=n)
-    tt = texp.admm_mean_estimation_trials(**kw)
-    want = jexp.run_admm_sweep(jexp.admm_mean_estimation_trials(**kw),
-                               iters=iters)
+ADMM_SWEEP = dict(seeds=[0, 1], mus=[0.05, 0.2], rhos=[1.0, 0.5], n=12)
+ADMM_ITERS = 20
+
+
+def test_admm_sweep_matches_jax_and_sync_admm(refs):
+    seeds, mus, rhos, n = (ADMM_SWEEP[k] for k in ("seeds", "mus", "rhos",
+                                                     "n"))
+    iters = ADMM_ITERS
+    tt = texp.admm_mean_estimation_trials(**ADMM_SWEEP)
+    want = refs["admm_sweep"]
     got = texp.run_admm_sweep(tt, iters=iters, device=CPU)
     assert got.objective_hist.shape == (tt.n_trials, iters)
-    close(got.theta_final, want.theta_final)
-    close(got.err_hist, want.err_hist)
-    np.testing.assert_allclose(got.objective_hist, want.objective_hist,
+    close(got.theta_final, want["theta_final"])
+    close(got.err_hist, want["err_hist"])
+    np.testing.assert_allclose(got.objective_hist, want["objective_hist"],
                                rtol=1e-5)
     i = 0
     for seed in seeds:
@@ -247,14 +281,15 @@ def test_admm_sweep_matches_jax_and_sync_admm():
                 i += 1
 
 
-def test_scenario_sweep_over_inexact_primal_axis_matches_jax():
-    """A ``primal=`` axis over inner-step budgets on JAX's stream: each
-    cell within 1e-5 of its JAX twin; the b_steps=None column is the
-    exact-engine anchor, b_steps=2 is really inexact."""
+SCENARIO = dict(n=12, rounds=10, batch=4)
+
+
+def jax_scenario_sweep():
+    """The JAX side of the inexact-primal-axis sweep: its data, solitary
+    models and event stream, and each cell's theta_hist."""
     rng = np.random.default_rng(0)
-    n, rounds, batch = 12, 10, 4
+    n, rounds, batch = (SCENARIO[k] for k in ("n", "rounds", "batch"))
     jt = jtopo.random_geometric_topology(n, k=3, seed=0)
-    tt = ttopo.random_geometric_topology(n, k=3, seed=0)
     xs = [rng.standard_normal((4, 2)) for _ in range(n)]
     jdata = jloss.pad_datasets(xs, [np.zeros(4)] * n)
     sol = np.asarray(jdata.x.mean(axis=1), np.float32)
@@ -265,19 +300,33 @@ def test_scenario_sweep_over_inexact_primal_axis_matches_jax():
         algo="cl", topology=jt, data=jdata, mu=0.4, rho=1.0,
         conditions=jsched.NetworkConditions(), rounds=rounds, batch=batch,
         seed=1, record_every=5, theta_sol=sol, stream=js)
-    base = ScenarioSpec(
-        algo="cl", topology=tt, data=convert.data_from_arrays(jdata, CPU),
-        mu=0.4, rho=1.0, conditions=NetworkConditions(), rounds=rounds,
-        batch=batch, seed=1, record_every=5, theta_sol=sol,
-        stream=convert.stream_from_arrays(js, CPU), device=CPU)
-    axis = texp.inexact_primal_axis([2, None], loss="quadratic", lr=0.2)
     want = jexp.run_scenario_sweep(jbase, primal=jexp.inexact_primal_axis(
         [2, None], loss="quadratic", lr=0.2))
+    return {"data": numpy_fields(jdata), "sol": sol,
+            "stream": numpy_fields(js),
+            "theta_hist": [np.asarray(w.theta_hist) for w in want.traces]}
+
+
+def test_scenario_sweep_over_inexact_primal_axis_matches_jax(refs):
+    """A ``primal=`` axis over inner-step budgets on JAX's stream: each
+    cell within 1e-5 of its JAX twin; the b_steps=None column is the
+    exact-engine anchor, b_steps=2 is really inexact."""
+    n, rounds, batch = (SCENARIO[k] for k in ("n", "rounds", "batch"))
+    tt = ttopo.random_geometric_topology(n, k=3, seed=0)
+    want = refs["scenario"]
+    sol = want["sol"]
+    base = ScenarioSpec(
+        algo="cl", topology=tt,
+        data=convert.data_from_arrays(want["data"], CPU),
+        mu=0.4, rho=1.0, conditions=NetworkConditions(), rounds=rounds,
+        batch=batch, seed=1, record_every=5, theta_sol=sol,
+        stream=convert.stream_from_arrays(want["stream"], CPU), device=CPU)
+    axis = texp.inexact_primal_axis([2, None], loss="quadratic", lr=0.2)
     got = texp.run_scenario_sweep(base, primal=axis)
     assert got.n_trials == 2 and got.cells[0]["primal"].b_steps == 2
     assert [s.primal for s in got.specs] == list(axis)
-    for g, w in zip(got.traces, want.traces):
-        close(g.theta_hist.numpy(), w.theta_hist, atol=1e-5, rtol=0)
+    for g, w in zip(got.traces, want["theta_hist"]):
+        close(g.theta_hist.numpy(), w, atol=1e-5, rtol=0)
     exact = run_scenario(base)
     err_b2 = (got.traces[0].theta_hist - exact.theta_hist).abs().max()
     err_inf = (got.traces[1].theta_hist - exact.theta_hist).abs().max()
@@ -300,3 +349,35 @@ def test_sweep_runners_default_to_cuda(monkeypatch):
                  lambda: texp.run_admm_sweep(at, iters=2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the JAX side, in a subprocess of its own
+# ---------------------------------------------------------------------------
+
+
+def jax_references():
+    """JAX's trials and sweeps for every comparison of this module."""
+    jt = jexp.mean_estimation_trials(seeds=SEEDS, alphas=ALPHAS, n=N)
+    return {
+        "mp_trials": numpy_fields(jt),
+        "trials": {noises: numpy_fields(jexp.mean_estimation_trials(
+            **mp_trials_kw(noises))) for noises in NOISES},
+        "admm_trials": numpy_fields(
+            jexp.admm_mean_estimation_trials(**ADMM_TRIALS)),
+        "joint_trials": numpy_fields(
+            jexp.joint_mean_estimation_trials(**JOINT_TRIALS)),
+        "mp_sweep": result_fields(jexp.run_mp_sweep(jt, sweeps=MP_SWEEPS),
+                                  SWEEP_FIELDS),
+        "closed_form": [np.asarray(w)
+                        for w in jexp.closed_form_comparison(jt)],
+        "joint_sweep": result_fields(jexp.run_joint_sweep(
+            jexp.joint_mean_estimation_trials(**JOINT_SWEEP), sweeps=60,
+            graph_every=5), JOINT_FIELDS),
+        "admm_sweep": result_fields(jexp.run_admm_sweep(
+            jexp.admm_mean_estimation_trials(**ADMM_SWEEP),
+            iters=ADMM_ITERS), SWEEP_FIELDS),
+        "scenario": jax_scenario_sweep()}
+
+
+refs = _port_session.reference_fixture(__name__)

@@ -103,12 +103,11 @@ def problem_arrays():
 
 
 @pytest.fixture(scope="module")
-def problem():
-    """:func:`problem_arrays`, and JAX's faulty stream with the port's
-    copy of it."""
-    pb = problem_arrays()
-    js = jax_stream(pb["jt"], FAULTY)
-    return dict(pb, js=js, ts=convert.stream_from_arrays(js, CPU))
+def problem(refs):
+    """:func:`problem_arrays`, and the port's copy of JAX's faulty stream
+    (``jax_references``)."""
+    return dict(problem_arrays(),
+                ts=convert.stream_from_arrays(refs["stream"], CPU))
 
 
 FRAME_FIELDS = ("rounds",) + COUNTERS + ("staleness", "objective",
@@ -179,10 +178,15 @@ def jax_references():
     """The JAX side of the frame tests (run in a subprocess of its own
     beside the tests before this module: tests/_port_session.py)."""
     pb = problem_arrays()
+    js = jax_stream(pb["jt"], FAULTY)
     return {"mp": {body: jax_mp_frames(pb, body)
                    for body in ("per-op", "fused")},
             "cl_exact": jax_cl_exact_frames(pb),
-            "cl_inexact": jax_cl_inexact(), "joint": jax_joint()}
+            "cl_inexact": jax_cl_inexact(), "joint": jax_joint(),
+            "stream": js._replace(**{f: np.asarray(getattr(js, f))
+                                     for f in js._fields}),
+            "reductions": jax_stream_reductions(js),
+            "row_local": jax_row_local()}
 
 
 refs = _port_session.reference_fixture(__name__)
@@ -203,7 +207,7 @@ def assert_invariants(tr):
 # ---------------------------------------------------------------------------
 
 
-def test_row_local_metrics_match_jax():
+def row_local_inputs():
     rng = np.random.default_rng(1)
     R, k, p = 33, 5, 3
     theta, sol, sx = (rng.standard_normal((R, p)).astype(np.float32)
@@ -213,46 +217,70 @@ def test_row_local_metrics_match_jax():
     live = rng.uniform(size=(R, k)) < 0.7
     c, D, m, sxx, lv = (rng.uniform(0.1, 3.0, R).astype(np.float32)
                         for _ in range(5))
-    t, j = torch.as_tensor, jnp.asarray
-    pairs = [
-        (tmet.mp_local_objective(t(theta), t(K), t(w), t(c), t(sol), 0.9),
-         jmet.mp_local_objective(j(theta), j(K), j(w), j(c), j(sol), 0.9)),
-        (tmet.cl_local_objective(t(theta), t(K), t(w), t(live), t(D), t(m),
-                                 t(sx), t(sxx), 0.3),
-         jmet.cl_local_objective(j(theta), j(K), j(w), j(live), j(D), j(m),
-                                 j(sx), j(sxx), 0.3)),
-        (tmet.cl_local_objective_from_loss(t(theta), t(K), t(w), t(live),
-                                           t(D), t(lv), 0.3),
-         jmet.cl_local_objective_from_loss(j(theta), j(K), j(w), j(live),
-                                           j(D), j(lv), 0.3))]
-    for got, want in pairs:
-        want = np.asarray(want)
-        assert got.dtype == torch.float32
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
     stale = rng.integers(0, 9, R).astype(np.int32)
     rows = rng.integers(0, R, 40).astype(np.int32)
     got = rng.uniform(size=40) < 0.5
-    np.testing.assert_array_equal(
-        tmet.staleness_step(t(stale), t(got), t(rows), R).numpy(),
-        np.asarray(jmet.staleness_step(j(stale), j(got), j(rows), R)))
     flags = [rng.uniform(size=50) < q for q in (0.7, 0.7, 0.9, 0.3, 0.3)]
-    assert [int(v) for v in tmet.batch_drop_causes(*map(t, flags))] == \
-        [int(v) for v in jmet.batch_drop_causes(*map(j, flags))]
+    return (R, theta, sol, sx, K, w, live, c, D, m, sxx, lv, stale, rows,
+            got, flags)
 
 
-def test_stream_reductions_match_jax(problem):
-    js, ts = problem["js"], problem["ts"]
+def row_local_metrics(mod, arr):
+    """``mod``'s (the port's or JAX's metrics module) three local
+    objectives, staleness step and drop causes on ``row_local_inputs``,
+    its arrays made by ``arr``."""
+    (R, theta, sol, sx, K, w, live, c, D, m, sxx, lv, stale, rows, got,
+     flags) = row_local_inputs()
+    a = arr
+    return ([mod.mp_local_objective(a(theta), a(K), a(w), a(c), a(sol), 0.9),
+             mod.cl_local_objective(a(theta), a(K), a(w), a(live), a(D),
+                                    a(m), a(sx), a(sxx), 0.3),
+             mod.cl_local_objective_from_loss(a(theta), a(K), a(w), a(live),
+                                              a(D), a(lv), 0.3)],
+            mod.staleness_step(a(stale), a(got), a(rows), R),
+            [int(v) for v in mod.batch_drop_causes(*map(a, flags))])
+
+
+def jax_row_local():
+    objs, step, causes = row_local_metrics(jmet, jnp.asarray)
+    return [np.asarray(o) for o in objs], np.asarray(step), causes
+
+
+def test_row_local_metrics_match_jax(refs):
+    objs, step, causes = row_local_metrics(tmet, torch.as_tensor)
+    want_objs, want_step, want_causes = refs["row_local"]
+    for got, want in zip(objs, want_objs):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(step.numpy(), want_step)
+    assert causes == want_causes
+
+
+STREAM_CHUNKS = ("stream_dirty_chunks", "stream_staleness_chunks")
+
+
+def jax_stream_reductions(js):
     n_rec = ROUNDS // RECORD
-    assert tmet.stream_drop_causes(ts) == jmet.stream_drop_causes(js)
+    return {"causes": jmet.stream_drop_causes(js),
+            "totals": {k: np.asarray(v) for k, v in
+                       jmet.stream_chunk_totals(js, n_rec, RECORD).items()},
+            **{fn: np.asarray(getattr(jmet, fn)(js, N, n_rec, RECORD))
+               for fn in STREAM_CHUNKS}}
+
+
+def test_stream_reductions_match_jax(refs, problem):
+    ts = problem["ts"]
+    want = refs["reductions"]
+    n_rec = ROUNDS // RECORD
+    assert tmet.stream_drop_causes(ts) == want["causes"]
     got = tmet.stream_chunk_totals(ts, n_rec, RECORD)
-    want = jmet.stream_chunk_totals(js, n_rec, RECORD)
-    assert set(got) == set(want)
-    for key in want:
-        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert set(got) == set(want["totals"])
+    for key, w in want["totals"].items():
+        np.testing.assert_array_equal(got[key], w, err_msg=key)
         assert got[key].dtype == np.int64
-    for fn in ("stream_dirty_chunks", "stream_staleness_chunks"):
+    for fn in STREAM_CHUNKS:
         g = getattr(tmet, fn)(ts, N, n_rec, RECORD)
-        w = getattr(jmet, fn)(js, N, n_rec, RECORD)
+        w = want[fn]
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w, err_msg=fn)
 

@@ -136,17 +136,28 @@ def test_lm_batches_match_token_for_token():
 # ---------------------------------------------------------------------------
 
 
-def test_cross_entropy_ignores_negative_labels():
+def ce_inputs():
     rng = np.random.default_rng(0)
     logits = rng.standard_normal((2, 5, 7)).astype(np.float32)
     labels = rng.integers(-1, 7, (2, 5)).astype(np.int32)
     mask = rng.random((2, 5)) < 0.7
-    for m in (None, mask):
+    return logits, labels, mask
+
+
+def jax_cross_entropy():
+    """JAX's loss on ``ce_inputs`` without and with the mask."""
+    logits, labels, mask = ce_inputs()
+    return [float(jce(jnp.asarray(logits), jnp.asarray(labels),
+                      None if m is None else jnp.asarray(m)))
+            for m in (None, mask)]
+
+
+def test_cross_entropy_ignores_negative_labels(refs):
+    logits, labels, mask = ce_inputs()
+    for m, want in zip((None, mask), refs["cross_entropy"]):
         got = cross_entropy(torch.as_tensor(logits), torch.as_tensor(labels),
                             None if m is None else torch.as_tensor(m))
-        want = jce(jnp.asarray(logits), jnp.asarray(labels),
-                   None if m is None else jnp.asarray(m))
-        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+        np.testing.assert_allclose(float(got), want, rtol=1e-6)
     none = torch.full((2, 5), -1)
     assert float(cross_entropy(torch.as_tensor(logits), none)) == 0.0
 
@@ -185,9 +196,9 @@ def test_model_loss_matches_jax(refs, compute, remat, rtol):
     assert float(gm["aux"]) == 0.0
 
 
-def test_param_tree_layout_and_init_rule():
-    jm, tm = models()
-    jp = jm.init(jax.random.PRNGKey(0))
+def test_param_tree_layout_and_init_rule(refs):
+    _, tm = models()
+    jp = refs["init"]                     # JAX's PRNGKey(0) parameters
     tp = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
     jpaths = ["/".join(str(getattr(k, "key", getattr(k, "idx", k)))
                        for k in path) for path, _ in
@@ -230,31 +241,43 @@ def stacked_tree(A, seed):
             "g": [rng.standard_normal((A, 3, 4)).astype(np.float32)]}
 
 
-@pytest.mark.parametrize("mode,mix_dtype", [("none", "float32"),
-                                            ("consensus", "float32"),
-                                            ("mp", "float32"),
-                                            ("mp", "bfloat16"),
-                                            ("cl", "float32"),
-                                            ("consensus", "bfloat16")])
-def test_make_coupling_matches_jax(mode, mix_dtype):
-    A = 7
-    jg, tg = jrgg(A, k=3, seed=5), random_geometric_graph(A, k=3, seed=5)
+COUPLINGS = [("none", "float32"), ("consensus", "float32"), ("mp", "float32"),
+             ("mp", "bfloat16"), ("cl", "float32"), ("consensus", "bfloat16")]
+COUPLING_A, COUPLING_KW = 7, dict(alpha=0.9, mu=0.03, every=3)
+
+
+def jax_coupling(mode, mix_dtype):
+    """JAX's coupling on ``stacked_tree``s at steps 0, 1 and 3 (each
+    step's leaves), and its state's send_to."""
+    A = COUPLING_A
     conf = np.linspace(0.2, 1.0, A)
-    kw = dict(mode=mode, alpha=0.9, mu=0.03, every=3)
-    japply = jmake_coupling(JCC(**kw, mix_dtype=getattr(jnp, mix_dtype)),
-                            jmake_state(jg, conf, 0.9))
-    state = make_state(tg, conf, 0.9, device="cpu")
-    assert state.send_to == jmake_state(jg, conf, 0.9).send_to
-    tapply = make_coupling(CouplingConfig(
-        **kw, mix_dtype=getattr(torch, mix_dtype)), state)
+    jstate = jmake_state(jrgg(A, k=3, seed=5), conf, 0.9)
+    japply = jmake_coupling(JCC(mode=mode, **COUPLING_KW,
+                                mix_dtype=getattr(jnp, mix_dtype)), jstate)
     params, sol = stacked_tree(A, 0), stacked_tree(A, 1)
-    for step in (0, 1, 3):
-        want = japply(jax.tree_util.tree_map(jnp.asarray, params),
-                      jax.tree_util.tree_map(jnp.asarray, sol),
-                      jnp.asarray(step, jnp.int32))
+    steps = [[np.asarray(b) for b in jax.tree_util.tree_leaves(japply(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        jax.tree_util.tree_map(jnp.asarray, sol),
+        jnp.asarray(step, jnp.int32)))] for step in (0, 1, 3)]
+    return {"send_to": jstate.send_to, "steps": steps}
+
+
+@pytest.mark.parametrize("mode,mix_dtype", COUPLINGS)
+def test_make_coupling_matches_jax(refs, mode, mix_dtype):
+    A = COUPLING_A
+    tg = random_geometric_graph(A, k=3, seed=5)
+    conf = np.linspace(0.2, 1.0, A)
+    want = refs["coupling"][mode, mix_dtype]
+    state = make_state(tg, conf, 0.9, device="cpu")
+    assert state.send_to == want["send_to"]
+    tapply = make_coupling(CouplingConfig(
+        mode=mode, **COUPLING_KW, mix_dtype=getattr(torch, mix_dtype)),
+        state)
+    params, sol = stacked_tree(A, 0), stacked_tree(A, 1)
+    for step, want_step in zip((0, 1, 3), want["steps"]):
         got = tapply(carry(params), carry(sol), torch.tensor(step))
-        for a, b in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
-            np.testing.assert_allclose(as_np(a), np.asarray(b), atol=1e-5)
+        for a, b in zip(tree_leaves(got), want_step):
+            np.testing.assert_allclose(as_np(a), b, atol=1e-5)
         if step % 3:
             for a, b in zip(tree_leaves(got), tree_leaves(params)):
                 np.testing.assert_array_equal(as_np(a), b)
@@ -387,11 +410,15 @@ def jax_steps(mode, moment):
 
 
 def jax_references():
-    """The JAX side of the loss and train-step tests (run in a subprocess
-    of its own beside the tests before this module:
-    tests/_port_session.py)."""
+    """The JAX side of the loss, parameter-tree, coupling, train-step and
+    checkpoint tests (run in a subprocess of its own beside the tests
+    before this module: tests/_port_session.py)."""
     return {"loss": {(c, r): jax_loss(c, r) for c, r, _ in LOSS_CASES},
-            "steps": {case: jax_steps(*case) for case in STEP_CASES}}
+            "steps": {case: jax_steps(*case) for case in STEP_CASES},
+            "cross_entropy": jax_cross_entropy(),
+            "init": as_numpy(models()[0].init(jax.random.PRNGKey(0))),
+            "coupling": {case: jax_coupling(*case) for case in COUPLINGS},
+            "checkpoint": jax_checkpoint_state()}
 
 
 refs = _port_session.reference_fixture(__name__)
@@ -449,7 +476,9 @@ def test_consensus_leaves_agents_equal_and_loop_logs():
 # ---------------------------------------------------------------------------
 
 
-def test_checkpoints_cross_load_both_ways():
+def jax_checkpoint_state():
+    """JAX's two-agent train state from ``PRNGKey(0)``, its moments
+    redrawn in bf16 and its step at 4 (numpy leaves)."""
     jm, _ = models()
     js = jinit(jm, JTC(n_agents=2, steps=1), jax.random.PRNGKey(0),
                perturb=0.1)
@@ -460,6 +489,11 @@ def test_checkpoints_cross_load_both_ways():
     js = dataclasses.replace(js, opt_state=dict(
         js.opt_state, **moments, count=jnp.asarray(4, jnp.int32)),
         step=jnp.asarray(4, jnp.int32))
+    return as_numpy(js)
+
+
+def test_checkpoints_cross_load_both_ways(refs):
+    js = jax.tree_util.tree_map(jnp.asarray, refs["checkpoint"])
     ts = train_state_from_arrays(js, device="cpu")
     assert ts.opt_state["m"]["embed"].dtype == torch.bfloat16
     with tempfile.TemporaryDirectory() as d:

@@ -5,7 +5,7 @@ against its plain version with the kernel's back-to-back ms, its device ms
 and host µs a call read apart, the plain version's and SDPA's ms).
 
     python3 tools/probe_flash_attention.py [--parent DIR] [--variants]
-                                           [--scaling]
+                                           [--scaling] [--float32]
 
 DIR is another checkout of the repository (``git archive`` of the parent
 commit unpacked under ``build/``, say).  Needs an H100 and nvcc
@@ -34,6 +34,10 @@ design and not held):
 * ``unfused_softmax``: a weight as 2^(s * scale - m), rounded after the
   multiply, in place of 2^fma(s, scale, -m);
 * ``exp2f``: the library's ``exp2f`` in place of one ``ex2.approx.ftz``.
+
+With ``--float32``, only the float32 cases of ``FA_CASES`` are read (the
+3xTF32 kernel at head dims 64 and 128, the FFMA kernel at 256), with or
+without ``--parent``.
 
 With ``--scaling``, each tree also times the bf16 hd-256 and hd-64 cases
 at batch 1, 2, 4 and 8 (device ms), so that the cost of a launch's start
@@ -134,6 +138,13 @@ def build(nvcc, name, text, include):
     return str(lib), keep
 
 
+def cases(cs, float32):
+    """``(index, case)`` of ``FA_CASES``: the float32 ones with
+    ``float32``, else all."""
+    return [(i, case) for i, case in enumerate(cs.FA_CASES)
+            if not float32 or case[6] == "float32"]
+
+
 def child(args) -> int:
     """One reading with ``args.src`` on the path and ``args.lib`` as the
     kernel library."""
@@ -173,7 +184,7 @@ def child(args) -> int:
                                   **fa.flash_attention_resources(hd, dtype))),
                   flush=True)
     bad = 0
-    for i, case in enumerate(cs.FA_CASES):
+    for i, case in cases(cs, args.float32):
         kr = cs.check_flash(torch, fa, case, cs.SEED + i)
         bad += not kr["ok"]
         print(json.dumps(dict(tag, **kr)), flush=True)
@@ -191,6 +202,7 @@ def main() -> int:
     ap.add_argument("--parent", help="another checkout to hold against")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--scaling", action="store_true")
+    ap.add_argument("--float32", action="store_true")
     ap.add_argument("--timing-only", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
@@ -239,6 +251,7 @@ def main() -> int:
                "--run", str(k), "--src", str(trees[name] / "src"),
                "--lib", built[name][0]]
         cmd += ["--keep"] * (k == order.index(name) and len(trees) > 1)
+        cmd += ["--float32"] * args.float32
         failed |= subprocess.run(cmd).returncode
     if args.scaling:
         for name in trees:
@@ -258,7 +271,7 @@ def main() -> int:
              name, "--src", str(ROOT / "src"), "--lib",
              built[name][0]]).returncode
     if args.parent and not failed:
-        for i, case in enumerate(cs.FA_CASES):
+        for i, case in cases(cs, args.float32):
             a, b = (torch.load(OUT / f"{name}-{i}.pt") for name in trees)
             print(json.dumps(dict(
                 case=list(case), change_vs_parent_max_abs_diff=(
