@@ -126,7 +126,8 @@ from the seed on the card), after the CL state is freed:
     window 2048), at each other family's served shape (OLMoE-1B-7B S 2048,
     H = K = 16; Qwen2-VL-7B S 4096, H 28, K 4; MusicGen-medium S 1024,
     H = K = 24, hd 64; Phi-3.5-MoE's is Llama's), on two small float32
-    cases (hd 64 and 256) and in float32 at Llama-3-8B's prefill shape;
+    cases (hd 64 and 256) and in float32 at Llama-3-8B's and
+    RecurrentGemma-2B's prefill shapes;
     kernel, plain, SDPA (kv heads repeated, a boolean band mask for a
     window; for float32 the profiler's name of SDPA's kernel) and bound
     ms (the band's operations), and the kernel's device ms and host µs a
@@ -135,9 +136,9 @@ from the seed on the card), after the CL state is freed:
     at hd 256 and 64), which rounds the softmax weights to bf16 per kv
     tile (128 keys at hd 128, 80 at hd 256, 64 at hd 64; the plain
     version keeps them in float32): 1e-2 abs and rel; float32 runs
-    3xTF32 on wgmma at hd 64 and 128 (``flash_fwd_3xtf32``; its bound is
-    three TF32 passes, the FFMA floor beside it) and the FFMA kernel at
-    hd 256: 1e-5;
+    3xTF32 on wgmma (``flash_fwd_3xtf32`` at hd 64 and 128,
+    ``flash_fwd_3xtf32_pieces`` at hd 256; the bound is three TF32
+    passes, the FFMA floor beside it): 1e-5;
 6b. ``Engine(ServeConfig(batch_size=4, cache_len=8192, max_new_tokens=32))``
     serving six prompts (512 to 4096 tokens) through four slots with
     ``attn_impl="flash"``: every request finishes with 32 tokens in the
@@ -150,11 +151,15 @@ from the seed on the card), after the CL state is freed:
     ``cuda`` and ``reference`` implementations with the same weights:
     last-position logits within ``LM_LOGIT_RTOL`` (relative L2), and the
     share of 16 greedy tokens on which the two agree;
-6d. a float32 prefill: Llama-3-8B at full width, depth cut to
-    ``F32_LAYERS``, ``compute_dtype=float32``, one ``F32_PROMPT``-token
-    prompt through the ``attention`` op's ``cuda`` implementation (the
-    3xTF32 kernel, once a layer) and its ``reference`` one: last-position
-    logits within ``F32_LOGIT_RTOL`` (relative L2).
+6d. a float32 prefill: Llama-3-8B at full width, depth cut to 2 layers,
+    ``compute_dtype=float32``, one 4096-token prompt through the
+    ``attention`` op's ``cuda`` implementation (the hd-128 3xTF32 kernel,
+    once a layer) and its ``reference`` one: last-position logits within
+    ``F32_LOGIT_RTOL`` (relative L2);
+6e. the same at RecurrentGemma-2B's width (hd 256, MQA, window 2048),
+    depth cut to 6 layers (its pattern's first six: rec, rec, attn, rec,
+    rec, attn), one 4096-token prompt: the hd-256 3xTF32 kernel twice
+    (``F32_PREFILLS``).
 
 Then personalized LM training with graph coupling, after the serving
 model is freed:
@@ -385,11 +390,14 @@ PROFILE_TICKS = 5
 # about 2^-8 * sqrt(32) = 2 % of the logits' norm.  A wrong kernel (a
 # wrong head, mask or tile) moves them by O(1).  So: relative L2 <= 0.1.
 LM_LOGIT_RTOL = 0.1
-# 6d: a float32 prefill through the 3xTF32 kernel (hd 128): Llama-3-8B's
-# width at 2 layers (float32 weights, 6 GB); the kernel is within 1e-5 of
-# the plain attention, so two float32 layers keep the logits far inside
+# 6d, 6e: float32 prefills through the 3xTF32 kernels, (phase, model,
+# layers, prompt): Llama-3-8B's width at 2 layers (hd 128; float32 weights,
+# 6 GB) and RecurrentGemma-2B's at 6 (rec, rec, attn, rec, rec, attn; hd
+# 256, window 2048; 4.6 GB); the kernels are within 1e-5 of the plain
+# attention, so two float32 attention layers keep the logits far inside
 # 1e-4 (relative L2)
-F32_LAYERS, F32_PROMPT, F32_LOGIT_RTOL = 2, 4096, 1e-4
+F32_PREFILLS = (("6d", LM_ARCH, 2, 4096), ("6e", "recurrentgemma-2b", 6, 4096))
+F32_LOGIT_RTOL = 1e-4
 # 4k: the personalization service's requests on the fused MP run
 SERVE_RATE, SERVE_BATCH = 5000, 65536      # requests a round, batch width
 # 7a: graph_mix's agent-axis form at the coupling's leaves: (n, D, dtype)
@@ -466,7 +474,8 @@ FA_CASES = ((1, 4096, 32, 8, 128, None, "bfloat16"),    # Llama-3-8B prefill
             (1, 2048, 16, 16, 128, None, "bfloat16"),   # OLMoE-1B-7B
             (1, 4096, 28, 4, 128, None, "bfloat16"),    # Qwen2-VL-7B
             (1, 1024, 24, 24, 64, None, "bfloat16"),    # MusicGen-medium
-            (1, 4096, 32, 8, 128, None, "float32"))     # Llama-3-8B, f32
+            (1, 4096, 32, 8, 128, None, "float32"),     # Llama-3-8B, f32
+            (1, 4096, 10, 1, 256, 2048, "float32"))     # RecurrentGemma, f32
 
 
 def log(*a):
@@ -1109,9 +1118,10 @@ def check_flash(torch, fa, case, seed):
     128, 80 at hd 256, 64 at hd 64) before P @ V (as the JAX oracle rounds
     them); the plain version keeps them in float32, so the two differ by
     about a bf16 ulp of the output: within 1e-2 abs and rel.  float32
-    runs 3xTF32 on wgmma at hd 64 and 128 (three TF32 passes, the bound
+    runs 3xTF32 on wgmma at every head dim (three TF32 passes, the bound
     those passes at the TF32 peak, the FFMA floor of the same work beside
-    it) and the FFMA kernel at hd 256: within 1e-5.  The library call is
+    it; at hd 256 K and V stream through one ring in 32-hd pieces):
+    within 1e-5.  The library call is
     SDPA on the kv heads repeated to H (a boolean mask for the window);
     for float32 the profiler names the kernel it ran.  ``ms`` times
     back-to-back calls, which at a small shape also reads the wrapper's
@@ -1134,13 +1144,10 @@ def check_flash(torch, fa, case, seed):
     esize = q.element_size()
     n_bytes = esize * 2 * B * S * hd * (H + K)
     n_ops = 4 * B * H * hd * pairs
-    tf32 = dtype == torch.float32 and hd in (64, 128)
     if dtype == torch.bfloat16:
         bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_PER_S)
-    elif tf32:
-        bms, by = bound_ms(n_bytes, 3 * n_ops, TF32_FLOP_PER_S)
     else:
-        bms, by = bound_ms(n_bytes, n_ops)
+        bms, by = bound_ms(n_bytes, 3 * n_ops, TF32_FLOP_PER_S)
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(H // K, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(H // K, dim=2).transpose(1, 2)
@@ -1157,14 +1164,19 @@ def check_flash(torch, fa, case, seed):
     def kernel():
         return fa.flash_attention(q, k, v, window=window)
 
-    if tf32:
+    if dtype == torch.float32 and hd == 256:
+        design = ("3xTF32 wgmma f32 (flash_fwd_3xtf32_pieces): Q's hi and "
+                  "lo resident, K and V^T through one 5-stage ring of "
+                  "64-key x 32-hd pieces that a producer warpgroup loads, "
+                  "splits and transposes, one consumer warpgroup on 64 "
+                  "queries, P's hi in registers and its lo in shared "
+                  "memory, P V in 32-column parts")
+    elif dtype == torch.float32:
         design = ("3xTF32 wgmma f32 (flash_fwd_3xtf32): a producer "
                   "warpgroup loads, splits and transposes into K and V "
                   f"rings of {1 if hd == 128 else 2} stage(s), one consumer "
                   "warpgroup on 64 queries, 64-key tiles, P V in 32-column "
                   "parts")
-    elif dtype != torch.bfloat16:
-        design = "FFMA f32"
     elif hd == 128:
         design = "wgmma+TMA bf16, 128-key tiles, P in bf16"
     elif hd > 128:
@@ -1213,21 +1225,34 @@ def device_kernel_names(torch, run):
                    if ev.device_type == DeviceType.CUDA}) or "not measured"
 
 
-def check_prefill_f32(torch, dispatch, dev, rng):
-    """6d. Llama-3-8B at full width, depth cut to ``F32_LAYERS``, in
-    float32 (``compute_dtype``), one ``F32_PROMPT``-token prompt from
-    ``rng`` prefilled through the ``attention`` op's ``cuda``
-    implementation (the 3xTF32 kernel, once a layer) and its
+def f32_prefill_config(torch, arch, layers):
+    """``arch``'s published config in float32 (``compute_dtype``) with
+    ``attn_impl="flash"`` and its depth cut to ``layers``: a hybrid's
+    ``pattern`` cut to its first ``layers`` entries."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cut = dict(n_layers=layers)
+    if cfg.pattern:
+        cut["pattern"] = cfg.pattern[:layers]
+    return dataclasses.replace(cfg, **cut, attn_impl="flash",
+                               compute_dtype=torch.float32)
+
+
+def check_prefill_f32(torch, dispatch, dev, rng, phase, arch, layers,
+                      prompt):
+    """6d, 6e (``F32_PREFILLS``).  ``arch`` at full width, depth cut to
+    ``layers`` (``f32_prefill_config``), in float32, one ``prompt``-token
+    prompt from ``rng`` prefilled through the ``attention`` op's ``cuda``
+    implementation (a 3xTF32 kernel, once an attention layer) and its
     ``reference`` one with the same weights: last-position logits within
     ``F32_LOGIT_RTOL`` (relative L2).  Returns (the kernel path's
     ``flash_attention`` launches, an error or None)."""
-    from repro_torch.configs import get_config
     from repro_torch.models import Model
-    f32 = dataclasses.replace(get_config(LM_ARCH), n_layers=F32_LAYERS,
-                              attn_impl="flash", compute_dtype=torch.float32)
+    f32 = f32_prefill_config(torch, arch, layers)
+    n_attn = sum(kind.startswith("attn") for kind in f32.layer_kinds)
     model = Model(f32, device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED))
-    tok = torch.as_tensor(rng.integers(0, f32.vocab_size, F32_PROMPT)[None],
+    tok = torch.as_tensor(rng.integers(0, f32.vocab_size, prompt)[None],
                           device=dev)
     paths = {}
     for name, backend in (("cuda", None), ("reference",
@@ -1237,20 +1262,22 @@ def check_prefill_f32(torch, dispatch, dev, rng):
         torch.cuda.synchronize()
         dispatch.reset_launch_counts()
         t0 = time.perf_counter()
-        logits, _ = model.prefill({"tokens": tok}, cache_len=F32_PROMPT)
+        logits, _ = model.prefill({"tokens": tok}, cache_len=prompt)
         torch.cuda.synchronize()
         paths[name] = (logits[0, 0], dispatch.launch_counts()[
             "flash_attention"], time.perf_counter() - t0)
     lk, lr = paths["cuda"][0], paths["reference"][0]
     rel = ((lk - lr).norm() / lr.norm()).item()
     log(json.dumps(dict(
-        phase="6d", model=f32.name, layers=F32_LAYERS, prompt=F32_PROMPT,
-        dtype="float32", logits_rel_l2=rel, tol=F32_LOGIT_RTOL,
+        phase=phase, model=f32.name, layers=layers, prompt=prompt,
+        attention_layers=n_attn, dtype="float32", logits_rel_l2=rel,
+        tol=F32_LOGIT_RTOL,
         prefill_s={k: v[2] for k, v in paths.items()},
         launches={k: v[1] for k, v in paths.items()})))
     launches = paths["cuda"][1]
-    if launches != F32_LAYERS or paths["reference"][1] != 0:
-        return launches, f"6d launches {[v[1] for v in paths.values()]}"
+    if launches != n_attn or paths["reference"][1] != 0:
+        return launches, (f"{phase} launches "
+                          f"{[v[1] for v in paths.values()]}")
     if lk.shape != (f32.vocab_size,) or not torch.isfinite(lk).all() \
             or not rel <= F32_LOGIT_RTOL:
         return launches, (f"float32 kernel path logits {tuple(lk.shape)} "
@@ -3389,12 +3416,13 @@ def main() -> int:
     gc.collect()     # the engine's timed methods close a reference cycle
     torch.cuda.empty_cache()
 
-    # 6d. a float32 prefill through the 3xTF32 kernel ---------------------
-    counts["prefill_f32"], bad = check_prefill_f32(torch, dispatch, dev,
-                                                   lm_rng)
-    if bad:
-        return fail(bad)
-    torch.cuda.empty_cache()
+    # 6d, 6e. float32 prefills through the 3xTF32 kernels -----------------
+    for phase, arch, layers, prompt in F32_PREFILLS:
+        counts[f"prefill_f32_{phase}"], bad = check_prefill_f32(
+            torch, dispatch, dev, lm_rng, phase, arch, layers, prompt)
+        if bad:
+            return fail(bad)
+        torch.cuda.empty_cache()
 
     # 7a. graph_mix's agent-axis form at the coupling's leaves ------------
     agent_cases = []
@@ -3541,23 +3569,25 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
         row["resources"] = fa.flash_attention_resources(hd, torch.bfloat16)
         summary.append(row)
-    # the float32 kernel (3xTF32 at hd 64 and 128; hd 256 stays on FFMA):
-    # 6d's launches, timed at Llama-3-8B's prefill shape, every float32
-    # 6a case beside it
+    # the float32 kernels (3xTF32 at every head dim): 6d's and 6e's
+    # launches, timed at Llama-3-8B's prefill shape, every float32 6a case
+    # beside it
     f32_cases = [kr for kr in fa_cases if "float32" in kr["shape"]]
     case = next(kr for kr in f32_cases if "hd=128 " in kr["shape"])
     row = {k: case[k] for k in (
         "name", "route", "source", "replaces", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "design", "shape",
         "ffma_floor_ms", "library_kernels")}
-    row["launches_by_path"] = {"prefill_f32": counts["prefill_f32"]}
-    row["launches"] = counts["prefill_f32"]
+    row["launches_by_path"] = {
+        f"prefill_f32_{phase}": counts[f"prefill_f32_{phase}"]
+        for phase, *_ in F32_PREFILLS}
+    row["launches"] = sum(row["launches_by_path"].values())
     row["cases"] = [{k: c[k] for k in (
         "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
         "ffma_floor_ms", "library_ms", "library_device_ms", "design")}
         for c in f32_cases]
     row["resources"] = {hd: fa.flash_attention_resources(hd, torch.float32)
-                        for hd in (64, 128)}
+                        for hd in fa.HEAD_DIMS}
     summary.append(row)
     log(json.dumps({"kernels": summary}))
     log(smi)

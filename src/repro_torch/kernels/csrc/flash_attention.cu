@@ -176,20 +176,65 @@
 //     consumer warpgroup has no shared memory left at hd 128); Q in
 //     registers for S at hd 64.
 //
-// float32 at hd 256: FFMA (flash_fwd_kernel<float, 256>).  Its hi and lo
-//   operands would leave room only for 16-key tiles (Q alone is 128 KB at
-//   64 queries), so it stays on FFMA: one block per (batch * head,
-//   64-query tile), 256 threads as a 16 x 16 grid; q and k kept in shared
-//   memory transposed, v as rows; thread (ty, tx) owns queries 4 ty .. +3
-//   and, of the 64 x 64 logit tile, keys 4 tx .. +3; the row max and sum
-//   are reduced over the 16 threads of a row by warp shuffles; the weights
-//   go through shared memory for P @ V, all in float32.  Its shared memory
-//   is 208 KB.
+// float32 at hd 256: 3xTF32 on wgmma, the head dim in 32-column pieces
+//   (flash_fwd_3xtf32_pieces).  The arithmetic is flash_fwd_3xtf32's; S's
+//   32 eight-deep steps are chained in hd order in one accumulator a tile.
+//   Two things bound the design: shared memory (Q, K and V^T held whole in
+//   hi and lo at 64 queries and 64 keys would take 384 KB of a block's
+//   227) and the consumer's registers (O alone is 128 of a thread's 255).
+//   - Q's hi and lo stay resident (128 KB).  K and V^T stream through one
+//     ring of five 16 KB stages, each a piece of 64 keys x 32 hd in hi and
+//     lo, with full and empty mbarriers a stage.  A kv tile is K's eight
+//     pieces, then V^T's eight.  S issues piece c + 1's products before it
+//     waits for piece c's and releases that stage; P V takes one V^T piece
+//     a part (32 columns of O).
+//   - P's hi stays in registers as P V's A fragments.  P's lo, which only
+//     P_lo V_hi reads, goes to shared memory (16 KB, in V^T's key order)
+//     and that product takes its A from there.  The consumer holds O
+//     (128 registers), S's two accumulators (64) until the softmax, then
+//     P's hi (32) and a part's two sums (32): no local memory at 255
+//     registers.  With P's lo in registers too (64-hd pieces through three
+//     32 KB stages) ptxas spilled 56 to 88 bytes at every P V part width
+//     tried (8, 16 and 32 columns).
+//   - One producer warpgroup loads each piece by 16-byte LDGs one piece
+//     ahead of the one it splits and stores, into fragments picked at
+//     compile time (indexed arrays of them went to local memory).
+//   - ptxas serialized every wgmma (C7520) while a stage was released by
+//     lane 0 alone and the wait before a batch relied on ptxas's own
+//     wgmma.fence: every consumer thread arrives, and each wait ends in a
+//     wgmma.fence.
+//   - Heaviest query tiles first: at RecurrentGemma-2B's float32 prefill
+//     shape (S 4096, H 10, K 1, window 2048) 640 blocks walk 1 to 33 kv
+//     tiles, 15,840 tile steps, 120 an SM on average (how evenly the
+//     SMs end was not measured for this design).
+//   - Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/
+//     probe_flash_attention.py, two calls): 1.0390-1.0475 device ms at
+//     that shape against the parent's FFMA kernel's 2.6499-2.7438 in the
+//     same calls, a 0.3905 ms bound (three TF32 passes at the TF32 peak:
+//     37-38 % of it) and SDPA's float32 call's 4.64-4.70 ms; 0.0314-0.0316
+//     ms at B 1, S 512, H 4, K 2, window 128 (the parent 0.0707-0.0717).
+//   - What holds it there, by count (not measured): a tile step moves
+//     about 960 KB through shared memory (S's operands 384 KB, P V's 320
+//     KB, the producer's hi and lo stores 256 KB), some 7,500 clocks at
+//     128 bytes a clock, against about 6,100 clocks of tensor work; and
+//     S's m64n64k8 products read as many operand bytes a clock as the
+//     shared memory delivers.  Wider S tiles would cut the Q re-reads but
+//     need registers the consumer does not have.
+//   - Tried and dropped: P's lo in registers (above: spills; 1.03-1.06
+//     ms); the producer loading two or three pieces ahead, and two P V
+//     parts in flight: no faster; all of P through shared memory: spills
+//     and slower; every wgmma serialized by ptxas (C7520), 1.61-1.64 ms.
+//   - Next steps: fewer shared-memory bytes a tile step (Q's hi and lo
+//     read once for two kv tiles, or the split moved into the consumer's
+//     idle slots), then a second producer warpgroup.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 #include "hopper.cuh"
 
@@ -226,203 +271,6 @@ cudaError_t configure_once(const void* kernel, int bytes, bool max_carveout,
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return err;
 }
-
-// ---- float32 at hd 256: FFMA ----------------------------------------------
-
-namespace ffma {
-
-constexpr int BQ = 64;        // queries per block
-constexpr int BK = 64;        // keys per kv tile
-constexpr int THREADS = 256;  // 16 x 16
-
-// 16 bytes of float32 from global memory
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int KH, int window, float scale) {
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
-  constexpr int CHUNKS = HD / VEC;      // 16-byte loads per row
-  constexpr int DC = HD / 16;           // accumulator columns per thread
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [HD][BQ]
-  float* Kt = Qt + HD * BQ;                     // [HD][BK]
-  float* Vs = Kt + HD * BK;                     // [BK][HD]
-  float* Ps = Vs + BK * HD;                     // [BK][BQ]
-
-  const int qi = gridDim.x - 1 - blockIdx.x;    // heaviest tiles first
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int kh = h / (H / KH);
-  const int q0 = qi * BQ;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t q_stride = (size_t)H * HD;       // between positions
-  const size_t kv_stride = (size_t)KH * HD;
-  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
-  const T* kb = k + (size_t)b * S * kv_stride + (size_t)kh * HD;
-  const T* vb = v + (size_t)b * S * kv_stride + (size_t)kh * HD;
-  T* ob = o + (size_t)b * S * q_stride + (size_t)h * HD;
-
-  // transposed stores: neighbouring lanes take neighbouring rows, so the
-  // scalar stores to [d][row] hit 32 different banks
-  for (int c = tid; c < BQ * CHUNKS; c += THREADS) {
-    const int r = c % BQ, d0 = (c / BQ) * VEC;
-    float f[VEC];
-    load16(qb + (size_t)(q0 + r) * q_stride + d0, f);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) Qt[(d0 + j) * BQ + r] = f[j];
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int q_last = q0 + BQ - 1;
-  const int kt_end = q_last / BK;               // causal limit, inclusive
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
-
-  for (int kt = kt_begin; kt <= kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the last tile's reads of Kt, Vs and Ps are done
-    for (int c = tid; c < BK * CHUNKS; c += THREADS) {
-      const int r = c % BK, d0 = (c / BK) * VEC;
-      float f[VEC];
-      load16(kb + (size_t)(k0 + r) * kv_stride + d0, f);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) Kt[(d0 + j) * BK + r] = f[j];
-    }
-    for (int c = tid; c < BK * CHUNKS; c += THREADS) {
-      const int r = c / CHUNKS, d0 = (c % CHUNKS) * VEC;
-      float f[VEC];
-      load16(vb + (size_t)(k0 + r) * kv_stride + d0, f);
-#pragma unroll
-      for (int j = 0; j < VEC; j += 4)
-        *reinterpret_cast<float4*>(&Vs[r * HD + d0 + j]) =
-            make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * BQ + ty * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&Kt[d * BK + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx * 4 + j;
-        const bool live = kp <= qp && (window <= 0 || kp > qp - window);
-        s[i][j] = live ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Ps[(tx * 4 + j) * BQ + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&Ps[kk * BQ + ty * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      float vv[DC];
-#pragma unroll
-      for (int g = 0; g < DC / 4; ++g) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(&Vs[kk * HD + g * 64 + tx * 4]);
-        vv[4 * g] = x.x;
-        vv[4 * g + 1] = x.y;
-        vv[4 * g + 2] = x.z;
-        vv[4 * g + 3] = x.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = fmaxf(l[i], 1e-20f);
-    T* orow = ob + (size_t)(q0 + ty * 4 + i) * q_stride + tx * 4;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      store(orow + (c / 4) * 64 + c % 4, acc[i][c] / li);
-  }
-}
-
-template <int HD>
-constexpr int smem_bytes() {
-  return sizeof(float) * (2 * HD * BQ + BK * HD + BK * BQ);
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KH, int window, float scale, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
-  auto kernel = flash_fwd_kernel<T, HD>;
-  static bool configured[MAX_DEVICES];
-  const cudaError_t err =
-      configure_once((const void*)kernel, smem, false, configured);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(S / BQ, B * H);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KH, window, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace ffma
 
 // ---- bf16: wgmma + TMA ------------------------------------------------------
 
@@ -1673,14 +1521,354 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   return (int)cudaGetLastError();
 }
 
+// ---- float32 at hd 256: 3xTF32 on wgmma, hd in 32-column pieces ----------
+
+// Shared memory: Q_hi and Q_lo whole (64 KB each), P_lo (16 KB), then one
+// ring of Pieces::STAGES stages, each a piece's hi and lo (8 KB each), then
+// the barriers.  A piece is 64 keys x 32 hd of K (K-major, rows keys: one
+// column block) or 32 hd x 64 keys of V^T (rows hd, keys in VTrans' order:
+// two column blocks); a kv tile is K's eight pieces (hd 0..31, ..,
+// 224..255) and then V^T's eight.  Q is eight K pieces side by side, and
+// P_lo is 64 queries x 64 keys in V^T's key order (two column blocks).
+struct Pieces {
+  static constexpr int HD = 256, PD = 32, NC = HD / PD;
+  static constexpr int STAGES = 5;
+  static constexpr int Q_BYTES = BQ * HD * 4;         // Q_hi or Q_lo
+  static constexpr int P_BYTES = BQ * BK * 4;         // P_lo
+  static constexpr int PIECE = BK * PD * 4;           // a piece's hi or lo
+  static constexpr int BARS = 1 + 2 * STAGES;         // q; full, empty
+  static constexpr int BYTES = 2 * Q_BYTES + P_BYTES + 2 * STAGES * PIECE +
+                               8 * BARS + 1024;       // 1024-byte alignment
+  static_assert(BQ * PD * 4 == PIECE, "a Q piece is a K piece");
+  static_assert(BYTES <= 232448, "more than a block's shared memory");
+};
+
+// a piece's index in its kv tile, as a type, so that the producer picks
+// each piece's fragments at compile time
+template <int J>
+using PieceIx = std::integral_constant<int, J>;
+
+// f(PieceIx<0>{}), .., f(PieceIx<N - 1>{})
+template <class F, int... J>
+__device__ __forceinline__ void each_piece(F&& f,
+                                           std::integer_sequence<int, J...>) {
+  (f(PieceIx<J>{}), ...);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_3xtf32_pieces(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        int S, int H, int KH, int window, float scale_log2) {
+  using L = Pieces;
+  constexpr int HD = L::HD, PD = L::PD, NC = L::NC, ST = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQh = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sQl = sQh + L::Q_BYTES;
+  uint8_t* sP = sQl + L::Q_BYTES;       // P_lo
+  uint8_t* sR = sP + L::P_BYTES;        // stage st: hi, lo at 2 st PIECE
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sR + 2 * ST * L::PIECE);
+  uint64_t* full = bar_q + 1;           // a stage's piece is stored
+  uint64_t* empty = full + ST;          // its products are done
+
+  const int qi = gridDim.y - 1 - blockIdx.y;    // heaviest tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kh = h / (H / KH);
+  const int q0 = qi * BQ;
+  const int tid = threadIdx.x;
+  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KH * HD;
+  const int kt_end = (q0 + BQ - 1) / BK;        // causal limit, inclusive
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int n_tiles = kt_end - kt_begin + 1;
+
+  if (tid == 0) {
+    hopper::mbar_init(bar_q, 128);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 128);         // every producer thread
+      hopper::mbar_init(&empty[s], 128);        // every consumer thread
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ---- producer: load, split (and transpose V), store, piece by piece
+    const int pt = tid - 128;
+    const float* qb = q + ((size_t)b * S + q0) * q_stride + (size_t)h * HD;
+    const float* kb = k + (size_t)b * S * kv_stride + (size_t)kh * HD;
+    const float* vb = v + (size_t)b * S * kv_stride + (size_t)kh * HD;
+    // Each piece's loads are issued one piece before it is stored (while
+    // the producer waits for a stage and stores the piece before), into
+    // fragments named by the piece's kind and parity, chosen at compile
+    // time: K's even pieces in k0, odd ones in k1, V^T's likewise in v0
+    // and v1 (Q's in qa and qc).  Indexed arrays of fragments went to
+    // local memory.
+    {
+      KMajor<BQ, PD> qa, qc;
+      qa.fetch(qb, q_stride, pt);
+#pragma unroll
+      for (int c = 0; c < NC; c += 2) {
+        qc.fetch(qb + (c + 1) * PD, q_stride, pt);
+        qa.put(sQh + c * L::PIECE, sQl + c * L::PIECE, pt);
+        if (c + 2 < NC) qa.fetch(qb + (c + 2) * PD, q_stride, pt);
+        qc.put(sQh + (c + 1) * L::PIECE, sQl + (c + 1) * L::PIECE, pt);
+      }
+    }
+    hopper::fence_proxy_async_shared();
+    hopper::mbar_arrive(bar_q);
+    KMajor<BK, PD> k0, k1;
+    VTrans<BK, PD> v0, v1;
+    // piece j of tile i: K's eight (hd 0..31, .., 224..255), then V^T's
+    const auto src = [&](int i, int j) {
+      return (j < NC ? kb : vb) + (size_t)(kt_begin + i) * BK * kv_stride +
+             (j % NC) * PD;
+    };
+    const auto fetch = [&](auto jc, int i) {
+      constexpr int j = decltype(jc)::value;
+      if constexpr (j < NC && j % 2 == 0) k0.fetch(src(i, j), kv_stride, pt);
+      else if constexpr (j < NC) k1.fetch(src(i, j), kv_stride, pt);
+      else if constexpr (j % 2 == 0) v0.fetch(src(i, j), kv_stride, pt);
+      else v1.fetch(src(i, j), kv_stride, pt);
+    };
+    // piece g = 2 NC i + j of the block's walk sits in stage g % ST; its
+    // use g / ST waits for the consumers' release of use g / ST - 1
+    const auto step = [&](auto jc, int i) {
+      constexpr int j = decltype(jc)::value, jn = (j + 1) % (2 * NC);
+      const int in = i + (j + 1) / (2 * NC), g = 2 * NC * i + j;
+      if (in < n_tiles) fetch(PieceIx<jn>{}, in);
+      const int st = g % ST;
+      uint8_t* hi = sR + 2 * st * L::PIECE;
+      if (g >= ST) hopper::mbar_wait(&empty[st], (g / ST + 1) & 1);
+      if constexpr (j < NC && j % 2 == 0) k0.put(hi, hi + L::PIECE, pt);
+      else if constexpr (j < NC) k1.put(hi, hi + L::PIECE, pt);
+      else if constexpr (j % 2 == 0) v0.put(hi, hi + L::PIECE, pt);
+      else v1.put(hi, hi + L::PIECE, pt);
+      hopper::fence_proxy_async_shared();
+      hopper::mbar_arrive(&full[st]);
+    };
+    fetch(PieceIx<0>{}, 0);
+    for (int i = 0; i < n_tiles; ++i)
+      each_piece([&](auto jc) { step(jc, i); },
+                 std::make_integer_sequence<int, 2 * NC>{});
+    return;
+  }
+
+  // ---- consumer warpgroup: 64 query rows ----
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2);       // rows r0 and r0 + 8
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  float o_acc[NC][PD / 2];              // P V's part c: O's columns of piece c
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < PD / 2; ++i) o_acc[c][i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  // one descriptor, Q_hi's, is live across the walk: Q_lo's, P_lo's and
+  // the ring's are offsets from it, formed at their use
+  const uint64_t dq = desc_sw128(hopper::smem_addr(sQh), 0,
+                                 ATOM_ROWS_BYTES);
+  const auto ring = [&](int g) {
+    return tc::desc_add(dq, 2 * L::Q_BYTES + L::P_BYTES +
+                                2 * (g % ST) * L::PIECE);
+  };
+  // every consumer thread arrives (no branch on the lane: a divergent path
+  // between a wgmma and its wait makes ptxas serialize every wgmma, C7520)
+  auto release = [&](int g) { hopper::mbar_arrive(&empty[g % ST]); };
+  // the stage's piece is stored; then wgmma.fence, so that ptxas inserts
+  // none of its own after the (divergent) wait loop
+  auto wait_full = [&](int g) {
+    hopper::mbar_wait(&full[g % ST], (g / ST) & 1);
+    __syncwarp();          // wgmma is .aligned: the warp must be converged
+    hopper::wgmma_fence();
+  };
+  hopper::mbar_wait(bar_q, 0);
+
+  int g = 0;                            // the tile's first piece
+  for (int i = 0; i < n_tiles; ++i, g += 2 * NC) {
+    const int k0 = (kt_begin + i) * BK;
+
+    // S = Q_hi K_hi^T into one fragment, Q_lo K_hi^T + Q_hi K_lo^T into
+    // another, each from zero, over K's eight pieces in one chain (the 32
+    // 8-deep steps in hd order); piece c's products are a commit group,
+    // and its stage is released once the next piece's are issued and its
+    // own are done
+    float shh[BK / 2], ssm[BK / 2];
+    hopper::fence_regs(shh);
+    hopper::fence_regs(ssm);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      wait_full(g + c);
+      const uint64_t dqh = dq, dql = tc::desc_add(dqh, L::Q_BYTES);
+      const uint64_t dkh = ring(g + c), dkl = tc::desc_add(dkh, L::PIECE);
+#pragma unroll
+      for (int kk = 0; kk < PD / 8; ++kk) {
+        const uint32_t qo = c * L::PIECE + kk * 32, ko = kk * 32;
+        const int acc = c > 0 || kk > 0;
+        hopper::wgmma_m64n64k8_tf32_ss(shh, tc::desc_add(dqh, qo),
+                                       tc::desc_add(dkh, ko), acc);
+        hopper::wgmma_m64n64k8_tf32_ss(ssm, tc::desc_add(dql, qo),
+                                       tc::desc_add(dkh, ko), acc);
+        hopper::wgmma_m64n64k8_tf32_ss(ssm, tc::desc_add(dqh, qo),
+                                       tc::desc_add(dkl, ko), 1);
+      }
+      hopper::wgmma_commit();
+      if (c > 0) {
+        hopper::wgmma_wait<1>();
+        release(g + c - 1);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(shh);
+    hopper::fence_regs(ssm);
+    release(g + NC - 1);
+
+    // online softmax, log2 domain, in IEEE float32 (flash_fwd_3xtf32's)
+    const bool masked = k0 + BK - 1 > q0 ||
+                        (window > 0 && k0 <= q0 + BQ - 1 - window);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = (shh[4 * j + e] + ssm[4 * j + e]) * scale_log2;
+        if (masked) {
+          const int kp = k0 + 8 * j + 2 * quad + (e & 1);
+          const int qp = e < 2 ? row0 : row1;
+          const bool live = kp <= qp && (window <= 0 || kp > qp - window);
+          x = live ? x : NEG_INF;
+        }
+        shh[4 * j + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // P split into TF32 hi and lo: P_hi as A fragments in registers
+    // (flash_fwd_3xtf32's), P_lo stored to shared memory in the same key
+    // order (slot t of step j in chunk 2 (j % 4), slot t + 4 in the next),
+    // for P V's one product that reads it.  Keeping P_lo in registers too
+    // left the consumer short of registers (256 with O's 128) and ptxas
+    // spilled.
+    float rs0 = 0.f, rs1 = 0.f;
+    uint32_t ph[BK / 8][4];
+    const auto put_lo = [&](int j, int r, int half, uint32_t lo) {
+      *reinterpret_cast<uint32_t*>(
+          sP + sw128(BQ, j / 4, r, 2 * (j % 4) + half) + 4 * quad) = lo;
+    };
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(shh[4 * j + e] - (e < 2 ? mn0 : mn1));
+        if (e < 2) rs0 += p[e];
+        else rs1 += p[e];
+      }
+      uint32_t lo;
+      hopper::split_tf32(p[0], ph[j][0], lo);
+      put_lo(j, r0, 0, lo);
+      hopper::split_tf32(p[2], ph[j][1], lo);
+      put_lo(j, r0 + 8, 0, lo);
+      hopper::split_tf32(p[1], ph[j][2], lo);
+      put_lo(j, r0, 1, lo);
+      hopper::split_tf32(p[3], ph[j][3], lo);
+      put_lo(j, r0 + 8, 1, lo);
+    }
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+    // P_lo visible to wgmma, from all four warps.  It is rewritten only
+    // after the next tile's S, which no warp finishes before every warp
+    // has issued it, past its wait for this tile's P V.
+    hopper::fence_proxy_async_shared();
+    hopper::named_sync(1, 128);
+
+    // (P V)_tile over V^T's eight pieces, a part of 32 columns of O each:
+    // P_hi V_hi + (P_lo V_hi + P_hi V_lo), each from zero; O = alpha O +
+    // (hh + sm) by IEEE FMAs
+    const uint64_t dp = tc::desc_add(dq, 2 * L::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      wait_full(g + NC + c);
+      const uint64_t dvh = ring(g + NC + c), dvl = tc::desc_add(dvh, L::PIECE);
+      float hh[PD / 2], sm[PD / 2];
+      hopper::fence_regs(hh);
+      hopper::fence_regs(sm);
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        const uint32_t vo = (kk / 4) * PD * 128 + (kk % 4) * 32;
+        const uint32_t po = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        const uint64_t bh = tc::desc_add(dvh, vo);
+        hopper::wgmma_m64n32k8_tf32_rs(hh, ph[kk], bh, kk > 0);
+        hopper::wgmma_m64n32k8_tf32_ss(sm, tc::desc_add(dp, po), bh, kk > 0);
+        hopper::wgmma_m64n32k8_tf32_rs(sm, ph[kk], tc::desc_add(dvl, vo), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(hh);
+      hopper::fence_regs(sm);
+      release(g + NC + c);
+#pragma unroll
+      for (int e = 0; e < PD / 2; ++e)
+        o_acc[c][e] = fmaf((e & 2) ? alpha1 : alpha0, o_acc[c][e],
+                           hh[e] + sm[e]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) hopper::fence_regs(ph[kk]);
+  }
+
+  // epilogue: reduce l over the row's 4 threads, normalise, store
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+  float* ob = o + (size_t)b * S * q_stride + (size_t)h * HD + 2 * quad;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < PD / 8; ++j) {
+      const int col = c * PD + 8 * j;
+      *reinterpret_cast<float2*>(ob + (size_t)row0 * q_stride + col) =
+          make_float2(o_acc[c][4 * j] * inv0, o_acc[c][4 * j + 1] * inv0);
+      *reinterpret_cast<float2*>(ob + (size_t)row1 * q_stride + col) =
+          make_float2(o_acc[c][4 * j + 2] * inv1, o_acc[c][4 * j + 3] * inv1);
+    }
+}
+
+int launch_pieces(const void* q, const void* k, const void* v, void* o,
+                  int B, int S, int H, int KH, int window, float scale,
+                  cudaStream_t stream) {
+  constexpr int smem = Pieces::BYTES;
+  static bool configured[MAX_DEVICES];
+  const cudaError_t err = configure_once((const void*)flash_fwd_3xtf32_pieces,
+                                         smem, false, configured);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, S / BQ);
+  flash_fwd_3xtf32_pieces<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KH, window,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace f32tc
 
 }  // namespace
 
 // q, o (B, S, H, hd) and k, v (B, S, KH, hd), contiguous and 16-byte
-// aligned, all float32 (is_bf16 = 0: the 3xTF32 wgmma kernel at hd 64 and
-// 128, the FFMA kernel at 256) or all bfloat16 (is_bf16 = 1, the wgmma
-// kernels); hd in {64, 128, 256}, S % 64 == 0, KH | H;
+// aligned, all float32 (is_bf16 = 0: the 3xTF32 wgmma kernels) or all
+// bfloat16 (is_bf16 = 1, the wgmma kernels); hd in {64, 128, 256}, S % 64
+// == 0, KH | H;
 // window <= 0 means none; scale multiplies q . k.  Returns 1
 // (cudaErrorInvalidValue) for a shape outside that contract, 10000 when the
 // driver has no cuTensorMapEncodeTiled and 10000 + its CUresult when it
@@ -1690,12 +1878,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int H, int KH, int hd, int window,
                                      int is_bf16, float scale,
                                      cudaStream_t stream) {
-  if (S <= 0 || S % ffma::BQ || KH <= 0 || H % KH || B <= 0) return 1;
+  if (S <= 0 || S % f32tc::BQ || KH <= 0 || H % KH || B <= 0) return 1;
   if (hd == 256)
     return is_bf16 ? tc::launch<256>(q, k, v, o, B, S, H, KH, window, scale,
                                      stream)
-                   : ffma::launch<float, 256>(q, k, v, o, B, S, H, KH,
-                                              window, scale, stream);
+                   : f32tc::launch_pieces(q, k, v, o, B, S, H, KH, window,
+                                          scale, stream);
   if (hd == 128)
     return is_bf16 ? tc::launch<128>(q, k, v, o, B, S, H, KH, window, scale,
                                      stream)
@@ -1716,8 +1904,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // out[0..2]; 1 for an hd outside the contract.
 extern "C" int repro_flash_attention_attrs(int hd, int is_bf16, int* out) {
   const void* fn = nullptr;
-  // the float32 kernels (FFMA and 3xTF32) both run 256 threads
-  int threads = ffma::THREADS, smem = 0;
+  // the float32 kernels all run 256 threads
+  int threads = f32tc::THREADS, smem = 0;
   bool max_carveout = false;
   auto bf16 = [&](tc::Shape s) {
     fn = (const void*)s.kernel;
@@ -1731,8 +1919,8 @@ extern "C" int repro_flash_attention_attrs(int hd, int is_bf16, int* out) {
   };
   if (hd == 256) {
     if (is_bf16) bf16(tc::shape_for<256>());
-    else f32((const void*)ffma::flash_fwd_kernel<float, 256>,
-             ffma::smem_bytes<256>());
+    else f32((const void*)f32tc::flash_fwd_3xtf32_pieces,
+             f32tc::Pieces::BYTES);
   } else if (hd == 128) {
     if (is_bf16) bf16(tc::shape_for<128>());
     else f32((const void*)f32tc::flash_fwd_3xtf32<128>,

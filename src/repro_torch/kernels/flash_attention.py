@@ -16,16 +16,19 @@ producer warpgroup hands its registers to the consumers, which own 64
 query rows each, take turns on the tensor cores and walk 80-key tiles; at
 64 the consumers share a 64-query tile and split its 64-key tiles, merged
 at the end, two blocks an SM.
-In float32 at head dims 64 and 128 it runs 3xTF32 on the tensor cores
-(``wgmma``): every operand and the softmax weights split into a TF32 hi
-and lo, a . b ~ a_hi b_hi + (a_lo b_hi + a_hi b_lo), each kv tile's
-products summed from zero and added to O in IEEE float32, which keeps the
-float32 bar of 1e-5; one block of a producer warpgroup (loads, splits,
-transposes V into shared memory) and a consumer warpgroup per (batch *
-head, 64-query tile), 64-key tiles.  In float32 at head dim 256 it is the
-FFMA kernel (64-query tiles, all in float32).  Every kernel reads the kv
-heads in place and never loads a fully masked kv tile; the source note
-says what bounds each on the H100 and how the design answers that.
+In float32 it runs 3xTF32 on the tensor cores (``wgmma``) at every head
+dim: every operand and the softmax weights split into a TF32 hi and lo,
+a . b ~ a_hi b_hi + (a_lo b_hi + a_hi b_lo), each kv tile's products
+summed from zero and added to O in IEEE float32, which keeps the float32
+bar of 1e-5; one block per (batch * head, 64-query tile) whose producer
+threads load, split and transpose V into shared memory for one consumer
+warpgroup, 64-key tiles.  At head dims 64 and 128 K and V have rings of
+their own; at 256 Q's hi and lo stay in shared memory, K and V^T
+stream through one ring in 32-column pieces of the head dim, and P's lo
+goes through shared memory to its one product.  Every
+kernel reads the kv heads in place and never loads a fully masked kv
+tile; the source note says what bounds each on the H100 and how the
+design answers that.
 Beside it sits the plain PyTorch version (``kernels.ref.flash_attention``),
 which runs for tensors on the CPU only: for CUDA tensors the wrapper
 launches the kernel or raises.
@@ -92,9 +95,9 @@ def flash_attention(q, k, v, *, window=None):
     in q's dtype (``kernels.ref.flash_attention``).
 
     CUDA tensors launch the kernel (bf16 or float32, hd in {64, 128, 256},
-    S % 64 == 0, else it raises; float32 at hd 64 and 128 runs 3xTF32 on
-    the tensor cores, within 1e-5 of the plain version); CPU tensors take
-    the plain version.
+    S % 64 == 0, else it raises; float32 runs 3xTF32 on the tensor cores,
+    within 1e-5 of the plain version); CPU tensors take the plain
+    version.
     """
     global launches
     if q.device.type == "cpu":

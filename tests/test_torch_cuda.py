@@ -417,15 +417,23 @@ def randn(dev, shape, dtype, g):
     (torch.float32, 2, 320, 16, 16, 128, None),
     (torch.float32, 1, 64, 2, 1, 64, None),     # S = 64: one block a head
     (torch.float32, 2, 64, 4, 2, 128, 1),
-    (torch.float32, 1, 4096, 8, 2, 128, None)])     # 128 kv tiles a row
+    (torch.float32, 1, 4096, 8, 2, 128, None),      # 128 kv tiles a row
+    # the float32 hd-256 kernel's edges: 64-query blocks, 64-key tiles,
+    # K and V^T streamed through one ring in 32-hd pieces
+    (torch.float32, 1, 320, 4, 1, 256, 100),    # windows not a multiple
+    (torch.float32, 2, 256, 2, 2, 256, 65),     # of the key tile
+    (torch.float32, 1, 384, 10, 1, 256, 130),   # MQA 10:1
+    (torch.float32, 1, 64, 2, 1, 256, None),    # S = 64: one block a head
+    (torch.float32, 1, 192, 2, 1, 256, 1),      # only the diagonal key
+    (torch.float32, 1, 4096, 10, 1, 256, 2048)])    # RecurrentGemma-2B
 def test_flash_attention_kernel(cuda, dtype, B, S, H, K, hd, window):
     """bf16 (wgmma): the kernel rounds the softmax weights to bf16 once
     per kv tile (128 keys at hd 128, 80 at hd 256, 64 at hd 64) before
     P @ V, as the JAX oracle does; the plain version keeps them in
     float32.  That moves the output by about one bf16 ulp
     (tests/test_torch_tc_numerics.py), inside the bar of 1e-2 abs and rel.
-    float32: 3xTF32 on the tensor cores at hd 64 and 128 (each kv tile's
-    products from zero, added in IEEE float32), FFMA at hd 256: 1e-5."""
+    float32: 3xTF32 on the tensor cores (each kv tile's products from
+    zero, added in IEEE float32): 1e-5."""
     g = torch.Generator(device=cuda).manual_seed(S + H + K)
     q = randn(cuda, (B, S, H, hd), dtype, g)
     k = randn(cuda, (B, S, K, hd), dtype, g)
@@ -464,16 +472,20 @@ def test_flash_attention_hd256_does_not_spill(cuda, dtype, hd):
     kernel: at hd 256 the 64 x 256 float32 O accumulator (128 registers a
     thread) fits the consumers' 240 after setmaxnreg (the launch's 168 a
     thread of 384); at hd 64 two 256-thread blocks share an SM, at most
-    128 registers a thread.  In float32 hd 64 and 128 run the 3xTF32
+    128 registers a thread.  In float32 every head dim runs a 3xTF32
     kernel: one 256-thread block an SM (its shared memory, 192 KB at hd
-    128), whose consumer holds O (hd / 2 registers), a 32-column part's
-    two accumulators (32) and P's hi and lo fragments of a 64-key tile
-    (64)."""
+    128 and 225 KB at hd 256).  At hd 64 and 128 its consumer holds O
+    (hd / 2 registers), a 32-column part's two accumulators (32) and P's
+    hi and lo fragments of a 64-key tile (64).  At hd 256 O takes 128, so
+    P's lo goes through shared memory: the consumer holds O, S's two
+    accumulators (64) until the softmax, then P's hi (32) and a part's two
+    sums (32), inside a thread's 255."""
     res = fa.flash_attention_resources(hd, dtype)
     limit, blocks = {(torch.bfloat16, 256): (168, 1),
                      (torch.bfloat16, 64): (128, 2),
                      (torch.float32, 64): (255, 1),
-                     (torch.float32, 128): (255, 1)}.get((dtype, hd),
+                     (torch.float32, 128): (255, 1),
+                     (torch.float32, 256): (255, 1)}.get((dtype, hd),
                                                          (255, None))
     assert res["local_bytes"] == 0 and 0 < res["registers"] <= limit, res
     assert blocks is None or res["blocks_per_sm"] == blocks, res

@@ -25,7 +25,9 @@ Also: ``moe_apply`` alone in both forms on inputs whose gates have no
 ties and whose routing overflows the capacity; the parallel mLSTM with its
 final state; the two MoE forms' logits bit for bit in the port; ``loss``'s gradient for olmoe; the training route
 of ``attn_impl="flash"`` (``chunked_attention`` while autograd records,
-as the JAX package off the TPU) with its gradient; ``apply_mrope``,
+as the JAX package off the TPU) with its gradient; ``chip_smoke.py``
+6e's float32 RecurrentGemma cut, at a small width, through the flash
+route against ``attn_impl="ref"``; ``apply_mrope``,
 ``delay_pattern`` / ``undelay_pattern``, the trainer's ``positions3``
 split and the plain ``flash_attention`` at head dim 256 against JAX's;
 every arch's parameter shapes.
@@ -392,6 +394,56 @@ def test_flash_trains_through_chunked_attention(refs):
     close(loss, jloss)
     for g, j in zip(grads, jax.tree_util.tree_leaves(jgrad)):
         close(g, j, atol=1e-5)
+
+
+def test_f32_prefill_6e_takes_the_flash_route(monkeypatch):
+    """``chip_smoke.py`` 6e's model as 6e builds it (``f32_prefill_config``:
+    RecurrentGemma-2B cut to 6 layers, its pattern to its first six
+    entries, float32, ``attn_impl="flash"``), at a small width (d_model
+    256, two heads of 256 on one kv head, a window of 200): a 512-token
+    prefill through the ``attention`` op (on the CPU the plain
+    ``flash_attention``, once an attention layer) equals the same weights'
+    prefill through ``attn_impl="ref"`` within 1e-5."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.kernels import dispatch
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    _, arch, layers, _ = next(c for c in cs.F32_PREFILLS if c[0] == "6e")
+    cfg = cs.f32_prefill_config(torch, arch, layers)
+    assert cfg.n_layers == 6 and cfg.hd == 256
+    assert cfg.pattern == tconfigs.get_config(arch).pattern[:6]
+    assert cfg.compute_dtype == torch.float32 and cfg.attn_impl == "flash"
+    n_attn = sum(kind.startswith("attn") for kind in cfg.layer_kinds)
+    assert n_attn == 2
+    small = dataclasses.replace(cfg, d_model=256, n_heads=2, head_dim=256,
+                                d_ff=512, lru_dim=256, vocab_size=512,
+                                local_window=200)
+    plain = dispatch._REGISTRY["attention"]["reference"]
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(kw.get("window"))
+        return plain(*args, **kw)
+
+    monkeypatch.setitem(dispatch._REGISTRY["attention"], "reference",
+                        counted)
+    tok = torch.as_tensor(np.random.default_rng(6).integers(0, 512,
+                                                             (1, 512)))
+    out = {}
+    for impl in ("flash", "ref"):
+        model = TModel(dataclasses.replace(small, attn_impl=impl),
+                       device="cpu").init(torch.Generator().manual_seed(0))
+        out[impl], _ = model.prefill({"tokens": tok}, cache_len=512)
+    assert calls == [200] * n_attn
+    assert torch.isfinite(out["flash"]).all()
+    torch.testing.assert_close(out["flash"], out["ref"], atol=1e-5,
+                               rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

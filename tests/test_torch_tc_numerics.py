@@ -16,8 +16,8 @@ the JAX package before any card runs them.
   here stays within 1e-5 of ``repro.kernels.ref.graph_mix`` and of the
   port's plain version, and gives the same bits whatever the number of
   trials and whether A is read in 16- or 4-byte loads.
-* ``flash_attention`` in float32 runs 3xTF32 on the tensor cores at head
-  dims 64 and 128: Q, K, V and the softmax weights split like
+* ``flash_attention`` in float32 runs 3xTF32 on the tensor cores at every
+  head dim (64, 128, 256): Q, K, V and the softmax weights split like
   ``graph_mix``'s operands, each kv tile's hi and small products chained
   from zero (the tensor core truncating its adds), added in IEEE float32,
   and O = fma(alpha, O, P V) per tile; V^T's keys in the order that lets
@@ -383,11 +383,13 @@ def test_bf16_p_attention_within_bar(refs, hd, S, H, K, window):
 # flash_attention in float32: 3xTF32 on wgmma
 # --------------------------------------------------------------------------
 
-#: (queries a block, keys a kv tile) of the float32 kernel
-#: ``flash_fwd_3xtf32`` at each head dim: one consumer warpgroup on 64
-#: queries, 64-key tiles (at hd 128 Q, K and V^T, each hi and lo, take 64
-#: KB apiece)
-TF32_TILES = {64: (64, 64), 128: (64, 64)}
+#: (queries a block, keys a kv tile) of the float32 kernels at each head
+#: dim: one consumer warpgroup on 64 queries, 64-key tiles
+#: (``flash_fwd_3xtf32`` at hd 64 and 128, where Q, K and V^T, each hi and
+#: lo, take 64 KB apiece at hd 128; ``flash_fwd_3xtf32_pieces`` at hd 256,
+#: which streams K and V^T in 32-hd pieces and chains S's 32 steps in hd
+#: order, as one accumulator over the pieces)
+TF32_TILES = {64: (64, 64), 128: (64, 64), 256: (64, 64)}
 
 
 def pv_slot_keys(bk):
@@ -532,7 +534,10 @@ TF32_CASES = [
     pytest.param(128, 320, 8, 1, 200, id="hd128-gqa8-w200"),
     pytest.param(128, 256, 4, 4, 65, id="hd128-mha-w65"),
     pytest.param(128, 192, 8, 1, 63, id="hd128-gqa8-w63"),
-    pytest.param(128, 128, 2, 2, 1, id="hd128-mha-w1")]
+    pytest.param(128, 128, 2, 2, 1, id="hd128-mha-w1"),
+    pytest.param(256, 320, 10, 1, 100, id="hd256-mqa10-w100"),
+    pytest.param(256, 256, 4, 2, None, id="hd256-gqa2-causal"),
+    pytest.param(256, 128, 2, 1, 1, id="hd256-gqa2-w1")]
 
 
 def tf32_inputs(hd, S, H, K, window):

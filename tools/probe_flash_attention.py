@@ -21,7 +21,7 @@ outputs on the same inputs is printed for every case.  With
 ``--variants``, text edits of this checkout's warp-specialised kernel
 (``flash_fwd_ws``, head dims 256 and 64) are built too, each timed once
 at the bf16 hd-256 and hd-64 cases (device ms; their outputs are wrong by
-design and not held):
+design and not held; with ``--float32`` the float32 edits below):
 
 * ``no_reload``: each ring stage is filled once and the consumers compute
   on those tiles over and over (no copies in the loop);
@@ -36,8 +36,13 @@ design and not held):
 * ``exp2f``: the library's ``exp2f`` in place of one ``ex2.approx.ftz``.
 
 With ``--float32``, only the float32 cases of ``FA_CASES`` are read (the
-3xTF32 kernel at head dims 64 and 128, the FFMA kernel at 256), with or
-without ``--parent``.
+3xTF32 kernels: ``flash_fwd_3xtf32`` at head dims 64 and 128,
+``flash_fwd_3xtf32_pieces`` at 256), with or without ``--parent``; with
+``--variants`` too, the text edits are those of the hd-256 float32 kernel
+(``f32_*`` in ``EDITS``), each timed once at the float32 hd-256 cases:
+
+* ``f32_no_mma``: no ``wgmma`` issued (loads, splits, stores, waits and
+  softmax only).
 
 With ``--scaling``, each tree also times the bf16 hd-256 and hd-64 cases
 at batch 1, 2, 4 and 8 (device ms), so that the cost of a launch's start
@@ -62,8 +67,7 @@ OUT = ROOT / "build/probe_flash_attention"
 # --scaling: the hd-256 and hd-64 cases at these batch sizes (blocks
 # enough for several waves show what a launch's start and tail cost)
 BATCHES = (1, 2, 4, 8)
-PTXAS_WORDS = ("Compiling entry", "Used", "spill", "C7508", "C7515",
-               "warning")
+PTXAS_WORDS = ("Compiling entry", "Used", "spill", "C75", "warning")
 
 
 WS_MARK = "// ---- bf16 at hd 256 and 64: warp-specialised"
@@ -104,14 +108,29 @@ EDITS = {
     "exp2f": (
         ('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
          "  y = exp2f(x);"),),
+    # the float32 hd-256 kernel (flash_fwd_3xtf32_pieces)
+    "f32_no_mma": (
+        ("""        hopper::wgmma_m64n64k8_tf32_ss(shh, tc::desc_add(dqh, qo),
+                                       tc::desc_add(dkh, ko), acc);
+        hopper::wgmma_m64n64k8_tf32_ss(ssm, tc::desc_add(dql, qo),
+                                       tc::desc_add(dkh, ko), acc);
+        hopper::wgmma_m64n64k8_tf32_ss(ssm, tc::desc_add(dqh, qo),
+                                       tc::desc_add(dkl, ko), 1);""", ""),
+        ("""        hopper::wgmma_m64n32k8_tf32_rs(hh, ph[kk], bh, kk > 0);
+        hopper::wgmma_m64n32k8_tf32_ss(sm, tc::desc_add(dp, po), bh, kk > 0);
+        hopper::wgmma_m64n32k8_tf32_rs(sm, ph[kk], tc::desc_add(dvl, vo), 1);""",
+         "")),
 }
 
 
-def variants(text):
-    """``EDITS`` applied to the warp-specialised kernel of ``text``."""
+def variants(text, float32):
+    """``EDITS`` applied to the kernels of ``text`` from the warp-specialised
+    one on: the float32 ones (``f32_``) with ``float32``, else the rest."""
     head, mark, tail = text.partition(WS_MARK)
     out = {}
     for name, edits in EDITS.items():
+        if name.startswith("f32_") != float32:
+            continue
         body = tail
         for old, new in edits:
             if body.count(old) != 1:
@@ -165,7 +184,8 @@ def child(args) -> int:
     tag = dict(tree=args.name, run=args.run)
     if args.timing_only:
         for i, case in enumerate(cs.FA_CASES):
-            if case[4] == 128 or case[6] != "bfloat16":
+            if args.float32 != (case[6] == "float32") or case[4] == 128 \
+                    or (args.float32 and case[4] != 256):
                 continue
             for batch in BATCHES if args.scaling else (case[0],):
                 case = (batch, *case[1:])
@@ -231,7 +251,7 @@ def main() -> int:
                    root / CSRC) for name, root in trees.items()}
     if args.variants:
         todo.update({name: (text, ROOT / CSRC) for name, text in
-                     variants(todo["change"][0]).items()})
+                     variants(todo["change"][0], args.float32).items()})
     nvcc = [_build._nvcc(), *_build.NVCC_FLAGS]
     with concurrent.futures.ThreadPoolExecutor(len(todo)) as ex:
         built = dict(zip(todo, ex.map(
@@ -268,8 +288,8 @@ def main() -> int:
             continue
         failed |= subprocess.run(
             [sys.executable, __file__, "--child", "--timing-only", "--name",
-             name, "--src", str(ROOT / "src"), "--lib",
-             built[name][0]]).returncode
+             name, "--src", str(ROOT / "src"), "--lib", built[name][0]]
+            + ["--float32"] * name.startswith("f32_")).returncode
     if args.parent and not failed:
         for i, case in cases(cs, args.float32):
             a, b = (torch.load(OUT / f"{name}-{i}.pt") for name in trees)
